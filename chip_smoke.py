@@ -2,24 +2,38 @@
 
     python3 chip_smoke.py
 
-Phases, one line each, any failure exits non-zero and prints no result:
+Phases, one line each with its seconds; any failure exits non-zero and
+prints no result:
 
 1. device: a CUDA device must be present (its name, ``nvidia-smi``'s name and
    power limit, the torch and CUDA versions);
-2. build: the CUDA kernels from ``stringwars_tpu_torch/csrc`` (first use);
-3. kernels: each kernel against its plain torch version on the card, exact;
-4. main path: ``stringwars_tpu_torch.suites.find.main`` on the default
-   128 MB ``synthetic:english-words`` corpus in words mode; every
-   ``swtorch::`` row must report, every kernel must have launched in that
-   run, and the suite's first forward counts must equal a pure-Python
-   overlapping ``bytes.find`` loop;
-5. rows: the headline rows, each kernel timed with CUDA events (median of
-   5 runs of back-to-back calls, after warm-up) beside its plain version on
-   the card.
+2. build: the CUDA kernels from ``stringwars_tpu_torch/csrc`` (one ``nvcc``
+   per source, in parallel);
+3. kernels: each kernel against its plain torch version on the card, exact
+   (the hashes also against the published digests of the empty input);
+4. main path, each path with every launch count set to 0 just before it and
+   read just after:
+   - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
+     mode; the suite's first forward counts must equal a ``bytes.find`` loop;
+   - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
+     digests must equal ``swh64_ref``;
+   - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
+     documents' min-hashes must equal the numpy spec replay, and the quality
+     line is read back;
+   - ``entry("cuda")``'s forward, equal to the same forward on the CPU;
+   every ``swtorch::`` row must report, and every kernel of a path must have
+   launched in that path's run;
+5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
+   shapes), each kernel timed with CUDA events (median of 5 runs of
+   back-to-back calls, after warm-up) beside its plain version on the card,
+   its bound (the least time the card could take: bytes over 3.35 TB/s or
+   32-bit integer instructions over 33.4 T/s, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time.
 
 The line before last is a JSON object of the kernels (launches in the main
-path, max |kernel - plain| over every comparison, ms and plain ms); the last
-line is ``{"ok": true, "device": {...}}``.
+path, max |kernel - plain| over every comparison, ms, plain ms, bound ms,
+library ms); before it, the card's ``nvidia-smi`` name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,15 +51,27 @@ import torch
 SAMPLES = 5  # timed samples per row, after WARM calls
 WARM = 2
 
+# The least time the card could take (H100 SXM data sheet, at 700 W): bytes
+# over the HBM rate, or 32-bit integer instructions over the rate at which
+# the card can issue them. The data sheet gives no int32 rate, so the bound
+# takes the issue limit: one warp instruction per clock on each of an SM's
+# four schedulers, 132 SMs x 128 lanes x 1.98 GHz (the lanes of the 67
+# TFLOP/s float32 rate). The INT32 pipe alone has 64 lanes, but integer
+# multiply-adds also issue to the FMA pipe, and the 16-seed swh64 row runs
+# faster than 64 lanes allow. A multiply-add counts as one instruction.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 128 * 1.98e9
 
-def phase(name: str, detail: str) -> None:
-    print(f"[{name}] {detail}", flush=True)
+
+def phase(name: str, detail: str, started: float | None = None) -> None:
+    took = f" [{time.perf_counter() - started:.1f} s]" if started is not None else ""
+    print(f"[{name}]{took} {detail}", flush=True)
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, samples: int = SAMPLES, warm: int = WARM) -> float:
     """Device time of one call of ``fn``: CUDA events around a run of k
-    back-to-back calls (k fills ~20 ms, at most 50), the median of 5 runs."""
-    for _ in range(WARM):
+    back-to-back calls (k fills ~20 ms, at most 50), the median of the runs."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -54,21 +80,33 @@ def time_ms(fn) -> float:
     end.record()
     end.synchronize()
     k = max(1, min(50, int(20.0 / max(start.elapsed_time(end), 1e-3))))
-    samples = []
-    for _ in range(SAMPLES):
+    times = []
+    for _ in range(samples):
         start.record()
         for _ in range(k):
             fn()
         end.record()
         end.synchronize()
-        samples.append(start.elapsed_time(end) / k)
-    return statistics.median(samples)
+        times.append(start.elapsed_time(end) / k)
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max |a - b| over the elements, exact for any integer type (64-bit
+    digests included)."""
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+    if not a.numel():
+        return 0
+    if a.dtype == torch.uint64:
+        x, y = a.cpu().numpy(), b.cpu().numpy()
+        return int((np.maximum(x, y) - np.minimum(x, y)).max())
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
 def lowercase(n: int, seed: int, dev) -> torch.Tensor:
@@ -81,18 +119,55 @@ def random_bytes(n: int, seed: int, dev) -> torch.Tensor:
     return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=g)
 
 
+def reset(*counters: dict) -> None:
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
+
+
+def run_suite(main, argv: list[str], rows: list[str]) -> tuple[object, list[str]]:
+    """Run a suite with its report lines captured and echoed; every listed
+    row must report unskipped, and no ``swtorch::`` row may be skipped."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ctx = main(argv)
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    for row in rows:
+        hits = [line for line in lines if line.startswith(row + " ")]
+        if len(hits) != 1 or "SKIPPED" in hits[0]:
+            raise AssertionError(f"main path row missing or skipped: {row}: {hits}")
+    if any("swtorch::" in line and "SKIPPED" in line for line in lines):
+        raise AssertionError("a swtorch:: row was skipped")
+    return ctx, lines
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
-    from stringwars_tpu_torch import build
+    from stringwars_tpu_torch import build, entry
+    from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import bytesum as B
     from stringwars_tpu_torch.ops import find as F
     from stringwars_tpu_torch.ops import find_cuda as FC
-    from stringwars_tpu_torch.suites import find as suite
+    from stringwars_tpu_torch.ops import fingerprint as FP
+    from stringwars_tpu_torch.ops import hash as H
+    from stringwars_tpu_torch.ops import hash_cuda as HC
+    from stringwars_tpu_torch.ops import memops as M
+    from stringwars_tpu_torch.suites import find as find_suite
+    from stringwars_tpu_torch.suites import fingerprints as fp_suite
+    from stringwars_tpu_torch.suites import hash as hash_suite
     from stringwars_tpu_torch.utils.profiler import card_identity
 
+    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES)
+
+    def launches() -> dict[str, int]:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    whole = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = card_identity(dev)  # `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
@@ -103,12 +178,25 @@ def main() -> int:
     started = time.perf_counter()
     build.library()
     log = build.library_path().with_suffix(".log")
-    usage = [line.split(":", 1)[1].strip() for line in log.read_text().splitlines() if "registers" in line] if log.exists() else []
-    phase("build", f"{time.perf_counter() - started:.1f} s; ptxas: {' | '.join(usage) or 'library already built'}")
+    ptxas = log.read_text().splitlines() if log.exists() else []
+    usage = [line.split(":", 1)[1].strip() for line in ptxas if "registers" in line]
+    spilled, function = [], "?"
+    for line in ptxas:
+        if "Function properties for " in line:
+            function = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line and " 0 bytes spill stores" not in line:
+            spilled.append(f"{function} ({line.strip()})")
+    phase(
+        "build",
+        f"{len(usage)} kernels, {len(spilled)} with spills {spilled}; ptxas: {' | '.join(usage[:12]) or 'library already built'}",
+        started,
+    )
 
     # -- 3. kernels against their plain versions ------------------------------
-    errors = {"bytesum": 0, "find_count": 0, "rfind_count": 0, "byteset_count": 0}
-    before = {**B.LAUNCHES, **FC.LAUNCHES}
+    started = time.perf_counter()
+    names = list(launches())
+    errors = {name: 0 for name in names}
+    before = launches()
     rng = np.random.default_rng(1)
     n = 64 << 20
     hay = lowercase(n, 1, dev)
@@ -130,7 +218,7 @@ def main() -> int:
     }
     checked = 0
     for needles in sets.values():
-        batch = F.NeedleBatch.from_needles([F.pack_needle(t, suite._needle_cap(t)) for t in needles], dev)
+        batch = F.NeedleBatch.from_needles([F.pack_needle(t, find_suite._needle_cap(t)) for t in needles], dev)
         for extent in (n, n - 3):
             counts = FC.find_count_batch(hay, batch, extent)
             errors["find_count"] = max(errors["find_count"], max_err(counts, F.find_count_batch_plain(hay, batch, extent)))
@@ -141,7 +229,7 @@ def main() -> int:
         single = F.NeedleBatch(batch.images[:1], batch.lengths[:1], batch.host_lengths[:1])
         errors["find_count"] = max(errors["find_count"], max_err(FC.find_count_batch(hay, single), F.find_count_batch_plain(hay, single)))
     bytes_hay = random_bytes(n + 16, 2, dev)
-    for charset in suite.BYTESETS.values():
+    for charset in find_suite.BYTESETS.values():
         table = F.pack_byteset(charset, dev)
         for offset, extent in ((0, n), (3, n - 5)):
             view = bytes_hay[offset:]
@@ -154,77 +242,200 @@ def main() -> int:
         errors["bytesum"] = max(errors["bytesum"], max_err(B.bytesum_cuda(data), B.bytesum_plain(data)))
     if int(B.bytesum_cuda(ones).item()) != 255 * ones.numel():
         raise AssertionError("bytesum of 256 MB of 0xFF is not 255 * n")
+    del hay, bytes_hay, ones
+
+    # Hashes: tokens of 0..130 B (16-byte rows and 4-byte rows), and one
+    # token set spread over every bucket of the hash suite.
+    sweep = [bytes(rng.integers(0, 256, k, dtype=np.uint8)) for k in range(131)]
+    spread = [bytes(rng.integers(0, 256, int(k), dtype=np.uint8)) for k in rng.integers(1, 5000, 600)]
+    layouts = [T.PaddedTokens.from_tape(T.Tape.from_tokens(sweep), align=a).to(dev) for a in (64, 4)]
+    layouts += T.bucket_by_length(T.Tape.from_tokens(spread, device=dev), hash_suite.BUCKET_EDGES)
+    seed_sets = ([0], [12345], [0xDEADBEEFCAFEBABE], list(range(8)), list(range(16)))
+    for padded in layouts:
+        for seeds in seed_sets:
+            errors["xxh64"] = max(errors["xxh64"], max_err(HC.xxh64(padded, seeds), H.xxh64_plain(padded, seeds)))
+            errors["swh64"] = max(errors["swh64"], max_err(HC.swh64(padded, seeds), H.swh64_plain(padded, seeds)))
+            errors["xxh32"] = max(errors["xxh32"], max_err(HC.xxh32(padded, seeds), H.xxh32_plain(padded, seeds)))
+    empty = T.PaddedTokens.from_tape(T.Tape.from_tokens([b""])).to(dev)
+    empty64 = int(HC.xxh64(empty, [0]).view(torch.int64).item()) & (2**64 - 1)
+    empty32 = int(HC.xxh32(empty, [0]).to(torch.int64).item())
+    if (empty64, empty32) != (0xEF46DB3751D8E999, 0x02CC5D05):
+        raise AssertionError(f"XXH64('') = {empty64:#x}, XXH32('') = {empty32:#x}")
+    tree_buf = random_bytes((128 << 20) + 3, 6, dev)
+    for extent in (0, 1, H.TREE_CHUNK, H.TREE_CHUNK + 1, tree_buf.numel()):
+        errors["xxh64_tree"] = max(errors["xxh64_tree"], max_err(HC.tree_level(tree_buf, extent), H.tree_level_plain(tree_buf, extent)))
+    del tree_buf
+
+    # Fingerprints: documents of 1..4096 B with counts at ndim 64, and the
+    # 16 MB row's shape without counts at ndim 512.
+    docs = [bytes(rng.integers(32, 127, int(k), dtype=np.uint8)) for k in rng.integers(1, 4096, 256)]
+    docs += [b"", b"x", b"abcd", b"z" * 33]
+    for padded in (T.PaddedTokens.from_tape(T.Tape.from_tokens(docs), max_width=4096).to(dev),
+                   T.PaddedTokens.from_tape(T.Tape.from_tokens(docs[-40:]), align=4).to(dev)):
+        got_h, got_c = FP.fingerprint_cuda(padded, 64, True)
+        want_h, want_c = FP.fingerprint_plain(padded, 64, with_counts=True)
+        errors["fingerprint"] = max(errors["fingerprint"], max_err(got_h, want_h), max_err(got_c, want_c))
+    fp_data = random_bytes(16384 * 1024, 7, dev).view(16384, 1024)
+    fp_tokens = T.PaddedTokens(fp_data, torch.full((16384,), 1024 - 7, dtype=torch.int32, device=dev), 1024)
+    got_h, _ = FP.fingerprint_cuda(fp_tokens, 512, False)
+    errors["fingerprint"] = max(errors["fingerprint"], max_err(got_h, FP.fingerprint_plain(fp_tokens, 512, with_counts=False)[0]))
+
+    lut = torch.from_numpy(M.invert_case_lut()).to(dev)
+    for view in (big[: 64 << 20], big[3 : (64 << 20) + 8], big[15:1000], big[:7]):
+        errors["lut_translate"] = max(errors["lut_translate"], max_err(M.lut_translate_cuda(view, lut), M.lut_translate_plain(view, lut)))
     torch.cuda.synchronize()
-    advanced = {k: v - before[k] for k, v in {**B.LAUNCHES, **FC.LAUNCHES}.items()}
+    del big
+    advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
-    phase("kernels", f"equal to plain on the card ({checked} needle scans, 3 sets, 4 bytesums); launches {advanced}")
-    del hay, bytes_hay, big, ones
+    phase(
+        "kernels",
+        f"equal to plain on the card ({checked} needle scans, 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
+        f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views); XXH64('') and XXH32('') "
+        f"match the published digests; launches {advanced}",
+        started,
+    )
 
     # -- 4. the main path -----------------------------------------------------
-    for counter in (B.LAUNCHES, FC.LAUNCHES):
-        for key in counter:
-            counter[key] = 0
-    out = io.StringIO()
-    started = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        ctx = suite.main(["--dataset-limit", "128mb", "--warmup", "0.5", "--time-limit", "2"])
-    torch.cuda.synchronize()
-    launches = {**B.LAUNCHES, **FC.LAUNCHES}
-    lines = out.getvalue().splitlines()
-    print("\n".join(lines), flush=True)
-    rows = {
-        "substring-forward/swtorch::find_count<1gpu>",
-        "substring-backward/swtorch::rfind_count<1gpu>",
-        "byteset-forward/swtorch::byteset_count<1gpu>",
-    }
-    for row in rows:
-        hits = [line for line in lines if line.startswith(row + " ")]
-        if len(hits) != 1 or "SKIPPED" in hits[0]:
-            raise AssertionError(f"main path row missing or skipped: {row}: {hits}")
-    if any("swtorch::" in line and "SKIPPED" in line for line in lines):
-        raise AssertionError("a swtorch:: row was skipped")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if ctx.tape.device.type != "cuda" or ctx.tape.total_bytes < 100 << 20:
-        raise AssertionError(f"the main path ran on {ctx.tape.device} over {ctx.tape.total_bytes} bytes")
-    routine, results = suite.forward_routine(ctx.tape)
-    routine()
-    _, panel, _ = suite.suite_needles(ctx.tape)
-    hay_b = ctx.tape.data.cpu().numpy().tobytes()
-    for needle in panel[:8]:
-        count, pos = 0, hay_b.find(needle)
-        while pos >= 0:
-            count += 1
-            pos = hay_b.find(needle, pos + 1)
-        if results[needle] != count:
-            raise AssertionError(f"forward count of {needle!r}: suite {results[needle]}, bytes.find loop {count}")
-    phase(
-        "main path",
-        f"{ctx.tape.total_bytes:,} B of {ctx.tape.count:,} words on {ctx.tape.device} in "
-        f"{time.perf_counter() - started:.1f} s; launches {launches}; first 8 forward counts "
-        f"{[results[t] for t in panel[:8]]} equal the bytes.find loop",
-    )
-    del ctx, hay_b
+    main_launches = {name: 0 for name in names}
+
+    def path(expect: list[str], body) -> None:
+        reset(*counters)
+        body()
+        torch.cuda.synchronize()
+        counts = launches()
+        missing = [k for k in expect if not counts[k]]
+        if missing:
+            raise AssertionError(f"kernels of the path never launched: {missing}: {counts}")
+        for k, v in counts.items():
+            main_launches[k] += v
+
+    def find_path() -> None:
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            find_suite.main,
+            ["--dataset-limit", "64mb", "--warmup", "0.5", "--time-limit", "2"],
+            [
+                "substring-forward/swtorch::find_count<1gpu>",
+                "substring-backward/swtorch::rfind_count<1gpu>",
+                "byteset-forward/swtorch::byteset_count<1gpu>",
+            ],
+        )
+        if ctx.tape.device.type != "cuda" or ctx.tape.total_bytes < 48 << 20:
+            raise AssertionError(f"the find suite ran on {ctx.tape.device} over {ctx.tape.total_bytes} bytes")
+        routine, results = find_suite.forward_routine(ctx.tape)
+        routine()
+        _, panel, _ = find_suite.suite_needles(ctx.tape)
+        hay_b = ctx.tape.data.cpu().numpy().tobytes()
+        for needle in panel[:8]:
+            count, pos = 0, hay_b.find(needle)
+            while pos >= 0:
+                count += 1
+                pos = hay_b.find(needle, pos + 1)
+            if results[needle] != count:
+                raise AssertionError(f"forward count of {needle!r}: suite {results[needle]}, bytes.find loop {count}")
+        phase(
+            "main path",
+            f"find suite: {ctx.tape.total_bytes:,} B of {ctx.tape.count:,} words on {ctx.tape.device}; first 8 "
+            f"forward counts {[results[t] for t in panel[:8]]} equal the bytes.find loop; launches {launches()}",
+            started,
+        )
+
+    def hash_path() -> None:
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            hash_suite.main,
+            ["--dataset-limit", "128mb", "--warmup", "0.5", "--time-limit", "2"],
+            [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8")]
+            + ["stateful/swtorch::tree_hash64<1gpu>", "checksum/swtorch::bytesum<1gpu>"],
+        )
+        if ctx.tape.device.type != "cuda" or ctx.tape.total_bytes < 100 << 20:
+            raise AssertionError(f"the hash suite ran on {ctx.tape.device} over {ctx.tape.total_bytes} bytes")
+        idx, digests = ctx.staged.digests(H.swh64)
+        first = ctx.tape.subtape(0, 8).to_list()
+        want = [H.swh64_ref(t) for t in first]
+        if list(idx[:8]) != list(range(8)) or [int(d) for d in digests[:8]] != want:
+            raise AssertionError(f"swh64 of the first 8 tokens: suite {digests[:8]}, swh64_ref {want}")
+        phase(
+            "main path",
+            f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
+            f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; "
+            f"launches {launches()}",
+            started,
+        )
+
+    def fingerprints_path() -> None:
+        started = time.perf_counter()
+        scales = fp_suite.ndim_scales()
+        ctx, _ = run_suite(
+            fp_suite.main,
+            ["--dataset-limit", "16mb", "--warmup", "0.5", "--time-limit", "2"],
+            [f"minhash/ndim_{d}/swtorch::fingerprint<1gpu>" for d in scales],
+        )
+        tokens = ctx.staged["tokens"]
+        if tokens.device.type != "cuda":
+            raise AssertionError(f"the fingerprints suite ran on {tokens.device}")
+        docs = ctx.tape.subtape(0, 4).to_list()
+        for i, doc in enumerate(docs):
+            want, _ = FP.fingerprint_ref(doc[: fp_suite.MAX_WIDTH], ndim=scales[0])
+            if not np.array_equal(ctx.staged["min_hashes"][scales[0]][i], want):
+                raise AssertionError(f"min-hashes of document {i} differ from the numpy spec replay")
+        quality = {d: tuple(round(q, 4) for q in ctx.staged["quality"][d]) for d in scales}
+        phase(
+            "main path",
+            f"fingerprints suite: {tokens.count} documents of width {tokens.width} on {tokens.device}; first "
+            f"{len(docs)} documents equal the spec replay at ndim {scales[0]}; quality (bit entropy, collision "
+            f"rate) {quality}; launches {launches()}",
+            started,
+        )
+
+    def entry_path() -> None:
+        started = time.perf_counter()
+        forward, args = entry.entry("cuda")
+        if any(a.device.type != "cuda" for a in args):
+            raise AssertionError("entry('cuda') did not place its inputs on the card")
+        got = forward(*args)
+        torch.cuda.synchronize()
+        reference = forward(*(a.cpu() for a in args))
+        for key, value in reference.items():
+            if max_err(got[key].cpu(), value):
+                raise AssertionError(f"entry forward on the card differs from the CPU in {key}")
+        phase(
+            "main path",
+            f"entry('cuda') forward equals the CPU forward (digest_checksum {int(got['digest_checksum'])}, "
+            f"minhash {tuple(got['minhash'].shape)}, translated {tuple(got['translated'].shape)}); "
+            f"launches {launches()}",
+            started,
+        )
+
+    path(["find_count", "rfind_count", "byteset_count", "bytesum"], find_path)
+    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum"], hash_path)
+    path(["fingerprint"], fingerprints_path)
+    path(["xxh64", "fingerprint", "lut_translate"], entry_path)
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
-    flat = lowercase(128 << 20, 0, dev)
-    timings = {}
+    started = time.perf_counter()
+    timings: dict[str, dict] = {}
 
-    def row(name: str, kernel, plain, work_bytes: int, key: str | None = None) -> None:
+    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES):
         got, want = kernel(), plain()
         err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
         if err:
             raise AssertionError(f"{name}: kernel and plain differ by {err}")
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
+        library_ms = time_ms(library) if library else None
+        bound_value, bound_by = bound
         if key:
-            timings[key] = (ms, plain_ms)
+            timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_value, "bound_by": bound_by, "library_ms": library_ms}
+        lib_text = f", library {library_ms:.4f} ms" if library_ms is not None else ""
         phase(
             "row",
-            f"{name}: kernel {ms:.4f} ms ({work_bytes / ms / 1e6:.1f} GB/s), "
-            f"plain {plain_ms:.4f} ms ({work_bytes / plain_ms / 1e6:.1f} GB/s), equal",
+            f"{name}: kernel {ms:.4f} ms ({work_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}, equal",
         )
 
+    flat = lowercase(128 << 20, 0, dev)
     needle_rng = np.random.default_rng(3)
     for m, cap in ((8, 4), (16, 8)):
         packed = [F.pack_needle(bytes(needle_rng.integers(97, 123, m, dtype=np.uint8)), cap) for _ in range(64)]
@@ -234,21 +445,128 @@ def main() -> int:
             lambda: FC.find_count_batch(flat, batch),
             lambda: F.find_count_batch_plain(flat, batch),
             64 * flat.numel(),
+            bound_ms(flat.numel(), 64 * flat.numel()),  # one compare per (needle, window)
             "find_count" if m == 8 else None,
         )
     single = F.NeedleBatch.from_needles([F.pack_needle(flat[4096:4104].cpu().numpy().tobytes(), 4)], dev)
-    row("rfind-8B-128MB", lambda: FC.rfind_count_batch(flat, single), lambda: F.rfind_count_batch_plain(flat, single), flat.numel(), "rfind_count")
+    row(
+        "rfind-8B-128MB",
+        lambda: FC.rfind_count_batch(flat, single),
+        lambda: F.rfind_count_batch_plain(flat, single),
+        flat.numel(),
+        bound_ms(flat.numel(), flat.numel()),
+        "rfind_count",
+    )
     set_hay = random_bytes(128 << 20, 4, dev)
-    table = F.pack_byteset(suite.BYTESETS["html"], dev)
-    row("byteset-128MB", lambda: FC.byteset_count(set_hay, table), lambda: F.byteset_count_plain(set_hay, table), set_hay.numel(), "byteset_count")
+    table = F.pack_byteset(find_suite.BYTESETS["html"], dev)
+    row(
+        "byteset-128MB",
+        lambda: FC.byteset_count(set_hay, table),
+        lambda: F.byteset_count_plain(set_hay, table),
+        set_hay.numel(),
+        bound_ms(set_hay.numel(), set_hay.numel()),
+        "byteset_count",
+    )
     probe = random_bytes(256 << 20, 5, dev)
-    row("bytesum-256MB", lambda: B.bytesum_cuda(probe), lambda: B.bytesum_plain(probe), probe.numel(), "bytesum")
+    row(
+        "bytesum-256MB",
+        lambda: B.bytesum_cuda(probe),
+        lambda: B.bytesum_plain(probe),
+        probe.numel(),
+        bound_ms(probe.numel(), probe.numel() / 4),  # one dp4a per 4 bytes
+        "bytesum",
+        library=lambda: torch.sum(probe, dtype=torch.int64),
+    )
+    del set_hay, probe
+
+    # 131072 lines of 1 KiB, 1015 bytes each (tools/tpu_campaign.py:191-199).
+    lines = T.PaddedTokens(
+        random_bytes(131072 * 1024, 8, dev).view(131072, 1024),
+        torch.full((131072,), 1024 - 9, dtype=torch.int32, device=dev),
+        1024,
+    )
+    line_bytes = lines.count * (1024 - 9 + 4)  # each token's bytes and its length read once
+    words = lines.count * (1024 - 9) / 4  # u32 words hashed
+    # Per word and XXH32 lane: a multiply-add, a rotate, a multiply; swh64's
+    # second lane XORs the word first. An XXH64 round on 8 bytes: a 64-bit
+    # multiply-add (4), a 64-bit rotate (2), a 64-bit multiply (3).
+    row(
+        "swh64-1KB-lines-128MB",
+        lambda: HC.swh64(lines, [0]),
+        lambda: H.swh64_plain(lines, [0]),
+        lines.data.numel(),
+        bound_ms(line_bytes + 8 * lines.count, 7 * words),
+        "swh64",
+    )
+    row(
+        "xxh64-1KB-lines-128MB",
+        lambda: HC.xxh64(lines, [0]),
+        lambda: H.xxh64_plain(lines, [0]),
+        lines.data.numel(),
+        bound_ms(line_bytes + 8 * lines.count, 9 * words / 2),
+        "xxh64",
+    )
+    row(
+        "xxh32-1KB-lines-128MB",
+        lambda: HC.xxh32(lines, [0]),
+        lambda: H.xxh32_plain(lines, [0]),
+        lines.data.numel(),
+        bound_ms(line_bytes + 4 * lines.count, 3 * words),
+        "xxh32",
+    )
+    row(
+        "swh64-multiseed16-1KB-lines-128MB",
+        lambda: HC.swh64(lines, list(range(16))),
+        lambda: H.swh64_plain(lines, list(range(16))),
+        lines.data.numel(),
+        bound_ms(line_bytes + 16 * 8 * lines.count, (16 * 2 * 3 + 1) * words),
+        plain_samples=1,
+    )
+    del lines
+    row(
+        "tree-hash64-level0-128MB",
+        lambda: HC.tree_level(flat, flat.numel()),
+        lambda: H.tree_level_plain(flat, flat.numel()),
+        flat.numel(),
+        bound_ms(flat.numel(), 9 * flat.numel() / 8),
+        "xxh64_tree",
+        plain_samples=1,
+    )
+    # 16384 documents of 1017 bytes in rows of 1024, ndim 512, no counts
+    # (tools/tpu_campaign.py:459-475): 8.4 G (position, dim) cells of a
+    # multiply-add and a min, plus ~9 operations per byte for the grams.
+    cells = 16384 * (512 // 4) * sum(1024 - 7 - w + 1 for w in FP.WINDOW_WIDTHS)
+    row(
+        "fingerprint-512d-16MB",
+        lambda: FP.fingerprint_cuda(fp_tokens, 512, False)[0],
+        lambda: FP.fingerprint_plain(fp_tokens, 512, with_counts=False)[0],
+        fp_data.numel(),
+        bound_ms(16384 * (1024 - 7 + 4) + 4 * 16384 * 512, 2 * cells + 9 * fp_data.numel()),
+        "fingerprint",
+        plain_samples=1,
+    )
+    del fp_data, fp_tokens
+    row(
+        "lut-translate-128MB",
+        lambda: M.lut_translate_cuda(flat, lut),
+        lambda: M.lut_translate_plain(flat, lut),
+        flat.numel(),
+        bound_ms(2 * flat.numel(), flat.numel()),
+        "lut_translate",
+    )
+    phase("rows", "done", started)
 
     sources = {
         "bytesum": ("stringwars_tpu_torch/csrc/bytesum.cu", "stringwars_tpu/ops/bytesum.py:142"),
         "find_count": ("stringwars_tpu_torch/csrc/find.cu", "stringwars_tpu/ops/find_pallas.py:58"),
         "rfind_count": ("stringwars_tpu_torch/csrc/find.cu", "stringwars_tpu/ops/find_pallas.py:58"),
         "byteset_count": ("stringwars_tpu_torch/csrc/find.cu", "stringwars_tpu/ops/find.py:217"),
+        "xxh64": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash_pallas.py:74"),
+        "xxh64_tree": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:357"),
+        "swh64": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:504"),
+        "xxh32": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:179"),
+        "fingerprint": ("stringwars_tpu_torch/csrc/fingerprint.cu", "stringwars_tpu/ops/fingerprint.py:119"),
+        "lut_translate": ("stringwars_tpu_torch/csrc/lut.cu", "stringwars_tpu/ops/memops.py:35"),
     }
     kernels = [
         {
@@ -256,13 +574,13 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": main_launches[name],
             "max_abs_err": errors[name],
-            "ms": timings[name][0],
-            "plain_ms": timings[name][1],
+            **timings[name],
         }
         for name, (source, replaces) in sources.items()
     ]
+    phase("total", f"{time.perf_counter() - whole:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

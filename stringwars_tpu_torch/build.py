@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _N = ctypes.c_void_p, ctypes.c_int64
@@ -40,6 +40,11 @@ SIGNATURES = {
     "sw_bytesum": (_P, _N, _P, _P),
     "sw_find_count": (_P, _N, _P, _N, _P, _N, _P, _P, _P),
     "sw_byteset_count": (_P, _N, _P, _P, _P),
+    "sw_xxh64": (_P, _N, _N, _P, _P, _N, _P, _P),
+    "sw_xxh64_tree": (_P, _N, _N, _N, _P, _P),
+    "sw_xxh32": (_P, _N, _N, _P, _P, _N, ctypes.c_int, _P, _P),
+    "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _N, _P, _P, _P),
+    "sw_lut_translate": (_P, _N, _P, _P, _P),
 }
 
 
@@ -78,20 +83,37 @@ def library_path() -> Path:
 def build(path: Path) -> float:
     """Compile every ``csrc/*.cu`` into ``path``; returns the seconds taken.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside the library as ``<name>.log``.
+    One ``nvcc -c`` per source, all started together, then one link. The
+    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept beside the library as ``<name>.log``.
     """
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{path.stem}.{os.getpid()}"
     started = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outputs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    failed = [(obj, log, rc) for obj, log, rc in outputs if rc != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in outputs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        outputs.append((tmp, link.stdout, link.returncode))
+        failed = [(tmp, link.stdout, link.returncode)] if link.returncode else []
     seconds = time.perf_counter() - started
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    path.with_suffix(".log").write_text("".join(log for _, log, _ in outputs))
+    for obj, _, _ in outputs[: len(jobs)]:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        obj, log, rc = failed[0]
+        raise KernelBuildError(f"nvcc failed ({rc}) on {obj.name}:\n{log[-4000:]}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees the old state or the whole library
     return seconds
 

@@ -18,7 +18,7 @@ from typing import Callable
 import torch
 
 from stringwars_tpu_torch import datasets
-from stringwars_tpu_torch.parallel.mesh import DeviceScope, default_device, scope_variants
+from stringwars_tpu_torch.parallel.mesh import DeviceScope, resolve_device, scope_variants
 from stringwars_tpu_torch.tape import Tape
 from stringwars_tpu_torch.utils.config import add_common_args, compile_filter, get_env_bool, resolve_tokens, should_run
 from stringwars_tpu_torch.utils.harness import BenchBudget, WorkUnits, measure_throughput
@@ -42,6 +42,11 @@ class SuiteContext:
         self.pattern = pattern
         self.scopes = scopes
         self.roofline_bytes_per_second = roofline_bytes_per_second
+        self.staged = None  # a suite's inputs staged once per run, kept for the caller's checks
+
+    @property
+    def device(self) -> torch.device:
+        return self.scopes[0].device
 
     def group(self, title: str) -> None:
         print(f"# {title}", flush=True)
@@ -94,7 +99,10 @@ def setup_suite(
         extra_args(parser)
     args = parser.parse_args(argv)
 
-    device = default_device()
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as error:
+        parser.error(str(error))  # exits 2: no card, and the CPU was not asked for
     pattern = compile_filter(args.filter)
     tokens_mode = resolve_tokens(args.tokens, default_tokens)
     tape = datasets.load_tape(
@@ -114,7 +122,7 @@ def setup_suite(
     if device.type == "cuda":
         log(f"device {device}: {card_identity(device)}")
     else:
-        log("device cpu: no CUDA device; device rows run the plain torch versions")
+        log("device cpu (--device cpu): device rows run the plain torch versions")
     roofline = measured_roofline(device)
     if roofline is None:
         log("roofline: not measured (no CUDA device)")

@@ -9,8 +9,9 @@ needle per call; bytesets scan three charsets per call
 (``find/bench.rs:226-348``), so byteset work = 3x corpus bytes.
 
 Device rows (``swtorch::...<1gpu>``) go through the hand-written CUDA
-kernels of ``ops/find_cuda.py``; on a machine without a card the same rows
-(``<1cpu>``) run the plain torch versions.
+kernels of ``ops/find_cuda.py``. With ``--device cpu`` the same rows
+(``<1cpu>``) run the plain torch versions; without it, a host with no card
+stops with an error.
 
 Needles: every token is a needle (``find/bench.rs:56-93``). The forward row
 takes the first 512 tokens of at most 505 B, grouped by the JAX package's

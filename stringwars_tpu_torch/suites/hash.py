@@ -1,0 +1,238 @@
+"""Hash suite: stateless / stateful / checksum groups (reference
+``hash/bench.rs:483``, ``hash/bench.py:236``; defaults: words tokens,
+2 s warm-up + 10 s measure).
+
+The port of ``stringwars_tpu.suites.hash`` for one device. Device rows
+(``swtorch::...<1gpu>``) hash every token of the corpus per call, bucketed
+by length into rectangular ``PaddedTokens`` (``BUCKET_EDGES``), through the
+CUDA kernels of ``ops/hash_cuda.py``; with ``--device cpu`` the same rows
+(``<1cpu>``) run the plain torch versions. The buckets are staged once per
+suite run, on the device, and the staging seconds go to stderr. Host
+baselines (the ``xxhash`` wheel, CPython builtins, ``zlib``, ``hashlib``)
+run the same corpus under the same deadline pacing as the reference's
+Python suite; a row whose module is missing is SKIPPED.
+
+Not ported yet: the ``xxh3_64`` and ``sha256`` device rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import sys
+import time
+
+import numpy as np
+import torch
+
+from stringwars_tpu_torch.ops import bytesum as B
+from stringwars_tpu_torch.ops import hash as H
+from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
+from stringwars_tpu_torch.tape import PaddedTokens, Tape, bucket_spans
+from stringwars_tpu_torch.utils.config import get_env_bool
+from stringwars_tpu_torch.utils.harness import WorkUnits, now_ns, paced_items
+
+BUCKET_EDGES = [16, 64, 256, 1024, 4096]
+MULTISEEDS = tuple(range(8))
+
+
+@dataclasses.dataclass(frozen=True)
+class HashBuckets:
+    """The tape's non-empty tokens bucketed by length, on the tape's device:
+    ``buckets[i]`` holds the tokens whose tape indices are ``indices[i]``."""
+
+    buckets: list[PaddedTokens]
+    indices: list[torch.Tensor]
+    tokens: int
+    token_bytes: int
+
+    @classmethod
+    def stage(cls, tape: Tape) -> "HashBuckets":
+        spans = bucket_spans(tape, BUCKET_EDGES)
+        buckets = [padded for padded, _ in spans]
+        total = int(sum(int(p.lengths.sum(dtype=torch.int64)) for p in buckets))
+        return cls(buckets, [idx for _, idx in spans], sum(p.count for p in buckets), total)
+
+    @property
+    def units(self) -> WorkUnits:
+        return WorkUnits(elements=self.tokens, bytes=self.token_bytes)
+
+    def digests(self, fn) -> tuple[np.ndarray, np.ndarray]:
+        """(token indices, digests) of ``fn`` over every bucket, sorted by
+        token index, on the host."""
+        idx = torch.cat(self.indices).cpu().numpy()
+        out = torch.cat([fn(padded).cpu() for padded in self.buckets]).numpy()
+        order = np.argsort(idx, kind="stable")
+        return idx[order], out[order]
+
+
+def device_routine(staged: HashBuckets, fn):
+    """One call hashes every bucket once; the digests stay on the device."""
+
+    def routine() -> WorkUnits:
+        for padded in staged.buckets:
+            fn(padded)
+        return staged.units
+
+    return routine
+
+
+def bench_device_hashes(ctx: SuiteContext, staged: HashBuckets) -> None:
+    variants = {
+        "swh64": functools.partial(H.swh64, seed=0),
+        "xxh64": H.xxh64,
+        "xxh32": H.xxh32,
+        "swh64_multiseed8": functools.partial(H.swh64_multiseed, seeds=MULTISEEDS),
+    }
+    for scope in ctx.scopes:
+        for op, fn in variants.items():
+            ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda fn=fn: device_routine(staged, fn), device=scope.device)
+
+
+class HostCopy:
+    """The corpus on the host, made at the first host row that needs it."""
+
+    def __init__(self, tape: Tape):
+        self.tape = tape
+
+    @functools.cached_property
+    def tokens(self) -> list[bytes]:
+        return self.tape.to_list()
+
+    @functools.cached_property
+    def data(self) -> bytes:
+        return self.tape.data[: self.tape.total_bytes].cpu().numpy().tobytes()
+
+
+def bench_host_hash(ctx: SuiteContext, host: HostCopy, name: str, make_hash) -> None:
+    """A host row over every token, paced under the deadline; ``make_hash``
+    imports its module, so a missing one SKIPs the row."""
+
+    def factory():
+        hash_fn = make_hash()
+        tokens = host.tokens
+
+        def routine() -> WorkUnits:
+            deadline = now_ns() + int(ctx.budget.time_seconds * 1e9)
+            done = done_bytes = 0
+            for token in paced_items(tokens, deadline):
+                hash_fn(token)
+                done += 1
+                done_bytes += len(token)
+            return WorkUnits(elements=done, bytes=done_bytes)
+
+        return routine
+
+    ctx.run(name, "bytes", factory)
+
+
+def _xxhash():
+    import xxhash
+
+    return xxhash
+
+
+def bench_stateful(ctx: SuiteContext, host: HostCopy) -> None:
+    data, n = ctx.tape.data, ctx.tape.total_bytes
+    for scope in ctx.scopes:
+        ctx.run(
+            f"stateful/swtorch::tree_hash64{scope.name}",
+            "bytes",
+            lambda: lambda: (H.tree_hash64(data, n), WorkUnits(elements=1, bytes=n))[1],
+            device=scope.device,
+        )
+
+    def host_stream_factory():
+        xxhash = _xxhash()
+        data = host.data
+
+        def routine() -> WorkUnits:
+            hasher = xxhash.xxh64()
+            hasher.update(data)
+            hasher.intdigest()
+            return WorkUnits(elements=1, bytes=n)
+
+        return routine
+
+    ctx.run("stateful/xxhash.xxh64_stream", "bytes", host_stream_factory)
+
+
+def bench_checksum(ctx: SuiteContext, host: HostCopy) -> None:
+    data, n = ctx.tape.data, ctx.tape.total_bytes
+    for scope in ctx.scopes:
+        ctx.run(
+            f"checksum/swtorch::bytesum{scope.name}",
+            "bytes",
+            lambda: lambda: (B.bytesum(data, n), WorkUnits(elements=1, bytes=n))[1],
+            device=scope.device,
+        )
+
+    def host_factory(module: str, fn_name: str):
+        def factory():
+            fn = getattr(__import__(module), fn_name)
+            data = host.data
+            return lambda: (fn(data), WorkUnits(elements=1, bytes=n))[1]
+
+        return factory
+
+    ctx.run("checksum/zlib.crc32", "bytes", host_factory("zlib", "crc32"))
+    ctx.run("checksum/hashlib.sha256", "bytes", host_factory("hashlib", "sha256"))
+
+
+def report_collisions(staged: HashBuckets, host: HostCopy) -> None:
+    """Opt-in collision audit (reference ``hash/bench.rs:129-167``): count
+    distinct xxh64 digests against the unique-token count, to stderr."""
+    _, digests = staged.digests(H.xxh64)
+    unique_tokens = len(set(t for t in host.tokens if t))
+    collisions = unique_tokens - len(np.unique(digests))
+    print(
+        f"collisions: {collisions:,} over {unique_tokens:,} unique tokens "
+        f"({100.0 * collisions / max(unique_tokens, 1):.4f}%)",
+        file=sys.stderr,
+        flush=True,
+    )
+
+
+def main(argv: list[str] | None = None) -> SuiteContext:
+    """Run the suite; returns its context, whose ``staged`` holds the
+    device buckets (``HashBuckets``)."""
+    ctx = setup_suite(
+        "Hash throughput suite (CUDA kernels + host baselines)",
+        default_tokens="words",
+        default_warmup=2.0,
+        default_time=10.0,
+        argv=argv,
+    )
+    started = time.perf_counter()
+    staged = HashBuckets.stage(ctx.tape)
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    widths = ", ".join(f"{p.count:,}x{p.width}" for p in staged.buckets)
+    print(
+        f"staged {staged.tokens:,} tokens in {len(staged.buckets)} buckets ({widths}) "
+        f"in {time.perf_counter() - started:.2f} s",
+        file=sys.stderr,
+        flush=True,
+    )
+    ctx.staged = staged
+
+    ctx.group("stateless")
+    bench_device_hashes(ctx, staged)
+    host = HostCopy(ctx.tape)
+    bench_host_hash(ctx, host, "stateless/xxhash.xxh3_64", lambda: _xxhash().xxh3_64_intdigest)
+    bench_host_hash(ctx, host, "stateless/xxhash.xxh64", lambda: _xxhash().xxh64_intdigest)
+    bench_host_hash(ctx, host, "stateless/builtins.hash", lambda: hash)
+
+    ctx.group("stateful")
+    bench_stateful(ctx, host)
+
+    ctx.group("checksum")
+    bench_checksum(ctx, host)
+
+    if get_env_bool("COLLISIONS"):
+        report_collisions(staged, host)
+    return ctx
+
+
+if __name__ == "__main__":
+    main()

@@ -101,10 +101,21 @@ class Tape:
         return cls.from_numpy(raw[src], offsets, device=device)
 
     # -- views -------------------------------------------------------------
+    @property
+    def lengths(self) -> torch.Tensor:
+        return self.offsets[1:] - self.offsets[:-1]
+
     def to_list(self) -> list[bytes]:
         o = self.offsets.cpu().numpy()
         d = self.data.cpu().numpy()
         return [d[o[i] : o[i + 1]].tobytes() for i in range(self.count)]
+
+    def subtape(self, lo: int, hi: int) -> "Tape":
+        """Tokens [lo, hi) as a compact tape on the same device. They lie
+        contiguously in ``data``, so this is a slice, not a gather."""
+        o = self.offsets[lo : hi + 1]
+        start, end = int(o[0]), int(o[-1])
+        return Tape(data=self.data[start:end], offsets=o - start, count=o.numel() - 1, total_bytes=end - start)
 
 
 def pack_u32(data: torch.Tensor) -> torch.Tensor:
@@ -147,3 +158,123 @@ def _dedup_spans(raw: np.ndarray, starts: np.ndarray, ends: np.ndarray):
             seen[key] = None
             keep[i] = True
     return starts[keep], ends[keep]
+
+
+# ---------------------------------------------------------------------------
+# PaddedTokens: rectangular [count, width] view for batched per-token kernels
+# ---------------------------------------------------------------------------
+
+def _pad_to(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedTokens:
+    """``[count, width]`` uint8 matrix of zero-padded tokens plus lengths.
+
+    The counterpart of ``stringwars_tpu.tape.PaddedTokens``, with the same
+    bytes, lengths and widths. ``width`` is a multiple of 4, so a row is
+    whole little-endian u32 words; with the default ``align=64`` every row
+    starts 16-byte aligned, which the hash kernels read as 16-byte vectors.
+    """
+
+    data: torch.Tensor  # uint8[count, width]
+    lengths: torch.Tensor  # int32[count]
+    width: int
+
+    @property
+    def count(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @classmethod
+    def from_numpy(cls, data: np.ndarray, lengths: np.ndarray, width: int | None = None, *, device=None) -> "PaddedTokens":
+        """Take padded tokens of the JAX package (its arrays as numpy)."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        width = data.shape[1] if width is None else int(width)
+        if data.ndim != 2 or data.shape[1] != width or width % 4:
+            raise ValueError(f"expected a [count, width] matrix with width % 4 == 0, got {data.shape} and width {width}")
+        device = torch.device("cpu") if device is None else torch.device(device)
+        return cls(
+            data=torch.from_numpy(data.copy()).to(device),
+            lengths=torch.from_numpy(np.asarray(lengths, dtype=np.int32).copy()).to(device),
+            width=width,
+        )
+
+    @classmethod
+    def from_tape(
+        cls,
+        tape: Tape,
+        *,
+        width: int | None = None,
+        align: int = 64,
+        max_width: int | None = None,
+        device=None,
+    ) -> "PaddedTokens":
+        """Pad every token of ``tape`` to a common width, on the tape's device.
+
+        Tokens longer than ``max_width`` (if set) are truncated — callers that
+        need exactness must bucket instead (``bucket_by_length``).
+        """
+        padded = _pad_spans(tape.data, tape.offsets[:-1], tape.lengths, width=width, align=align, max_width=max_width)
+        return padded if device is None else padded.to(device)
+
+    def to(self, device) -> "PaddedTokens":
+        return PaddedTokens(data=self.data.to(device), lengths=self.lengths.to(device), width=self.width)
+
+
+def _pad_spans(
+    data: torch.Tensor,
+    starts: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    width: int | None = None,
+    align: int = 64,
+    max_width: int | None = None,
+) -> PaddedTokens:
+    """The tokens ``data[starts[i] : starts[i] + lengths[i]]`` as padded rows,
+    built on ``data``'s device by one scatter of every byte."""
+    count = lengths.numel()
+    natural = int(lengths.max()) if count else 1
+    w = width if width is not None else natural
+    if max_width is not None:
+        w = min(w, max_width)
+    w = max(_pad_to(max(w, 1), align), align)
+    clamped = lengths.clamp(max=w)
+    mat = torch.zeros((count, w), dtype=torch.uint8, device=data.device)
+    total = int(clamped.sum()) if count else 0
+    if total:
+        row = torch.repeat_interleave(torch.arange(count, device=data.device), clamped, output_size=total)
+        first = torch.cumsum(clamped, 0) - clamped  # flat index of each row's first byte
+        intra = torch.arange(total, device=data.device) - first[row]
+        mat.view(-1)[row * w + intra] = data[starts[row] + intra]
+    return PaddedTokens(data=mat, lengths=clamped.to(torch.int32), width=w)
+
+
+def bucket_by_length(tape: Tape, edges: Sequence[int], *, align: int = 64) -> list[PaddedTokens]:
+    """Split a tape into per-length-bucket ``PaddedTokens`` (no truncation).
+
+    ``edges`` are inclusive upper bounds per bucket; a final bucket catches
+    everything longer. Empty tokens belong to no bucket. The same buckets,
+    bytes and widths as the JAX package's, built on the tape's device.
+    """
+    return [padded for padded, _ in bucket_spans(tape, edges, align=align)]
+
+
+def bucket_spans(tape: Tape, edges: Sequence[int], *, align: int = 64) -> list[tuple[PaddedTokens, torch.Tensor]]:
+    """``bucket_by_length`` with each bucket's token indices into the tape
+    (int64, on the tape's device), for mapping results back to tokens."""
+    lengths = tape.lengths
+    longest = int(lengths.max()) if tape.count else 1
+    bounds = list(edges) + [max(longest, (edges[-1] if edges else 0) + 1)]
+    out = []
+    lo = 0
+    for hi in bounds:
+        idx = torch.nonzero((lengths > lo) & (lengths <= hi)).squeeze(1)
+        if idx.numel():
+            out.append((_pad_spans(tape.data, tape.offsets[idx], lengths[idx], align=align), idx))
+        lo = hi
+    return out

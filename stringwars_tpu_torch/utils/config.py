@@ -31,6 +31,8 @@ from typing import Callable, TypeVar
 
 T = TypeVar("T")
 
+DEVICE_CHOICES = ("cuda", "cpu")  # --device: the card (default) or, when asked, the CPU
+
 _PREFIXES = ("SWTPU_", "STRINGWARS_")
 
 
@@ -131,6 +133,13 @@ def add_common_args(parser) -> None:
         type=int,
         default=None,
         help="Device-scope chip count (overrides SWTPU_CHIPS; default = all local chips)",
+    )
+    parser.add_argument(
+        "--device",
+        choices=DEVICE_CHOICES,
+        default="cuda",
+        help="Where the device rows run: the CUDA card (default; an error without one) "
+        "or the CPU, through the plain torch versions",
     )
 
 

@@ -8,6 +8,7 @@ package's XLA functions.
 
 import numpy as np
 import pytest
+import torch
 
 from stringwars_tpu import tape as jax_tape
 from stringwars_tpu.ops import find as JF
@@ -44,7 +45,7 @@ def tapes(corpus):
 def test_suite_main_prints_every_row(corpus, monkeypatch, capsys):
     monkeypatch.setenv("SWTPU_TIME", "0")
     monkeypatch.setenv("SWTPU_WARMUP", "0")
-    suite.main(["--dataset", str(corpus), "--dataset-limit", "256kb"])
+    suite.main(["--device", "cpu", "--dataset", str(corpus), "--dataset-limit", "256kb"])
     lines = capsys.readouterr().out.splitlines()
     for row in ROWS:
         hits = [line for line in lines if line.startswith(row + " ") or line.startswith(row + "\t")]
@@ -55,6 +56,17 @@ def test_suite_main_prints_every_row(corpus, monkeypatch, capsys):
         "# substring-backward",
         "# byteset-forward",
     ]
+
+
+def test_suite_main_without_a_card_stops(corpus, capsys):
+    """The device rows run on the card unless ``--device cpu`` asks for the
+    CPU: without either, a suite stops with an error instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as stop:
+        suite.main(["--dataset", str(corpus), "--dataset-limit", "256kb"])
+    assert stop.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_forward_routine_counts_match_jax(tapes):

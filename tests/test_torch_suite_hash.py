@@ -1,0 +1,136 @@
+"""The port's hash and fingerprints suites end to end on the CPU
+(``--device cpu``), against the JAX package on the same corpus file."""
+
+import numpy as np
+import pytest
+import torch
+
+from stringwars_tpu import tape as jax_tape
+from stringwars_tpu.ops import fingerprint as JF
+from stringwars_tpu.ops import hash as JH
+from stringwars_tpu_torch import datasets
+from stringwars_tpu_torch.ops import hash as H
+from stringwars_tpu_torch.suites import fingerprints as fp_suite
+from stringwars_tpu_torch.suites import hash as hash_suite
+
+HASH_ROWS = [
+    "stateless/swtorch::swh64<1cpu>",
+    "stateless/swtorch::xxh64<1cpu>",
+    "stateless/swtorch::xxh32<1cpu>",
+    "stateless/swtorch::swh64_multiseed8<1cpu>",
+    "stateless/xxhash.xxh3_64",
+    "stateless/xxhash.xxh64",
+    "stateless/builtins.hash",
+    "stateful/swtorch::tree_hash64<1cpu>",
+    "stateful/xxhash.xxh64_stream",
+    "checksum/swtorch::bytesum<1cpu>",
+    "checksum/zlib.crc32",
+    "checksum/hashlib.sha256",
+]
+
+
+def _row(lines: list[str], row: str) -> str:
+    hits = [line for line in lines if line.startswith(row + " ")]
+    assert len(hits) == 1, (row, lines)
+    assert "SKIPPED" not in hits[0] and "/s" in hits[0], hits[0]
+    return hits[0]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    path = tmp_path_factory.mktemp("corpus") / "english-words.txt"
+    path.write_bytes(datasets.synthesize("english-words", 256 << 10))
+    return path
+
+
+@pytest.fixture(scope="module")
+def hash_run(corpus):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SWTPU_TIME", "0")
+    mp.setenv("SWTPU_WARMUP", "0")
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ctx = hash_suite.main(["--device", "cpu", "--dataset", str(corpus), "--dataset-limit", "256kb"])
+    mp.undo()
+    return ctx, out.getvalue().splitlines()
+
+
+def test_hash_suite_prints_every_row(hash_run):
+    _, lines = hash_run
+    for row in HASH_ROWS:
+        _row(lines, row)
+    assert [line for line in lines if line.startswith("# ")] == ["# stateless", "# stateful", "# checksum"]
+
+
+def test_hash_suite_buckets_give_jax_digests(hash_run, corpus):
+    ctx, _ = hash_run
+    staged = ctx.staged
+    ref_tape = jax_tape.Tape.from_buffer(corpus.read_bytes(), "words")
+    ref = jax_tape.bucket_by_length(ref_tape, hash_suite.BUCKET_EDGES)
+    assert [b.width for b in staged.buckets] == [b.width for b in ref]
+    assert staged.tokens == ctx.tape.count and staged.token_bytes == ctx.tape.total_bytes
+    first = ref_tape.to_list()[:64]
+    first_tape = jax_tape.PaddedTokens.from_tape(jax_tape.Tape.from_tokens(first))
+    idx, swh = staged.digests(H.swh64)
+    assert list(idx[:64]) == list(range(64))
+    np.testing.assert_array_equal(swh[:64], JH.swh64(first_tape, 0).to_numpy().astype(np.uint64))
+    _, xxh = staged.digests(H.xxh64)
+    np.testing.assert_array_equal(xxh[:64], JH.xxh64(first_tape).to_numpy().astype(np.uint64))
+
+
+def test_hash_suite_tree_row_matches_jax(hash_run, corpus):
+    ctx, _ = hash_run
+    raw = np.frombuffer(corpus.read_bytes(), np.uint8)
+    ref_tape = jax_tape.Tape.from_buffer(raw.tobytes(), "words")
+    hay = np.asarray(ref_tape.data)[: ref_tape.total_bytes]
+    assert H.tree_hash64(ctx.tape.data, ctx.tape.total_bytes) == JH.tree_hash64(hay)
+
+
+def test_collision_audit(corpus, monkeypatch, capsys):
+    monkeypatch.setenv("SWTPU_TIME", "0")
+    monkeypatch.setenv("SWTPU_WARMUP", "0")
+    monkeypatch.setenv("SWTPU_COLLISIONS", "1")
+    monkeypatch.setenv("SWTPU_FILTER", "checksum/zlib")
+    hash_suite.main(["--device", "cpu", "--dataset", str(corpus), "--dataset-limit", "64kb"])
+    err = capsys.readouterr().err
+    assert "collisions: 0 over " in err
+
+
+def test_fingerprints_suite_prints_every_row(monkeypatch, capsys, tmp_path):
+    path = tmp_path / "long-lines.txt"
+    path.write_bytes(datasets.synthesize("long-lines", 64 << 10))
+    monkeypatch.setenv("SWTPU_TIME", "0")
+    monkeypatch.setenv("SWTPU_WARMUP", "0")
+    monkeypatch.setenv("SWTPU_NDIM_SCALES", "16,64")
+    monkeypatch.setenv("SWTPU_BATCH_PER_CORE", "24")
+    ctx = fp_suite.main(["--device", "cpu", "--dataset", str(path), "--dataset-limit", "64kb"])
+    captured = capsys.readouterr()
+    lines = captured.out.splitlines()
+    for ndim in (16, 64):
+        _row(lines, f"minhash/ndim_{ndim}/swtorch::fingerprint<1cpu>")
+        _row(lines, f"minhash/ndim_{ndim}/numpy-replay")
+        assert f"quality ndim_{ndim}: bit-entropy " in captured.err
+    tokens = ctx.staged["tokens"]
+    assert tokens.count == min(24, ctx.tape.count)
+    ref = jax_tape.PaddedTokens.from_tape(
+        jax_tape.Tape.from_buffer(path.read_bytes(), "lines").subtape(0, tokens.count), max_width=4096
+    )
+    want, _ = JF.fingerprint_xla(ref, ndim=64)
+    np.testing.assert_array_equal(ctx.staged["min_hashes"][64], np.asarray(want))
+    entropy, collisions = ctx.staged["quality"][64]
+    assert entropy == JF.bit_entropy(np.asarray(want)) and collisions == JF.collision_rate(np.asarray(want))
+
+
+@pytest.mark.parametrize("suite", [hash_suite, fp_suite], ids=["hash", "fingerprints"])
+def test_suite_main_without_a_card_stops(suite, corpus, capsys):
+    """Without ``--device cpu`` a suite runs on the card, and a host with no
+    card stops with an error instead of running the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as stop:
+        suite.main(["--dataset", str(corpus), "--dataset-limit", "64kb"])
+    assert stop.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
