@@ -10,7 +10,10 @@ prints no result:
 2. build: the CUDA kernels from ``stringwars_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel);
 3. kernels: each kernel against its plain torch version on the card, exact
-   (the hashes also against the published digests of the empty input);
+   (the hashes also against the published digests of the empty input; the
+   Myers and alignment kernels over pattern lengths 0..1023 against texts of
+   0..1100 B in the byte, DNA and codepoint alphabets, global and local,
+   affine and linear, and 64 pairs against the brute-force oracles);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -21,11 +24,16 @@ prints no result:
      documents' min-hashes must equal the numpy spec replay, and the quality
      line is read back;
    - ``entry("cuda")``'s forward, equal to the same forward on the CPU;
+   - ``suites.similarities.main`` on its default corpus with
+     ``SWTPU_ERROR_BOUND=16``; the first 8 scores of every row must equal
+     the brute-force oracles, and every score of each kernel row the plain
+     version on the suite's own pairs;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
-   shapes), each kernel timed with CUDA events (median of 5 runs of
-   back-to-back calls, after warm-up) beside its plain version on the card,
+   shapes, and the similarities reference's own H100 cell), each kernel
+   timed with CUDA events (median of 5 runs of back-to-back calls, after
+   warm-up) beside its plain version on the card (one run for the DP rows),
    its bound (the least time the card could take: bytes over 3.35 TB/s or
    32-bit integer instructions over 33.4 T/s, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
@@ -41,6 +49,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
+import os
 import statistics
 import sys
 import time
@@ -109,6 +119,43 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def rate(ms: float, work_bytes: float, cells: float | None) -> str:
+    """A row's rate: GCUPS for a DP row (cells), else GB/s."""
+    return f"{cells / ms / 1e6:.1f} GCUPS" if cells else f"{work_bytes / ms / 1e6:.1f} GB/s"
+
+
+def levenshtein_banded_ref(a, b, band: int) -> int:
+    """Brute-force banded Levenshtein for |a| == |b|: cells off the band
+    (|i - j| > band) are unreachable, row 0 and column 0 are whole, and the
+    result saturates at 2^20, as ``similarity.levenshtein_banded`` defines
+    it on a pair that fills its padded width."""
+    if len(a) != len(b):
+        raise ValueError("the banded oracle covers pairs of equal length")
+    big = 1 << 20
+    prev = list(range(len(b) + 1))
+    for i in range(1, len(a) + 1):
+        cur = [i] + [big] * len(b)
+        for j in range(max(1, i - band), min(len(b), i + band) + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (a[i - 1] != b[j - 1]))
+        prev = cur
+    return min(prev[len(b)], big)
+
+
+def myers_instructions(batch) -> int:
+    """32-bit instructions that Levenshtein by Myers' algorithm needs: per
+    32-row word and text column, 17 for the step (myers_pallas.py:84-106)
+    and one for Eq, a lookup in the pattern's table of match vectors. The
+    kernel spends more (csrc/myers.cu); the bound counts the function."""
+    words32 = -(-batch.host_a_len // 32)
+    return int((words32 * batch.host_b_len).sum()) * 18
+
+
+# 32-bit instructions per DP cell that each alignment body needs with
+# sm_90's DPX forms, by (gap model, local) (csrc/affine.cu lists them):
+# global affine 8, local affine 9, global linear 5, local linear 6.
+ALIGN_OPS = {("affine", False): 8, ("affine", True): 9, ("linear", False): 5, ("linear", True): 6}
+
+
 def lowercase(n: int, seed: int, dev) -> torch.Tensor:
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(97, 123, (n,), dtype=torch.uint8, device=dev, generator=g)
@@ -148,7 +195,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
-    from stringwars_tpu_torch import build, entry
+    from stringwars_tpu_torch import build, datasets, entry
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import bytesum as B
     from stringwars_tpu_torch.ops import find as F
@@ -156,13 +203,19 @@ def main() -> int:
     from stringwars_tpu_torch.ops import fingerprint as FP
     from stringwars_tpu_torch.ops import hash as H
     from stringwars_tpu_torch.ops import hash_cuda as HC
+    from stringwars_tpu_torch.ops import affine as AF
+    from stringwars_tpu_torch.ops import affine_cuda as AFC
     from stringwars_tpu_torch.ops import memops as M
+    from stringwars_tpu_torch.ops import myers as MY
+    from stringwars_tpu_torch.ops import myers_cuda as MYC
+    from stringwars_tpu_torch.ops import similarity as S
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
+    from stringwars_tpu_torch.suites import similarities as sim_suite
     from stringwars_tpu_torch.utils.profiler import card_identity
 
-    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES)
+    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES)
 
     def launches() -> dict[str, int]:
         return {k: v for counter in counters for k, v in counter.items()}
@@ -283,6 +336,67 @@ def main() -> int:
     lut = torch.from_numpy(M.invert_case_lut()).to(dev)
     for view in (big[: 64 << 20], big[3 : (64 << 20) + 8], big[15:1000], big[:7]):
         errors["lut_translate"] = max(errors["lut_translate"], max_err(M.lut_translate_cuda(view, lut), M.lut_translate_plain(view, lut)))
+    # Edit distances and alignment scores: pattern lengths across the word
+    # edges against texts of 0..1100 B (empty sides included) in three
+    # alphabets, each batch more pairs than one block holds, and a uniform
+    # batch large enough for 128-thread blocks.
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    lengths = [0, 1, 31, 32, 33, 63, 64, 65, 100, 128, 129, 256, 300, 1023]
+    texts = [0, 1, 7, 64, 300, 1100]
+    pair_lens = [(m, n) for m in lengths for n in texts]
+    pair_lens += [(int(m), int(n)) for m, n in zip(rng.integers(0, 400, 300), rng.integers(0, 1100, 300))]
+    byte_a = [bytes(rng.integers(0, 256, m, dtype=np.uint8)) for m, _ in pair_lens]
+    byte_b = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for _, n in pair_lens]
+    dna_a = [acgt[rng.integers(0, 4, m)].tobytes() for m, _ in pair_lens]
+    dna_b = [acgt[rng.integers(0, 4, n)].tobytes() for _, n in pair_lens]
+    cp_a = [rng.integers(0, 0x110000, m).astype(np.int32) for m, _ in pair_lens]
+    cp_b = []
+    for x, (_, n) in zip(cp_a, pair_lens):
+        y = rng.integers(0x1F5F0, 0x1F610, n).astype(np.int32)  # astral
+        k = min(len(x), n) // 2
+        y[:k] = x[:k]
+        cp_b.append(y)
+    uniform = [row.tobytes() for row in acgt[rng.integers(0, 4, (2 * 40000, 64))]]
+    dp_outs: dict[tuple[str, str], np.ndarray] = {}
+    dp_sets = {
+        "bytes": (MY.myers_from_tokens(byte_a, byte_b, device=dev), AF.affine_from_tokens(byte_a, byte_b, device=dev)),
+        "dna": (MY.myers_from_tokens(dna_a, dna_b, device=dev), AF.affine_from_tokens(dna_a, dna_b, device=dev)),
+        "codepoints": (MY.myers_from_codepoints(cp_a, cp_b, device=dev), None),
+        "uniform": (
+            MY.myers_from_tokens(uniform[:40000], uniform[40000:], device=dev),
+            AF.affine_from_tokens(uniform[:40000], uniform[40000:], device=dev),
+        ),
+    }
+    for set_name, (mb, ab) in dp_sets.items():
+        got = MYC.myers(mb)
+        errors["myers"] = max(errors["myers"], max_err(got, MY.myers_plain(mb)))
+        dp_outs[(set_name, "levenshtein")] = got.cpu().numpy()
+        if ab is None:
+            continue
+        for fn, go, ge, local in (("nw_affine", -5, -1, False), ("sw_affine", -5, -1, True), ("nw_linear", -2, -2, False), ("sw_linear", -2, -2, True)):
+            got = AFC.align(ab, 2, -1, go, ge, local=local)
+            key = "linear" if go == ge else "affine"
+            errors[key] = max(errors[key], max_err(got, S._score_scan(ab.pairs, 2, -1, go, ge, local=local)))
+            dp_outs[(set_name, fn)] = got.cpu().numpy()
+    dp_nbits = {name: mb.nbits for name, (mb, _) in dp_sets.items()}
+    # A sample of 64 pairs against the brute-force oracles on the host.
+    small = [i for i, (m, n) in enumerate(pair_lens) if m * n <= 4000]
+    oracle_checked = 0
+    for set_name, (xa, xb) in (("bytes", (byte_a, byte_b)), ("dna", (dna_a, dna_b))):
+        for i in small[:32]:
+            x, y = xa[i], xb[i]
+            want = {
+                "levenshtein": S.levenshtein_ref(x, y),
+                "nw_affine": S.nw_ref(x, y, 2, -1, -5, -1),
+                "sw_affine": S.sw_ref(x, y, 2, -1, -5, -1),
+                "nw_linear": S.nw_ref(x, y, 2, -1, -2, -2),
+                "sw_linear": S.sw_ref(x, y, 2, -1, -2, -2),
+            }
+            for fn, value in want.items():
+                if int(dp_outs[(set_name, fn)][i]) != value:
+                    raise AssertionError(f"{fn} of {set_name} pair {i}: kernel {dp_outs[(set_name, fn)][i]}, oracle {value}")
+            oracle_checked += 1
+    del dp_sets
     torch.cuda.synchronize()
     del big
     advanced = {k: v - before[k] for k, v in launches().items()}
@@ -291,8 +405,9 @@ def main() -> int:
     phase(
         "kernels",
         f"equal to plain on the card ({checked} needle scans, 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
-        f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views); XXH64('') and XXH32('') "
-        f"match the published digests; launches {advanced}",
+        f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views, 4 DP batches of "
+        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}); XXH64('') and XXH32('') match the published "
+        f"digests; {oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; launches {advanced}",
         started,
     )
 
@@ -408,16 +523,76 @@ def main() -> int:
             started,
         )
 
+    def similarities_path() -> None:
+        started = time.perf_counter()
+        band = 16
+        os.environ["SWTPU_ERROR_BOUND"] = str(band)  # the banded row runs only when it is set
+        try:
+            ctx, _ = run_suite(
+                sim_suite.main,
+                ["--warmup", "0.5", "--time-limit", "2"],
+                [
+                    "uniform/swtorch::levenshtein<1gpu>",
+                    "uniform-utf8/swtorch::levenshtein<1gpu>",
+                    f"uniform-banded{band}/swtorch::levenshtein<1gpu>",
+                    "uniform/python-dp-diagonal",
+                ]
+                + [f"{group}/swtorch::{fn}<1gpu>" for group, fn, *_ in sim_suite.ALIGNMENTS],
+            )
+        finally:
+            os.environ.pop("SWTPU_ERROR_BOUND")
+        staged = ctx.staged
+        if staged["batch"].device.type != "cuda":
+            raise AssertionError(f"the similarities suite ran on {staged['batch'].device}")
+        pairs = list(zip(staged["pairs_a"][:8], staged["pairs_b"][:8]))
+        oracles = {
+            "levenshtein": [S.levenshtein_ref(x, y) for x, y in pairs],
+            "levenshtein_utf8": [S.levenshtein_ref(S.decode_codepoints(x), S.decode_codepoints(y)) for x, y in pairs],
+            "levenshtein_banded": [levenshtein_banded_ref(x, y, band) for x, y in pairs],
+        }
+        for group, fn, go, ge, local in sim_suite.ALIGNMENTS:
+            ref = S.sw_ref if local else S.nw_ref
+            oracles[f"{'sw' if local else 'nw'}_{group}"] = [ref(x, y, 2, -1, go, ge) for x, y in pairs]
+        for key, want in oracles.items():
+            got = [int(v) for v in staged["scores"][key][:8]]
+            if got != want:
+                raise AssertionError(f"{key} of the first 8 pairs: suite {got}, oracle {want}")
+        # Every score of each kernel row against the plain version on the
+        # suite's own pairs, staged as the suite stages them.
+        batch, pairs_a, pairs_b = staged["batch"], staged["pairs_a"], staged["pairs_b"]
+        by_bytes = MY.myers_from_tokens(pairs_a, pairs_b, device=dev)
+        by_cps = MY.myers_from_codepoints(
+            [S.decode_codepoints(t) for t in pairs_a], [S.decode_codepoints(t) for t in pairs_b], device=dev
+        )
+        plain = {"levenshtein": ("myers", MY.myers_plain(by_bytes)), "levenshtein_utf8": ("myers", MY.myers_plain(by_cps))}
+        for group, _, go, ge, local in sim_suite.ALIGNMENTS:
+            want = S._score_scan(batch, sim_suite.MATCH, sim_suite.MISMATCH, go, ge, local=local)
+            plain[f"{'sw' if local else 'nw'}_{group}"] = (group, want)
+        for key, (kernel, want) in plain.items():
+            err = max_err(torch.from_numpy(staged["scores"][key]), want.cpu())
+            errors[kernel] = max(errors[kernel], err)
+            if err:
+                raise AssertionError(f"{key}: the suite's scores differ from the plain version by {err}")
+        phase(
+            "main path",
+            f"similarities suite: {batch.a.shape[0]:,} pairs of width {batch.width} ({batch.dp_cells():,} cells) on "
+            f"{batch.device}; the first 8 scores of each of the {len(oracles)} rows equal the brute-force oracles; "
+            f"all {batch.a.shape[0]:,} scores of each of the {len(plain)} kernel rows equal the plain versions "
+            f"(Myers at nbits {by_bytes.nbits} and {by_cps.nbits}); launches {launches()}",
+            started,
+        )
+
     path(["find_count", "rfind_count", "byteset_count", "bytesum"], find_path)
     path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum"], hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
+    path(["myers", "affine", "linear"], similarities_path)
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
     started = time.perf_counter()
     timings: dict[str, dict] = {}
 
-    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES):
+    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None):
         got, want = kernel(), plain()
         err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
         if err:
@@ -431,7 +606,7 @@ def main() -> int:
         lib_text = f", library {library_ms:.4f} ms" if library_ms is not None else ""
         phase(
             "row",
-            f"{name}: kernel {ms:.4f} ms ({work_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+            f"{name}: kernel {ms:.4f} ms ({rate(ms, work_bytes, cells)}), plain {plain_ms:.4f} ms, "
             f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}, equal",
         )
 
@@ -554,6 +729,57 @@ def main() -> int:
         bound_ms(2 * flat.numel(), flat.numel()),
         "lut_translate",
     )
+    del flat
+
+    # Edit distances and alignment scores at tools/tpu_campaign.py's shapes:
+    # 65,536 pairs of 256 B (:557-607; the bytes 65..68 under the 9-plane
+    # byte Eq, uncompressed), and 64 ACGT reads paired (i, 7i + 1), which
+    # stage compressed (:1008-1035). Bound: the instructions of
+    # myers_instructions or ALIGN_OPS per cell; bytes: every input read once.
+    dp_rng = np.random.default_rng(0)
+    pairs, width = 65536, 256
+    ca = dp_rng.integers(65, 69, (pairs, width)).astype(np.int32)
+    cb = dp_rng.integers(65, 69, (pairs, width)).astype(np.int32)
+    full = np.full(pairs, width, np.int32)
+
+    def myers_row(name, mb, key=None):
+        in_bytes = mb.planes.numel() * 8 + mb.text.numel() * 4 + 12 * mb.count
+        row(name, lambda: MYC.myers(mb), lambda: MY.myers_plain(mb), in_bytes,
+            bound_ms(in_bytes, myers_instructions(mb)), key, plain_samples=1, cells=mb.cells())
+
+    def align_row(name, ab, go, ge, local, key=None):
+        in_bytes = (ab.a_cols.numel() + ab.b_cols.numel()) * 4 + 12 * ab.count
+        per_cell = ALIGN_OPS[("linear" if go == ge else "affine", local)]
+        row(name, lambda: AFC.align(ab, 2, -1, go, ge, local=local),
+            lambda: S._score_scan(ab.pairs, 2, -1, go, ge, local=local), in_bytes,
+            bound_ms(in_bytes, per_cell * ab.cells()), key, plain_samples=1, cells=ab.cells())
+
+    myers_row("lev-myers-64kx256B", MY.MyersBatch.from_arrays(ca, cb, full, full, nbits=MY.BYTE_BITS, device=dev), "myers")
+    reads = [acgt[dp_rng.integers(0, 4, width)].tobytes() for _ in range(64)]
+    myers_row(
+        "lev-myers-dna-64kx256B",
+        MY.myers_from_tokens([reads[i % 64] for i in range(pairs)], [reads[(i * 7 + 1) % 64] for i in range(pairs)], device=dev),
+    )
+    gotoh = AF.AffineBatch.from_pairs(S.PairBatch.from_numpy(ca, cb, full, full, device=dev))
+    align_row("nw-affine-64kx256B", gotoh, -5, -1, False, "affine")
+    align_row("sw-affine-64kx256B", gotoh, -5, -1, True)
+    align_row("nw-linear-64kx256B", gotoh, -2, -2, False, "linear")
+    del gotoh, ca, cb
+
+    # The reference's own H100 cell (BASELINE.md:52,55-57): 1 KB ACGT reads
+    # (synthetic:dna lines) at its GPU batch, side = round(sqrt(132 SMs x
+    # 256)) = 184 queries x 184 candidates (similarities/bench.rs:113-118,
+    # 284-289).
+    side = round(math.sqrt(132 * 256))
+    dna_lines = T.Tape.from_buffer(datasets.synthesize("dna", (2 * side + 1) * 1024), "lines").to_list()
+    queries, candidates = dna_lines[:side], dna_lines[side : 2 * side]
+    pa = [q for q in queries for _ in candidates]
+    pb = [c for _ in queries for c in candidates]
+    myers_row(f"lev-myers-dna-1KB-{side}x{side}", MY.myers_from_tokens(pa, pb, device=dev))
+    reads_1kb = AF.affine_from_tokens(pa, pb, device=dev)
+    align_row(f"nw-affine-dna-1KB-{side}x{side}", reads_1kb, -5, -1, False)
+    align_row(f"nw-linear-dna-1KB-{side}x{side}", reads_1kb, -2, -2, False)
+    align_row(f"sw-linear-dna-1KB-{side}x{side}", reads_1kb, -2, -2, True)
     phase("rows", "done", started)
 
     sources = {
@@ -567,6 +793,9 @@ def main() -> int:
         "xxh32": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:179"),
         "fingerprint": ("stringwars_tpu_torch/csrc/fingerprint.cu", "stringwars_tpu/ops/fingerprint.py:119"),
         "lut_translate": ("stringwars_tpu_torch/csrc/lut.cu", "stringwars_tpu/ops/memops.py:35"),
+        "myers": ("stringwars_tpu_torch/csrc/myers.cu", "stringwars_tpu/ops/myers_pallas.py:49"),
+        "affine": ("stringwars_tpu_torch/csrc/affine.cu", "stringwars_tpu/ops/affine_pallas.py:66"),
+        "linear": ("stringwars_tpu_torch/csrc/affine.cu", "stringwars_tpu/ops/affine_pallas.py:170"),
     }
     kernels = [
         {

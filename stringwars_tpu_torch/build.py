@@ -45,6 +45,8 @@ SIGNATURES = {
     "sw_xxh32": (_P, _N, _N, _P, _P, _N, ctypes.c_int, _P, _P),
     "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _N, _P, _P, _P),
     "sw_lut_translate": (_P, _N, _P, _P, _P),
+    "sw_myers": (_P, _N, _P, _P, _P, _N, _P, _P, _P),
+    "sw_align": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P, _P),
 }
 
 

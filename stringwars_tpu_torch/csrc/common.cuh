@@ -69,4 +69,14 @@ inline int stream_blocks(int64_t vectors) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// Threads per block of the one-thread-per-pair DP kernels (myers.cu,
+// affine.cu): 128, or 32 when the batch is too small to give every SM two
+// blocks of 128, so that a few thousand pairs still spread over the SMs.
+inline int pair_threads(int64_t pairs) {
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return pairs >= static_cast<int64_t>(sms) * 2 * 128 ? 128 : 32;
+}
+
 }  // namespace swt

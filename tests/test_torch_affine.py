@@ -1,0 +1,92 @@
+"""The port's alignment scores against the JAX Gotoh Pallas kernel.
+
+The same pairs go through the JAX ``affine_scores(..., interpret=True)`` and
+the XLA ``similarity`` functions, and through the port's staging and
+``affine_scores`` on the CPU (its plain route, the wavefront that the CUDA
+kernel ``csrc/affine.cu`` is held against on the card). Scores are
+integers: every comparison is exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stringwars_tpu.ops import affine_pallas as JA
+from stringwars_tpu.ops import similarity as JS
+from stringwars_tpu_torch.ops import affine as A
+from stringwars_tpu_torch.ops import affine_cuda
+from stringwars_tpu_torch.ops import similarity as S
+
+# (gap_open, gap_extend, local) -> the JAX XLA function of the same score.
+MODELS = {
+    (-5, -1, False): JS.nw_score_affine,
+    (-5, -1, True): JS.sw_score_affine,
+    (-2, -2, False): JS.nw_score_linear,
+    (-2, -2, True): JS.sw_score_linear,
+}
+
+
+def _tokens(rng, n, lo, hi):
+    return [bytes(rng.integers(65, 69, int(rng.integers(lo, hi)), dtype=np.uint8)) for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """Mixed lengths with empty sides on either end."""
+    rng = np.random.default_rng(42)
+    a = [b"", b"abc", b"", b"A", b""] + _tokens(rng, 40, 1, 40)
+    b = [b"xy", b"", b"", b"", b"A"] + _tokens(rng, 40, 1, 40)
+    return a, b, JA.affine_from_tokens(a, b), A.affine_from_tokens(a, b)
+
+
+@pytest.mark.parametrize("go,ge,local", list(MODELS), ids=["nw-affine", "sw-affine", "nw-linear", "sw-linear"])
+def test_scores_match_pallas_kernel_xla_and_oracle(mixed, go, ge, local):
+    a, b, ref, port = mixed
+    got = A.affine_scores(port, 2, -1, go, ge, local=local)
+    assert got.dtype == torch.int32 and got.shape == (len(a),)
+    np.testing.assert_array_equal(got.numpy(), JA.affine_scores(ref, 2, -1, go, ge, local=local, interpret=True))
+    pairs = port.pairs
+    xla = MODELS[(go, ge, local)](JS.PairBatch(*(jnp.asarray(t.numpy()) for t in (pairs.a, pairs.b, pairs.a_len, pairs.b_len))))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+    oracle = S.sw_ref if local else S.nw_ref
+    np.testing.assert_array_equal(got.numpy(), [oracle(list(x), list(y), 2, -1, go, ge) for x, y in zip(a, b)])
+
+
+def test_empty_and_edge():
+    port = A.affine_from_tokens([b"", b"abc", b""], [b"xy", b"", b""])
+    # all-gap alignments: open + (n-1) * extend
+    assert A.affine_scores(port).tolist() == [-5 + -1 * 1, -5 + -1 * 2, 0]
+    assert A.affine_scores(port, local=True).tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("linear", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_uniform_full_batch(local, linear):
+    """Every pair fills its rectangle (the JAX kernel's slab-extraction path)."""
+    rng = np.random.default_rng(5)
+    a = [bytes(rng.integers(65, 69, 17, dtype=np.uint8)) for _ in range(19)]
+    b = [bytes(rng.integers(65, 69, 23, dtype=np.uint8)) for _ in range(19)]
+    ref = JA.affine_from_tokens(a, b)
+    assert ref.uniform_full
+    go, ge = (-2, -2) if linear else (-5, -1)
+    got = A.affine_scores(A.affine_from_tokens(a, b), 2, -1, go, ge, local=local)
+    np.testing.assert_array_equal(got.numpy(), JA.affine_scores(ref, 2, -1, go, ge, local=local, interpret=True))
+
+
+def test_staging_transposes_the_pairs(mixed):
+    a, b, _, port = mixed
+    np.testing.assert_array_equal(port.a_cols.numpy(), port.pairs.a.numpy().T)
+    np.testing.assert_array_equal(port.b_cols.numpy(), port.pairs.b.numpy().T)
+    assert port.a_cols.is_contiguous() and port.b_cols.is_contiguous()
+    assert port.count == len(a) and port.cells() == sum(len(x) * len(y) for x, y in zip(a, b))
+    assert port.cells() == port.pairs.dp_cells()
+
+
+def test_cuda_wrapper_refuses_cpu_batches(mixed):
+    port = mixed[3]
+    before = dict(affine_cuda.LAUNCHES)
+    for go, ge in ((-5, -1), (-2, -2)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            affine_cuda.align(port, 2, -1, go, ge, local=False)
+    assert affine_cuda.LAUNCHES == before
