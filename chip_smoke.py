@@ -13,11 +13,18 @@ prints no result:
    (the hashes also against the published digests of the empty input; the
    Myers and alignment kernels over pattern lengths 0..1023 against texts of
    0..1100 B in the byte, DNA and codepoint alphabets, global and local,
-   affine and linear, and 64 pairs against the brute-force oracles);
+   affine and linear, and 64 pairs against the brute-force oracles; the
+   Aho-Corasick DFA kernel in each table regime and the Shift-And kernel with
+   one and two state words, at their own and at small chunks, and 64 small
+   multi-pattern cases against brute force);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
-     mode; the suite's first forward counts must equal a ``bytes.find`` loop;
+     mode; the suite's first forward counts must equal a ``bytes.find`` loop,
+     and its aho_corasick row's counts the byteset_count row's;
+   - ``ac_count`` and ``shiftand_count`` on that tape: the first 1,000
+     distinct words as a DFA, four and eight words both ways (the two
+     kernels must agree), the dictionary also against the plain version;
    - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
      digests must equal ``swh64_ref``;
    - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
@@ -36,7 +43,10 @@ prints no result:
    warm-up) beside its plain version on the card (one run for the DP rows),
    its bound (the least time the card could take: bytes over 3.35 TB/s or
    32-bit integer instructions over 33.4 T/s, whichever is larger) and,
-   where one PyTorch call computes the same function, that call's time.
+   where one PyTorch call computes the same function, that call's time; the
+   multi-pattern rows take the kernel's device time from ``torch.profiler``
+   (their wrappers' host work outlasts the kernel) and print the
+   back-to-back call time beside it.
 
 The line before last is a JSON object of the kernels (launches in the main
 path, max |kernel - plain| over every comparison, ms, plain ms, bound ms,
@@ -99,6 +109,23 @@ def time_ms(fn, samples: int = SAMPLES, warm: int = WARM) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / k)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, calls: int = 30) -> float:
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, from ``torch.profiler`` over ``calls`` calls of ``fn``: the
+    kernel's own time where the wrapper's host work outlasts it, so that
+    back-to-back calls time the host."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    if not events:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return sum(e.device_time_total for e in events) / sum(e.count for e in events) / 1e3
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -205,9 +232,13 @@ def main() -> int:
     from stringwars_tpu_torch.ops import hash_cuda as HC
     from stringwars_tpu_torch.ops import affine as AF
     from stringwars_tpu_torch.ops import affine_cuda as AFC
+    from stringwars_tpu_torch.ops import ahocorasick as AC
+    from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC
     from stringwars_tpu_torch.ops import memops as M
     from stringwars_tpu_torch.ops import myers as MY
     from stringwars_tpu_torch.ops import myers_cuda as MYC
+    from stringwars_tpu_torch.ops import shiftand as SA
+    from stringwars_tpu_torch.ops import shiftand_cuda as SAC
     from stringwars_tpu_torch.ops import similarity as S
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
@@ -215,7 +246,7 @@ def main() -> int:
     from stringwars_tpu_torch.suites import similarities as sim_suite
     from stringwars_tpu_torch.utils.profiler import card_identity
 
-    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES)
+    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES, SAC.LAUNCHES)
 
     def launches() -> dict[str, int]:
         return {k: v for counter in counters for k, v in counter.items()}
@@ -336,6 +367,68 @@ def main() -> int:
     lut = torch.from_numpy(M.invert_case_lut()).to(dev)
     for view in (big[: 64 << 20], big[3 : (64 << 20) + 8], big[15:1000], big[:7]):
         errors["lut_translate"] = max(errors["lut_translate"], max_err(M.lut_translate_cuda(view, lut), M.lut_translate_plain(view, lut)))
+    # Multi-pattern counts over 6 MB + 13 B (lowercase, then a-c, then every
+    # byte value) with patterns planted, at n and n - 5 and a short extent:
+    # the DFA in its three table regimes (by the automata's sizes: 13 to 47
+    # states shared, the dictionary and the long random set global, the
+    # 300-fold duplicate wide), the Shift-And kernel
+    # with one and two state words, each at its own chunk and at 32-byte
+    # chunks (shorter than the long patterns' overlap).
+    mp_rng = np.random.default_rng(9)
+    english = datasets.synthesize("english-words", 1 << 20)
+    words_1k = list(dict.fromkeys(T.Tape.from_buffer(english, "words").to_list()))[:1000]
+    random300 = [bytes(mp_rng.choice(np.frombuffer(b"abc", np.uint8), int(m))) for m in (1, 2, 3, 7, 40, 150, 299, 300)]
+    mp_parts = [lowercase(4 << 20, 9, dev), torch.from_numpy(mp_rng.choice(np.frombuffer(b"abc", np.uint8), 1 << 20)).to(dev),
+                random_bytes((1 << 20) + 13, 10, dev)]
+    mp_hay = torch.cat(mp_parts)
+    mp_sets = {
+        "4words": [b"the", b"and", b"tion", b"abcd"],
+        "8words": [b"needle", b"haystack", b"pattern", b"search", b"string", b"find", b"match", b"token"],
+        "7words": [b"needle", b"haystack", b"pattern", b"search", b"string", b"find", b"match"],
+        "nested": [b"abc", b"bc", b"c"],
+        "zero-ff": [b"\x00a", b"\xff", b"a\x00\x00"],
+        "html": [bytes([c]) for c in find_suite.BYTESETS["html"]],
+        "1kwords": words_1k,
+        "random300": random300,
+        "wide": [b"a"] * 300 + [b"ab"],
+    }
+    for patterns in mp_sets.values():
+        for i, p in enumerate(patterns[:64]):
+            for at in mp_rng.integers(0, mp_hay.numel() - len(p), 4).tolist() + ([mp_hay.numel() - len(p)] if i == 0 else []):
+                mp_hay[at : at + len(p)] = torch.frombuffer(bytearray(p), dtype=torch.uint8).to(dev)
+    mp_checked, regimes_seen = 0, set()
+    for set_name, patterns in mp_sets.items():
+        auto = AC.Automaton(patterns)
+        regimes_seen.add(ACC.regime_of(auto))
+        sa = SA.ShiftAndSet(patterns) if sum(map(len, patterns)) <= SA.MAX_BITS and max(map(len, patterns)) <= 32 else None
+        for extent in (mp_hay.numel(), mp_hay.numel() - 5, (1 << 20) + 3):
+            want = AC.ac_count_plain(auto, mp_hay, extent)
+            for chunk in (None, ACC.CHUNK_ALIGN):
+                errors["ac_dfa"] = max(errors["ac_dfa"], max_err(ACC.ac_count(auto, mp_hay, extent, chunk=chunk), want))
+                mp_checked += 1
+            if sa is not None:
+                errors["shiftand"] = max(errors["shiftand"], max_err(SA.shiftand_count_plain(sa, mp_hay, extent), want))
+                for chunk in (None, ACC.CHUNK_ALIGN):
+                    errors["shiftand"] = max(errors["shiftand"], max_err(SAC.shiftand_count(sa, mp_hay, extent, chunk=chunk), want))
+                    mp_checked += 1
+    if regimes_seen != {"shared", "global", "wide"} or SA.ShiftAndSet(mp_sets["8words"]).n_words != 2:
+        raise AssertionError(f"the multi-pattern checks missed a regime or the two-word Shift-And: {regimes_seen}")
+    del mp_parts, mp_hay
+    # 64 small cases against brute force: 0..3000 B over two or three
+    # letters, sets of 1..6 patterns of 1..8 B.
+    mp_oracle = 0
+    for case in range(64):
+        letters = np.frombuffer(b"ab" if case % 2 else b"abc", np.uint8)
+        text = mp_rng.choice(letters, int(mp_rng.integers(0, 3000))).tobytes()
+        patterns = [mp_rng.choice(letters, int(mp_rng.integers(1, 9))).tobytes() for _ in range(int(mp_rng.integers(1, 7)))]
+        want = sum(sum(1 for i in range(len(text) - len(p) + 1) if text.startswith(p, i)) for p in patterns)
+        hay_small = torch.frombuffer(bytearray(text + b"\x00"), dtype=torch.uint8).to(dev)
+        got = [int(ACC.ac_count(AC.Automaton(patterns), hay_small, len(text)).item()),
+               int(SAC.shiftand_count(SA.ShiftAndSet(patterns), hay_small, len(text)).item())]
+        if got != [want, want]:
+            raise AssertionError(f"small case {case}: {patterns} over {len(text)} B: kernels {got}, brute force {want}")
+        mp_oracle += 1
+
     # Edit distances and alignment scores: pattern lengths across the word
     # edges against texts of 0..1100 B (empty sides included) in three
     # alphabets, each batch more pairs than one block holds, and a uniform
@@ -406,8 +499,10 @@ def main() -> int:
         "kernels",
         f"equal to plain on the card ({checked} needle scans, 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
         f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views, 4 DP batches of "
-        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}); XXH64('') and XXH32('') match the published "
-        f"digests; {oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; launches {advanced}",
+        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
+        f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
+        f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; {mp_oracle} small multi-pattern cases "
+        f"equal brute force; launches {advanced}",
         started,
     )
 
@@ -434,6 +529,7 @@ def main() -> int:
                 "substring-forward/swtorch::find_count<1gpu>",
                 "substring-backward/swtorch::rfind_count<1gpu>",
                 "byteset-forward/swtorch::byteset_count<1gpu>",
+                "byteset-forward/swtorch::aho_corasick<1gpu>",
             ],
         )
         if ctx.tape.device.type != "cuda" or ctx.tape.total_bytes < 48 << 20:
@@ -449,10 +545,42 @@ def main() -> int:
                 pos = hay_b.find(needle, pos + 1)
             if results[needle] != count:
                 raise AssertionError(f"forward count of {needle!r}: suite {results[needle]}, bytes.find loop {count}")
+        ac_routine, ac_results = find_suite.aho_corasick_routine(ctx.tape)
+        ac_routine()
+        set_routine, set_results = find_suite.byteset_routine(ctx.tape)
+        set_routine()
+        if ac_results != set_results:
+            raise AssertionError(f"aho_corasick row counts {ac_results} differ from the byteset_count row's {set_results}")
+        suite_tape.append(ctx.tape)
         phase(
             "main path",
             f"find suite: {ctx.tape.total_bytes:,} B of {ctx.tape.count:,} words on {ctx.tape.device}; first 8 "
-            f"forward counts {[results[t] for t in panel[:8]]} equal the bytes.find loop; launches {launches()}",
+            f"forward counts {[results[t] for t in panel[:8]]} equal the bytes.find loop; aho_corasick counts "
+            f"{ac_results} equal the byteset_count row's; launches {launches()}",
+            started,
+        )
+
+    def multipattern_path() -> None:
+        started = time.perf_counter()
+        tape = suite_tape[0]
+        hay, n = tape.data, tape.total_bytes
+        dictionary = AC.Automaton(list(dict.fromkeys(tape.subtape(0, 20000).to_list()))[:1000])
+        four, eight = mp_sets["4words"], mp_sets["8words"]
+        got = {
+            "dictionary": AC.ac_count(dictionary, hay, n),
+            "4words-dfa": AC.ac_count(AC.Automaton(four), hay, n),
+            "4words-shiftand": SA.shiftand_count(SA.ShiftAndSet(four), hay, n),
+            "8words-dfa": AC.ac_count(AC.Automaton(eight), hay, n),
+            "8words-shiftand": SA.shiftand_count(SA.ShiftAndSet(eight), hay, n),
+        }
+        plain = int(AC.ac_count_plain(dictionary, hay, n).item())
+        if got["dictionary"] != plain or got["4words-dfa"] != got["4words-shiftand"] or got["8words-dfa"] != got["8words-shiftand"]:
+            raise AssertionError(f"multi-pattern counts disagree: {got}, dictionary plain {plain}")
+        phase(
+            "main path",
+            f"ac_count / shiftand_count on the find suite's {n:,} B: {got} ({dictionary.states} DFA states in the "
+            f"{ACC.regime_of(dictionary)} regime, equal to the plain version; the DFA and Shift-And counts agree); "
+            f"launches {launches()}",
             started,
         )
 
@@ -582,7 +710,10 @@ def main() -> int:
             started,
         )
 
-    path(["find_count", "rfind_count", "byteset_count", "bytesum"], find_path)
+    suite_tape: list = []  # the find suite's tape, for the multi-pattern path
+    path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
+    path(["ac_dfa", "shiftand"], multipattern_path)
+    del suite_tape
     path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum"], hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
@@ -592,12 +723,16 @@ def main() -> int:
     started = time.perf_counter()
     timings: dict[str, dict] = {}
 
-    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None):
+    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None, profiled=None):
         got, want = kernel(), plain()
         err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
         if err:
             raise AssertionError(f"{name}: kernel and plain differ by {err}")
         ms = time_ms(kernel)
+        calls_text = ""
+        if profiled:  # the kernel's device time; the back-to-back calls beside it
+            calls_text = f", calls back to back {ms:.4f} ms"
+            ms = device_ms(kernel, profiled)
         plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
         library_ms = time_ms(library) if library else None
         bound_value, bound_by = bound
@@ -607,7 +742,7 @@ def main() -> int:
         phase(
             "row",
             f"{name}: kernel {ms:.4f} ms ({rate(ms, work_bytes, cells)}), plain {plain_ms:.4f} ms, "
-            f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}, equal",
+            f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}{calls_text}, equal",
         )
 
     flat = lowercase(128 << 20, 0, dev)
@@ -731,6 +866,31 @@ def main() -> int:
     )
     del flat
 
+    # Multi-pattern counts at tools/tpu_campaign.py's shapes (:940-1006): 64 MB
+    # of lowercase; the four-word set as a DFA (shared-memory table) and as
+    # one Shift-And word, the eight-word set as two Shift-And words, and the
+    # 1,000-word dictionary as a DFA (global table). Bound: one read of the
+    # bytes, or the instructions the function needs per byte: the DFA 4
+    # (extract the byte, form the index, load, add the count), Shift-And 2
+    # (extract, load) + 6 per 32-bit state word (shift, or, and, the final
+    # test, popcount, add). Each kernel is shorter than its wrapper's host
+    # work, so ms is the profiler's device time of the kernel.
+    ac_flat = lowercase(64 << 20, 0, dev)
+    nb = ac_flat.numel()
+    for name, auto, key in (
+        ("ac-dfa-64MB", AC.Automaton(mp_sets["4words"]), "ac_dfa"),
+        ("ac-dfa-1kwords-64MB", AC.Automaton(words_1k), None),
+    ):
+        row(f"{name} ({ACC.regime_of(auto)}, {auto.states} states)", lambda: ACC.ac_count(auto, ac_flat),
+            lambda: AC.ac_count_plain(auto, ac_flat), nb, bound_ms(nb, 4 * nb), key, plain_samples=1, profiled="ac_kernel")
+    for name, sa, key in (
+        ("ac-shiftand-64MB", SA.ShiftAndSet(mp_sets["4words"]), "shiftand"),
+        ("ac-shiftand8-64MB", SA.ShiftAndSet(mp_sets["8words"]), None),
+    ):
+        row(f"{name} ({sa.n_words}-word state)", lambda: SAC.shiftand_count(sa, ac_flat), lambda: SA.shiftand_count_plain(sa, ac_flat),
+            nb, bound_ms(nb, (2 + 6 * sa.n_words) * nb), key, plain_samples=1, profiled="sa_kernel")
+    del ac_flat
+
     # Edit distances and alignment scores at tools/tpu_campaign.py's shapes:
     # 65,536 pairs of 256 B (:557-607; the bytes 65..68 under the 9-plane
     # byte Eq, uncompressed), and 64 ACGT reads paired (i, 7i + 1), which
@@ -796,6 +956,8 @@ def main() -> int:
         "myers": ("stringwars_tpu_torch/csrc/myers.cu", "stringwars_tpu/ops/myers_pallas.py:49"),
         "affine": ("stringwars_tpu_torch/csrc/affine.cu", "stringwars_tpu/ops/affine_pallas.py:66"),
         "linear": ("stringwars_tpu_torch/csrc/affine.cu", "stringwars_tpu/ops/affine_pallas.py:170"),
+        "ac_dfa": ("stringwars_tpu_torch/csrc/ahocorasick.cu", "stringwars_tpu/ops/ahocorasick.py:144"),
+        "shiftand": ("stringwars_tpu_torch/csrc/shiftand.cu", "stringwars_tpu/ops/shiftand.py:108"),
     }
     kernels = [
         {

@@ -69,6 +69,41 @@ inline int stream_blocks(int64_t vectors) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// Blocks of kThreads to launch for a grid-stride kernel (the chunk scans of
+// ahocorasick.cu and shiftand.cu): enough to fill every SM at the kernel's
+// occupancy with `smem` bytes of dynamic shared memory, no more than `want`.
+template <typename Kernel>
+inline int resident_grid(Kernel kernel, size_t smem, int64_t want) {
+  int device = 0, sms = 132, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+// Walks hay[w, end) (w 16-byte aligned, end - w a multiple of 32) in
+// 32-byte batches, one full sector per thread, calling step16 on each
+// 16-byte vector: the next batch's loads start before the current batch is
+// walked, so a thread whose steps form a dependent chain (the chunk scans
+// of ahocorasick.cu and shiftand.cu) keeps two batches in flight.
+template <class Step16>
+__device__ __forceinline__ void scan_batches(const uint8_t* __restrict__ hay, int64_t w, int64_t end, Step16 step16) {
+  if (w >= end) return;
+  const uint4* p = reinterpret_cast<const uint4*>(hay + w);
+  const int64_t batches = (end - w) >> 5;
+  uint4 a = __ldg(p), b = __ldg(p + 1);
+  for (int64_t i = 1; i < batches; ++i) {
+    const uint4 c = __ldg(p + 2 * i), d = __ldg(p + 2 * i + 1);
+    step16(a);
+    step16(b);
+    a = c;
+    b = d;
+  }
+  step16(a);
+  step16(b);
+}
+
 // Threads per block of the one-thread-per-pair DP kernels (myers.cu,
 // affine.cu): 128, or 32 when the batch is too small to give every SM two
 // blocks of 128, so that a few thousand pairs still spread over the SMs.

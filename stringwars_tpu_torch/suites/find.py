@@ -19,8 +19,13 @@ capacity buckets; each call scans the next batch of up to 16 needles of
 every bucket, plus the first two tokens longer than 505 B. The needles are
 read through the offsets, not by materializing every token.
 
-Not ported yet: the Aho-Corasick / Shift-And row of ``byteset-forward`` and
-the sharded ``<N...>`` rows.
+The ``byteset-forward`` group also counts the three charsets as sets of
+one-byte patterns (``swtorch::aho_corasick``, the reference's aho-corasick
+rows), routed as the JAX package routes them on its TPU: the Shift-And
+kernel of ``ops/shiftand_cuda.py`` for a set that packs into its 64 bits,
+else the DFA kernel of ``ops/ahocorasick_cuda.py``.
+
+Not ported yet: the sharded ``<N...>`` rows.
 """
 
 from __future__ import annotations
@@ -29,8 +34,11 @@ import itertools
 import re
 
 import numpy as np
+import torch
 
+from stringwars_tpu_torch.ops import ahocorasick as AC
 from stringwars_tpu_torch.ops import find as F
+from stringwars_tpu_torch.ops import shiftand as SA
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import Tape
 from stringwars_tpu_torch.utils.harness import WorkUnits
@@ -145,6 +153,40 @@ def byteset_routine(tape: Tape):
     return routine, results
 
 
+def byteset_matcher(charset: bytes) -> SA.ShiftAndSet | AC.Automaton:
+    """The JAX package's TPU route for a charset as one-byte patterns:
+    Shift-And when the set packs into its words, else the AC DFA."""
+    patterns = [bytes([c]) for c in charset]
+    if len(patterns) <= SA.MAX_BITS:
+        try:
+            return SA.ShiftAndSet(patterns)
+        except ValueError:  # does not pack into the state words
+            pass
+    return AC.Automaton(patterns)
+
+
+def aho_corasick_routine(tape: Tape):
+    """(routine, results): each call counts the three charsets over the tape
+    as multi-pattern sets; ``results`` maps each charset name to its count.
+    The sets and their tables are staged once, before the first call."""
+    matchers = [byteset_matcher(cs) for cs in BYTESETS.values()]
+    hay, n = tape.data, tape.total_bytes
+    for m in matchers:
+        m.tables(hay.device)
+    results: dict[str, int] = {}
+
+    def count(m) -> torch.Tensor:
+        if isinstance(m, SA.ShiftAndSet):
+            return SA.shiftand_count_tensor(m, hay, n)
+        return AC.ac_count_tensor(m, hay, n)
+
+    def routine() -> WorkUnits:
+        results.update(zip(BYTESETS, torch.cat([count(m) for m in matchers]).tolist()))  # one device sync
+        return WorkUnits(elements=len(matchers), bytes=len(matchers) * n)
+
+    return routine, results
+
+
 def _host_haystack(ctx: SuiteContext) -> bytes:
     return ctx.tape.data.cpu().numpy().tobytes()
 
@@ -199,6 +241,13 @@ def bench_byteset(ctx: SuiteContext) -> None:
             f"byteset-forward/swtorch::byteset_count{scope.name}",
             "bytes",
             lambda: byteset_routine(ctx.tape)[0],
+            device=scope.device,
+        )
+    for scope in ctx.scopes:
+        ctx.run(
+            f"byteset-forward/swtorch::aho_corasick{scope.name}",
+            "bytes",
+            lambda: aho_corasick_routine(ctx.tape)[0],
             device=scope.device,
         )
 

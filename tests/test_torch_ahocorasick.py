@@ -1,0 +1,207 @@
+"""The port's Aho-Corasick DFA and plain scan against the JAX package.
+
+``build_dfa`` must equal the JAX package's native ``ac_build`` element for
+element; the port's plain count (the CPU path of ``ac_count``, and the
+comparison for the CUDA kernel in ``csrc/ahocorasick.cu``) must equal the
+JAX XLA scan, both Pallas kernels in interpret mode (the lane-LUT kernel
+and the flat-key rule walk), the native sequential count and brute force.
+Counts are integers: every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stringwars_tpu.ops import ahocorasick as JA
+from stringwars_tpu_torch.ops import ahocorasick as A
+from stringwars_tpu_torch.ops import ahocorasick_cuda
+
+
+def brute_count(hay: bytes, patterns: list[bytes]) -> int:
+    total = 0
+    for p in patterns:
+        pos = hay.find(p)
+        while pos >= 0:
+            total += 1
+            pos = hay.find(p, pos + 1)
+    return total
+
+
+def _random_set(seed: int, letters: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    return list({bytes(rng.integers(97, 97 + letters, int(rng.integers(1, 7)), dtype=np.uint8)) for _ in range(24)})
+
+
+SETS = {
+    "classic": [b"he", b"she", b"his", b"hers"],
+    "nested": [b"a", b"aa", b"aaa"],
+    "tabs": [bytes([c]) for c in b"\n\r\x0b\x0c"],
+    "html": [bytes([c]) for c in b"</>&'\"=[]"],
+    "digits": [bytes([c]) for c in b"0123456789"],
+    "random3": _random_set(1, 3),
+    "random4": _random_set(2, 4),
+    "random6": _random_set(3, 6),
+    "zero-ff": [b"\x00", b"a\x00a", b"\x00\x00", b"\xff\xfe", b"ab"],
+    "duplicates": [b"ab", b"ab", b"b", b"abab"],
+}
+
+
+def _hay(patterns: list[bytes], size: int, seed: int) -> np.ndarray:
+    """Bytes drawn from the patterns' own alphabet (dense matches), with
+    some patterns planted whole."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(bytes(sorted(set(b"".join(patterns)))), np.uint8)
+    hay = rng.choice(alphabet, size)
+    for i in range(0, size - 64, 97):
+        p = patterns[i % len(patterns)]
+        hay[i : i + len(p)] = np.frombuffer(p, np.uint8)
+    return hay
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_build_dfa_matches_native_ac_build(name):
+    patterns = SETS[name]
+    want = JA.Automaton(patterns)
+    delta, out_count = A.build_dfa(patterns)
+    assert delta.dtype == np.int32 and out_count.dtype == np.int32
+    np.testing.assert_array_equal(delta.reshape(-1), np.asarray(want.delta_flat))
+    np.testing.assert_array_equal(out_count, np.asarray(want.out_count))
+    port = A.Automaton(patterns)
+    assert (port.states, port.max_len) == (want.states, want.max_len)
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_plain_count_matches_jax_xla_host_and_brute(name):
+    patterns = SETS[name]
+    hay = _hay(patterns, 12_001, seed=len(name))
+    want = brute_count(hay.tobytes(), patterns)
+    jax_auto = JA.Automaton(patterns)
+    port = A.Automaton(patterns)
+    assert want > 0
+    assert A.ac_count(port, torch.from_numpy(hay)) == want
+    assert int(JA.ac_count(jax_auto, hay)) == want
+    assert port.count_host(hay) == jax_auto.count_host(hay) == want
+
+
+def test_from_numpy_takes_the_jax_tables():
+    patterns = SETS["random4"]
+    jax_auto = JA.Automaton(patterns)
+    port = A.Automaton.from_numpy(np.asarray(jax_auto.delta_flat), np.asarray(jax_auto.out_count), patterns)
+    np.testing.assert_array_equal(port.delta, A.Automaton(patterns).delta)
+    hay = _hay(patterns, 9_000, seed=5)
+    assert A.ac_count(port, torch.from_numpy(hay)) == int(JA.ac_count(jax_auto, hay)) == brute_count(hay.tobytes(), patterns)
+    with pytest.raises(ValueError, match="entries"):
+        A.Automaton.from_numpy(np.zeros(300, np.int32), np.zeros(2, np.int32), patterns)
+    with pytest.raises(ValueError, match="states"):
+        A.Automaton.from_numpy(np.full(512, 2, np.int32), np.zeros(2, np.int32), patterns)
+
+
+def test_plain_count_matches_pallas_lut_kernel():
+    """The lane-LUT Pallas kernel (the TPU's production route), interpret mode."""
+    hay = np.random.default_rng(11).integers(97, 103, 20_000, dtype=np.uint8)
+    patterns = [b"ab", b"bca", b"aaaa", b"cb", b"abcabc"]
+    jax_auto = JA.Automaton(patterns)
+    assert JA.automaton_luts(jax_auto)[0] is not None  # this automaton takes the LUT kernel
+    want = JA.ac_count_pallas(jax_auto, hay, interpret=True)
+    assert A.ac_count(A.Automaton(patterns), torch.from_numpy(hay)) == want == brute_count(hay.tobytes(), patterns)
+
+
+def test_plain_count_matches_pallas_rule_walk_kernel():
+    """The flat-key rule-walk Pallas kernel, called as tests/test_ahocorasick.py does."""
+    import jax.numpy as jnp
+
+    hay = np.random.default_rng(12).integers(97, 103, 20_000, dtype=np.uint8)
+    patterns = [b"ab", b"bc", b"abc", b"aa", b"f"]
+    jax_auto = JA.Automaton(patterns)
+    n = hay.shape[0]
+    cols, gpos0, overlap, limit = JA.stage_cols(hay, n, jax_auto.max_len)
+    key_rules, oc_rules = JA.automaton_rules(jax_auto)
+    want = int(
+        JA._ac_scan_pallas(
+            jnp.asarray(key_rules.starts), jnp.asarray(key_rules.deltas),
+            jnp.asarray(oc_rules.starts), jnp.asarray(oc_rules.deltas),
+            jnp.asarray([n, limit], jnp.int32), cols, gpos0, key_rules.count, oc_rules.count, overlap, True,
+        )
+    )
+    assert A.ac_count(A.Automaton(patterns), torch.from_numpy(hay)) == want == brute_count(hay.tobytes(), patterns)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5, 16, 256, 4096])
+def test_seams_count_once(chunk):
+    """Matches straddling chunk seams, with chunks shorter than the overlap."""
+    patterns = [b"abcabc", b"cab", b"bc", b"c"]
+    hay = np.random.default_rng(7).choice(np.frombuffer(b"abc", np.uint8), 20_000)
+    want = brute_count(hay.tobytes(), patterns)
+    port = A.Automaton(patterns)
+    assert A.ac_count_plain(port, torch.from_numpy(hay), chunk=chunk).item() == want == port.count_host(hay)
+
+
+def test_extent_edges():
+    """n < len(hay) (bytes past n never match, though they would), patterns
+    longer than the haystack, and the empty haystack."""
+    patterns = [b"\x00", b"ab\x00", b"abab"]
+    port = A.Automaton(patterns)
+    hay = np.frombuffer(b"ab\x00abab" * 300 + b"\x00" * 50, np.uint8)
+    hay_t = torch.from_numpy(hay.copy())
+    for n in (hay.size, hay.size - 50, 2101, 7, 3, 1, 0):
+        want = brute_count(hay[:n].tobytes(), patterns)
+        assert A.ac_count(port, hay_t, n) == want == int(JA.ac_count(JA.Automaton(patterns), hay, n)), n
+        assert A.ac_count_plain(port, hay_t, n, chunk=3).item() == want
+    long = A.Automaton([b"x" * 64, b"yx" * 40])
+    assert A.ac_count(long, torch.from_numpy(np.frombuffer(b"x" * 63, np.uint8).copy())) == 0
+    assert A.ac_count(port, torch.zeros(0, dtype=torch.uint8)) == 0
+    with pytest.raises(ValueError):
+        A.ac_count(port, hay_t, hay.size + 1)
+
+
+def test_stage_rows_matches_jax():
+    hay = np.random.default_rng(4).integers(0, 256, 5_003, dtype=np.uint8)
+    for max_len, chunk in ((1, 256), (5, 100), (40, 16)):
+        rows, gpos0, got_chunk = A.stage_rows(torch.from_numpy(hay), 5_000, max_len, chunk)
+        want_rows, want_gpos0, want_chunk = JA.stage_rows(hay, 5_000, max_len, chunk, False)
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(want_rows))
+        np.testing.assert_array_equal(gpos0.numpy(), np.asarray(want_gpos0))
+        assert got_chunk == want_chunk
+
+
+def test_validation_matches_jax():
+    for bad, message in (([], "need at least one pattern"), ([b"a", b""], "empty patterns not allowed")):
+        with pytest.raises(ValueError, match=message):
+            JA.Automaton(bad)
+        with pytest.raises(ValueError, match=message):
+            A.Automaton(bad)
+
+
+def test_tables_are_staged_once_per_automaton():
+    """Device tables live on the automaton (no id()-keyed cache): the same
+    object on the second call; another automaton gets its own."""
+    first = A.Automaton([b"ab", b"b"])
+    tables = first.tables("cpu")
+    assert first.tables(torch.device("cpu")) is tables
+    second = A.Automaton([b"xy"])
+    assert second.tables("cpu") is not tables
+    packed = tables.packed.numpy().view(np.uint32)
+    flat = first.delta.reshape(-1)
+    np.testing.assert_array_equal(packed >> 8, flat)
+    np.testing.assert_array_equal(packed & 0xFF, np.minimum(first.out_count[flat], 255))
+
+
+def test_kernel_regime_and_chunk_choice():
+    assert ahocorasick_cuda.regime_of(A.Automaton([b"the", b"and", b"tion", b"abcd"])) == "shared"
+    words = [bytes(np.random.default_rng(i).integers(97, 123, 8, dtype=np.uint8)) for i in range(40)]
+    assert ahocorasick_cuda.regime_of(A.Automaton(words)) == "global"
+    assert ahocorasick_cuda.regime_of(A.Automaton([b"a"] * 300)) == "wide"
+    assert ahocorasick_cuda.kernel_chunk(1) == ahocorasick_cuda.kernel_chunk(65) == 256
+    assert ahocorasick_cuda.kernel_chunk(300) == 1216
+    assert ahocorasick_cuda.check_chunk(32, "x") == 32
+    for bad in (16, 200, 1 << 25):
+        with pytest.raises(ValueError, match="chunk"):
+            ahocorasick_cuda.check_chunk(bad, "x")
+    assert A.ac_count(A.Automaton([b"a"] * 300), torch.from_numpy(np.frombuffer(b"aab", np.uint8).copy())) == 600
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    before = dict(ahocorasick_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        ahocorasick_cuda.ac_count(A.Automaton([b"ab"]), torch.zeros(4096, dtype=torch.uint8))
+    assert ahocorasick_cuda.LAUNCHES == before

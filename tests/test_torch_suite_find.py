@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from stringwars_tpu import tape as jax_tape
+from stringwars_tpu.ops import ahocorasick as JA
 from stringwars_tpu.ops import find as JF
 from stringwars_tpu_torch import datasets
+from stringwars_tpu_torch.ops import shiftand as SA
 from stringwars_tpu_torch.suites import find as suite
 
 ROWS = [
@@ -21,6 +23,7 @@ ROWS = [
     "substring-backward/swtorch::rfind_count<1cpu>",
     "substring-backward/bytes.rfind-loop",
     "byteset-forward/swtorch::byteset_count<1cpu>",
+    "byteset-forward/swtorch::aho_corasick<1cpu>",
     "byteset-forward/re.findall",
 ]
 
@@ -103,6 +106,36 @@ def test_byteset_routine_matches_jax(tapes):
     assert units.bytes == 3 * port.total_bytes
     for name, charset in suite.BYTESETS.items():
         assert results[name] == int(JF.byteset_count(hay, JF.pack_byteset(charset), hay.size)), name
+
+
+def test_aho_corasick_routine_matches_jax_byteset_and_regex(tapes):
+    """The aho_corasick row's three counts equal the JAX package's ac_count
+    on the same bytes, the byteset_count row's counts and re.findall."""
+    import re
+
+    port, hay = tapes
+    routine, results = suite.aho_corasick_routine(port)
+    units = routine()
+    assert (units.elements, units.bytes) == (3, 3 * port.total_bytes)
+    byteset_routine, byteset_results = suite.byteset_routine(port)
+    byteset_routine()
+    for name, charset in suite.BYTESETS.items():
+        assert isinstance(suite.byteset_matcher(charset), SA.ShiftAndSet), name  # the TPU's route for all three
+        want = int(JA.ac_count(JA.Automaton([bytes([c]) for c in charset]), hay, hay.size))
+        regex = len(re.findall(b"[" + re.escape(charset) + b"]", hay.tobytes()))
+        assert results[name] == want == byteset_results[name] == regex, name
+
+
+def test_byteset_matcher_takes_the_dfa_past_shiftand():
+    """A set that does not pack into the Shift-And words goes to the DFA,
+    with the same count."""
+    from stringwars_tpu_torch.ops import ahocorasick as A
+
+    wide = bytes(range(32, 132))  # 100 one-byte patterns > MAX_BITS
+    matcher = suite.byteset_matcher(wide)
+    assert isinstance(matcher, A.Automaton)
+    hay = torch.arange(256, dtype=torch.uint8).repeat(7)
+    assert A.ac_count(matcher, hay) == 7 * 100
 
 
 def test_long_needles_join_the_forward_batch():
