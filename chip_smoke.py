@@ -16,7 +16,10 @@ prints no result:
    affine and linear, and 64 pairs against the brute-force oracles; the
    Aho-Corasick DFA kernel in each table regime and the Shift-And kernel with
    one and two state words, at their own and at small chunks, and 64 small
-   multi-pattern cases against brute force);
+   multi-pattern cases against brute force; the class map over every
+   segmentation table, pruned at 0xFFFF and whole, the fused scan of each
+   kind both ways at 128 Mi positions and across its segment seams, the
+   UAX#14 rules on random class streams covering every pair of classes);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -35,6 +38,12 @@ prints no result:
      ``SWTPU_ERROR_BOUND=16``; the first 8 scores of every row must equal
      the brute-force oracles, and every score of each kernel row the plain
      version on the suite's own pairs;
+   - ``suites.tokenization.main`` on 128 MB of ``synthetic:multilingual``
+     (``swtorch::`` rows only); each segmentation row's count must equal the
+     plain feature route's on the card, the whitespace count
+     ``len(text.split())``, the newline count the host's count of the newline
+     codepoints less CRLF pairs, plus one, and the UTF-8 length
+     ``len(bytes.decode())``; the launches are those of the suite's run;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
@@ -46,7 +55,19 @@ prints no result:
    where one PyTorch call computes the same function, that call's time; the
    multi-pattern rows take the kernel's device time from ``torch.profiler``
    (their wrappers' host work outlasts the kernel) and print the
-   back-to-back call time beside it.
+   back-to-back call time beside it; the tokenization rows at 128 MB (each
+   segmentation function beside its plain feature route, with its launches
+   and device time per call by kernel, by the scan programs' torch builds
+   and by the other torch ops, the UTF-8 rows, and the class map,
+   fused scan and UAX#14 rule kernels by profiler device time, the scans
+   beside ``torch.cumsum`` and ``torch.cummax``). A profiler trace that
+   misses a kernel is taken again, up to three times; where all three miss
+   it, the row says so and keeps the CUDA-event time (its split: "not
+   measured").
+
+The 128 MB multilingual corpus is synthesized by a child process started at
+the beginning (the generator is pure Python), written under
+``stringwars_tpu_torch/_build/``, and removed at the end.
 
 The line before last is a JSON object of the kernels (launches in the main
 path, max |kernel - plain| over every comparison, ms, plain ms, bound ms,
@@ -62,14 +83,19 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 SAMPLES = 5  # timed samples per row, after WARM calls
 WARM = 2
+ROOT = Path(__file__).resolve().parent
+CORPUS_BYTES = 128 << 20  # the tokenization suite's default corpus size
 
 # The least time the card could take (H100 SXM data sheet, at 700 W): bytes
 # over the HBM rate, or 32-bit integer instructions over the rate at which
@@ -111,21 +137,88 @@ def time_ms(fn, samples: int = SAMPLES, warm: int = WARM) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, calls: int = 30) -> float:
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, from ``torch.profiler`` over ``calls`` calls of ``fn``: the
-    kernel's own time where the wrapper's host work outlasts it, so that
-    back-to-back calls time the host."""
+TRACES = 3  # traces taken before a device time counts as not measured
+MISSED: list[str] = []  # one entry per trace that lacked what its caller reads
+
+
+def profile(fn, calls: int, seen, cpu: bool = False, what: str = "?"):
+    """A ``torch.profiler`` trace of ``calls`` calls of ``fn``, of the card
+    (and, with ``cpu``, of the host), taken again, up to ``TRACES`` times,
+    until ``seen(prof)`` holds: the profiler now and then returns a trace
+    that lacks some of the card's kernels. None if no trace passes."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    if not events:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return sum(e.device_time_total for e in events) / sum(e.count for e in events) / 1e3
+    activities = [torch.profiler.ProfilerActivity.CUDA] + ([torch.profiler.ProfilerActivity.CPU] if cpu else [])
+    for _ in range(TRACES):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        if seen(prof):
+            return prof
+        MISSED.append(what)
+    return None
+
+
+def device_events(prof) -> list:
+    """The trace's kernels (a trace of the card alone: no host op carries
+    device time)."""
+    return [e for e in prof.key_averages() if e.device_time_total > 0]
+
+
+def device_ms(fn, kernel: str, calls: int = 30, per_call: bool = False) -> float | None:
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel`` (with ``per_call``: of all such launches in one call of
+    ``fn``), from ``torch.profiler`` over ``calls`` calls: the kernel's own
+    time where the wrapper's host work outlasts it, so that back-to-back
+    calls time the host. None if no trace saw the kernel."""
+    prof = profile(fn, calls, lambda p: any(kernel in e.key for e in device_events(p)), what=kernel)
+    if prof is None:
+        return None
+    events = [e for e in device_events(prof) if kernel in e.key]
+    launches = calls if per_call else sum(e.count for e in events)
+    return sum(e.device_time_total for e in events) / launches / 1e3
+
+
+def range_device_ms(fn, name: str, calls: int = 3) -> float | None:
+    """Device ms per call of ``fn`` in the kernels launched inside the
+    ``torch.profiler.record_function`` range ``name``, from a trace of the
+    host and the card over ``calls`` calls (a host range's device time is
+    its ops' kernels'; 0 where they launch none). None if no trace saw the
+    range."""
+
+    def spans(prof) -> list:
+        return [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+
+    prof = profile(fn, calls, lambda p: bool(spans(p)), cpu=True, what=name)
+    if prof is None:
+        return None
+    return sum(e.device_time_total for e in spans(prof)) / calls / 1e3
+
+
+def device_breakdown(fn, kernels: dict[str, str], calls: int = 3) -> dict[str, float] | None:
+    """Device ms per call of ``fn`` by kernel (name -> substring of the CUDA
+    kernel's name; each must launch in a call), the rest of the device work
+    ("torch") and the total. None if no trace saw every kernel."""
+    prof = profile(fn, calls, lambda p: all(any(k in e.key for e in device_events(p)) for k in kernels.values()),
+                   what="+".join(kernels.values()))
+    if prof is None:
+        return None
+    events = device_events(prof)
+    out = {name: sum(e.device_time_total for e in events if key in e.key) / calls / 1e3 for name, key in kernels.items()}
+    out["total"] = sum(e.device_time_total for e in events) / calls / 1e3
+    out["torch"] = out["total"] - sum(out[name] for name in kernels)
+    return out
+
+
+def start_corpus(path: Path) -> subprocess.Popen:
+    """Synthesize the tokenization suite's 128 MB corpus into ``path`` in a
+    child process (written whole, then renamed into place)."""
+    code = (
+        "import os, sys; from stringwars_tpu_torch import datasets; part = sys.argv[1] + '.part'; "
+        f"open(part, 'wb').write(datasets.synthesize('multilingual', {CORPUS_BYTES})); os.replace(part, sys.argv[1])"
+    )
+    return subprocess.Popen([sys.executable, "-c", code, str(path)], cwd=ROOT)
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -217,11 +310,51 @@ def run_suite(main, argv: list[str], rows: list[str]) -> tuple[object, list[str]
     return ctx, lines
 
 
+# The segmentation class tables (ops/segment.py), and one single-op program
+# per fused-scan kind for the kernel checks and rows.
+SEG_TABLES = (
+    "whitespace_table", "newline_table", "grapheme_break_table", "word_break_table", "sentence_break_table",
+    "extended_pictographic_table", "line_break_table", "incb_table",
+)
+SCAN_KINDS = ("sum", "max", "last", "last2", "delay")
+SCAN_BUILDS = {
+    "sum": lambda e: e["v"],
+    "max": lambda e: e["v"],
+    "last": lambda e: (e["v"], e["f"]),
+    "last2": lambda e: (e["v"], e["f"]),
+    "delay": lambda e: e["v"],
+}
+# The tokenization suite's device rows (``suites/tokenization.device_rows``).
+TOKENIZATION_ROWS = (
+    "tokenize-whitespace/swtorch::split", "tokenize-newlines/swtorch::split", "tokenize-words-tr29/swtorch::words",
+    "tokenize-graphemes-tr29/swtorch::graphemes", "tokenize-sentences-tr29/swtorch::sentences",
+    "tokenize-lines-uax14/swtorch::linebreaks", "utf8-length/swtorch::count_utf8",
+    "utf8-iterate/swtorch::decode_utf32", "find-nth-utf8/swtorch::find_nth",
+)
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
+    from stringwars_tpu_torch import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    corpus = build.BUILD_DIR / "multilingual-128mb.txt"
+    corpus.unlink(missing_ok=True)
+    child = start_corpus(corpus)
+    try:
+        return smoke(corpus, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        corpus.unlink(missing_ok=True)
+        corpus.with_name(corpus.name + ".part").unlink(missing_ok=True)
+
+
+def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch import build, datasets, entry
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import bytesum as B
@@ -240,13 +373,26 @@ def main() -> int:
     from stringwars_tpu_torch.ops import shiftand as SA
     from stringwars_tpu_torch.ops import shiftand_cuda as SAC
     from stringwars_tpu_torch.ops import similarity as S
+    from stringwars_tpu_torch.ops import lut as LU
+    from stringwars_tpu_torch.ops import scanline as SL
+    from stringwars_tpu_torch.ops import scanline_cuda as SLC
+    from stringwars_tpu_torch.ops import segment as SEG
+    from stringwars_tpu_torch.ops import utf8 as U8
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
     from stringwars_tpu_torch.suites import similarities as sim_suite
+    from stringwars_tpu_torch.suites import tokenization as tok_suite
+    from stringwars_tpu_torch.unicode import tables as UT
     from stringwars_tpu_torch.utils.profiler import card_identity
 
-    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES, SAC.LAUNCHES)
+    counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
+                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES)
+
+    def wait_corpus() -> bytes:
+        if child.wait():
+            raise AssertionError(f"synthesizing the tokenization corpus failed (exit code {child.returncode})")
+        return corpus.read_bytes()
 
     def launches() -> dict[str, int]:
         return {k: v for counter in counters for k, v in counter.items()}
@@ -492,6 +638,68 @@ def main() -> int:
     del dp_sets
     torch.cuda.synchronize()
     del big
+
+    # Class maps: every segmentation table pruned at 0xFFFF (u8 tables of at
+    # most 64 KiB) and whole (up to 0x10FFFF), over 32 Mi codepoints (128
+    # MiB; BMP codepoints, then uniform ones from -3 to 0x11FFFF, past the
+    # table: clamped), at an aligned and an unaligned view; and int32 tables
+    # through lut_map.
+    g = torch.Generator(device=dev).manual_seed(11)
+    cps = torch.cat([
+        torch.randint(0, 0x10000, (24 << 20,), dtype=torch.int32, device=dev, generator=g),
+        torch.randint(-3, 0x120000, (8 << 20,), dtype=torch.int32, device=dev, generator=g),
+    ])
+    for name in SEG_TABLES:
+        for max_cp in (0xFFFF, None):
+            table = SEG._class_table(name, max_cp, dev)
+            for view in (cps, cps[1:]):
+                errors["class_map"] = max(errors["class_map"], max_err(LU.class_map_cuda(view, table), LU.class_map_plain(view, table)))
+    for size in (5000, 100_000):  # int32 tables of 20 KB and 400 KB
+        table = torch.randint(-(2**30), 2**30, (size,), dtype=torch.int32, device=dev, generator=g)
+        idx = torch.randint(0, size, (1 << 20,), dtype=torch.int32, device=dev, generator=g)
+        errors["class_map"] = max(errors["class_map"], max_err(LU.lut_map(idx, table), LU.class_map_plain(idx, table)))
+    del cps
+
+    # Fused scans: each kind both ways against the plain executor, at 128 Mi
+    # positions and across the kernel's segment seams, with bool and int8
+    # flags (set where > 0) of several densities.
+    seg = SLC.SEGMENT
+    scan_n = 128 << 20
+    values = torch.randint(-1000, 1000, (scan_n,), dtype=torch.int32, device=dev, generator=g)
+    flags_b = torch.rand(scan_n, device=dev, generator=g) < 0.05
+    flags_i8 = torch.randint(-2, 3, (scan_n,), dtype=torch.int8, device=dev, generator=g)
+    sparse = torch.rand(scan_n, device=dev, generator=g) < 1e-4
+    scan_checks = 0
+    for n_scan in (1, seg - 1, seg, seg + 1, 3 * seg + 7, 40 * seg + 3, scan_n):
+        for flags in (flags_b, flags_i8, sparse) if n_scan < scan_n else (flags_b,):
+            streams = {"v": values[:n_scan], "f": flags[:n_scan]}
+            for reverse in (False, True):
+                for scan_kind in SCAN_KINDS:
+                    ops = (SL.Op(scan_kind, "o", SCAN_BUILDS[scan_kind], init=-7),)
+                    got = SL.fused_scan(streams, ops, n_scan, reverse=reverse)
+                    want = SL.fused_scan_plain(streams, ops, n_scan, reverse=reverse)
+                    for key in want:
+                        errors["fused_scan"] = max(errors["fused_scan"], max_err(got[key], want[key]))
+                    scan_checks += 1
+    del values, flags_b, flags_i8, sparse, streams, got, want
+
+    # UAX#14 rules on random class streams (classes from the continuation
+    # sentinel -9 to the last class; every (prev, eff) and (before_sp, eff)
+    # pair of classes at the start), against the plain rule function.
+    lb_n = (4 << 20) + 3
+    lb_classes = len(UT.LB_VALUES)
+    env = {name: torch.randint(0, lb_classes, (lb_n,), dtype=torch.int32, device=dev, generator=g) for name in SLC.LB_STREAMS}
+    env["cls"] = torch.randint(-9, lb_classes, (lb_n,), dtype=torch.int32, device=dev, generator=g)
+    env["lead"] = (torch.rand(lb_n, device=dev, generator=g) < 0.9).to(torch.int32)
+    env["attached"] = (torch.rand(lb_n, device=dev, generator=g) < 0.1).to(torch.int32)
+    env["ri_run_prev"] = torch.randint(-3, 6, (lb_n,), dtype=torch.int32, device=dev, generator=g)
+    env["lead_ord"] = torch.randint(0, 4, (lb_n,), dtype=torch.int32, device=dev, generator=g)
+    pairs = torch.arange(lb_classes * lb_classes, dtype=torch.int32, device=dev)
+    env["prev"][: pairs.numel()], env["eff"][: pairs.numel()] = pairs // lb_classes, pairs % lb_classes
+    env["before_sp"][pairs.numel() : 2 * pairs.numel()] = pairs // lb_classes
+    env["eff"][pairs.numel() : 2 * pairs.numel()] = pairs % lb_classes
+    errors["lb_rules"] = max(errors["lb_rules"], max_err(SLC.lb_rules(env, lb_n), SEG._lb_rules(env).to(torch.int32)))
+    del env
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -502,7 +710,9 @@ def main() -> int:
         f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; {mp_oracle} small multi-pattern cases "
-        f"equal brute force; launches {advanced}",
+        f"equal brute force; class maps over 8 segmentation tables, pruned and whole, and two "
+        f"int32 tables; {scan_checks} fused scans of the kinds {SCAN_KINDS} up to {scan_n:,} positions; the UAX#14 "
+        f"rules over {lb_n:,} random positions covering every pair of classes; launches {advanced}",
         started,
     )
 
@@ -710,6 +920,50 @@ def main() -> int:
             started,
         )
 
+    def tokenization_path() -> None:
+        started = time.perf_counter()
+        raw = wait_corpus()
+        synthesized = time.perf_counter() - started
+        ctx, _ = run_suite(
+            tok_suite.main,
+            ["--dataset", str(corpus), "--filter", "swtorch::", "--warmup", "0.5", "--time-limit", "2"],
+            [f"{row}<1gpu>" for row in TOKENIZATION_ROWS],
+        )
+        suite_launches = launches()  # the suite's own run: the checks below launch class_map again
+        staged = ctx.staged
+        data, n, mcp = staged["data"], staged["n"], staged["max_cp"]
+        if data.device.type != "cuda" or n != len(raw) or n < CORPUS_BYTES - 16:
+            raise AssertionError(f"the tokenization suite ran on {data.device} over {n} bytes")
+        counts = {row.split("<")[0]: value for row, value in staged["counts"].items()}
+        text = raw.decode()
+        lead = (np.frombuffer(raw, np.uint8) & 0xC0) != 0x80
+        newlines = sum(text.count(c) for c in "\n\x0b\x0c\r\x85\u2028\u2029") - text.count("\r\n") + 1
+        plain = {
+            "tokenize-whitespace/swtorch::split": SEG.whitespace_token_count(data, n, max_cp=mcp, scanline=False),
+            "tokenize-newlines/swtorch::split": newlines,
+            "tokenize-words-tr29/swtorch::words": SEG.word_boundaries(data, n, max_cp=mcp, scanline=False)[1],
+            "tokenize-graphemes-tr29/swtorch::graphemes": SEG.grapheme_boundaries(data, n, max_cp=mcp, scanline=False)[1],
+            "tokenize-sentences-tr29/swtorch::sentences": SEG.sentence_boundaries(data, n, max_cp=mcp, scanline=False)[1],
+            "tokenize-lines-uax14/swtorch::linebreaks": SEG.linebreak_opportunities(data, n, max_cp=mcp, scanline=False)[1],
+            "utf8-length/swtorch::count_utf8": len(text),
+            "utf8-iterate/swtorch::decode_utf32": len(text),
+            "find-nth-utf8/swtorch::find_nth": int(np.flatnonzero(lead)[-1]),
+        }
+        plain = {row: int(value) for row, value in plain.items()}
+        for counter in counters:
+            counter.update({k: suite_launches[k] for k in counter})
+        if counts != plain or counts["tokenize-whitespace/swtorch::split"] != len(text.split()):
+            raise AssertionError(f"tokenization counts {counts} differ from the plain route / host {plain}")
+        del ctx, staged, data, text
+        phase(
+            "main path",
+            f"tokenization suite: {n:,} B of synthetic:multilingual (max_cp {mcp:#x}; synthesized by the child process, "
+            f"waited {synthesized:.1f} s) on {dev}; every segmentation count equals the plain feature route on the card, "
+            f"the whitespace count len(text.split()), the newline count the host's, the UTF-8 counts len(decode()): {counts}; "
+            f"launches of the suite's run {launches()}",
+            started,
+        )
+
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
@@ -718,21 +972,28 @@ def main() -> int:
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
+    path(["class_map", "fused_scan", "lb_rules"], tokenization_path)
+    torch.cuda.empty_cache()
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
     started = time.perf_counter()
     timings: dict[str, dict] = {}
 
-    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None, profiled=None):
+    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None, profiled=None,
+            per_call=False, note=""):
         got, want = kernel(), plain()
         err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
         if err:
             raise AssertionError(f"{name}: kernel and plain differ by {err}")
         ms = time_ms(kernel)
-        calls_text = ""
+        calls_text = note
         if profiled:  # the kernel's device time; the back-to-back calls beside it
-            calls_text = f", calls back to back {ms:.4f} ms"
-            ms = device_ms(kernel, profiled)
+            traced = device_ms(kernel, profiled, per_call=per_call)
+            if traced is None:
+                calls_text += f", no profiler trace in {TRACES} saw {profiled}: ms is the CUDA-event time of calls back to back"
+            else:
+                calls_text += f", calls back to back {ms:.4f} ms"
+                ms = traced
         plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
         library_ms = time_ms(library) if library else None
         bound_value, bound_by = bound
@@ -940,6 +1201,83 @@ def main() -> int:
     align_row(f"nw-affine-dna-1KB-{side}x{side}", reads_1kb, -5, -1, False)
     align_row(f"nw-linear-dna-1KB-{side}x{side}", reads_1kb, -2, -2, False)
     align_row(f"sw-linear-dna-1KB-{side}x{side}", reads_1kb, -2, -2, True)
+
+    # Tokenization at the main path's shape: the 128 MB multilingual corpus.
+    # Each segmentation function on its kernel route beside its plain
+    # feature route (masks held equal; bound: one read of the text), with
+    # its launches per call and its device time per call by kernel, by the
+    # scan programs' builds (torch ops the TPU kernel runs inside its pass)
+    # and by the other torch ops (the byte-space prelude, the input
+    # streams, the rule functions other than UAX#14's and the counts: XLA
+    # in JAX); the
+    # UTF-8 rows; then each new kernel on the corpus's own streams, by
+    # profiler device time, beside its bound: bytes it must move, each input
+    # read once and each output written once.
+    raw = corpus.read_bytes()
+    text_n = len(raw)
+    text = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+    del raw
+    mcp = tok_suite._cp_ceiling(int(text.max()))
+    new_kernels = {"class_map": "class_map_kernel", "fused_scan": "scan_", "lb_rules": "lb_rules_kernel"}
+    for name, fn in (
+        ("whitespace", SEG.whitespace_token_count),
+        ("graphemes", SEG.grapheme_boundaries),
+        ("words", SEG.word_boundaries),
+        ("sentences", SEG.sentence_boundaries),
+        ("linebreaks", SEG.linebreak_opportunities),
+    ):
+        call = lambda fn=fn: fn(text, text_n, max_cp=mcp)  # noqa: E731
+        reset(LU.LAUNCHES, SLC.LAUNCHES)
+        call()
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in {**LU.LAUNCHES, **SLC.LAUNCHES}.items() if v}
+        split = device_breakdown(call, {k: v for k, v in new_kernels.items() if k in per_call})
+        builds = range_device_ms(call, SL.BUILD_RANGE)
+        if split is None or builds is None:
+            detail = f"not measured (no profiler trace in {TRACES} saw every kernel and the build range)"
+        else:
+            split["builds"] = builds
+            split["other torch"] = split.pop("torch") - builds
+            detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        row(f"tokenize-{name}-128MB", call, lambda fn=fn: fn(text, text_n, max_cp=mcp, scanline=False), text_n,
+            bound_ms(text_n), plain_samples=1, note=f"; launches per call {per_call}; device ms per call: {detail}")
+    for name, call in (
+        ("utf8-length", lambda: U8.utf8_count(text, text_n)),
+        ("utf8-iterate", lambda: U8.utf8_decode(text, text_n)),
+        ("find-nth-utf8", lambda: U8.utf8_find_nth(text, text_n, 12345)),
+    ):
+        ms = time_ms(call)
+        phase("row", f"{name}-128MB: {ms:.4f} ms ({rate(ms, text_n, None)}), torch ops (no kernel of the port)")
+
+    cps, lead, _ = SEG._byte_space(text, text_n)
+    n_cp = cps.numel()
+    for label, max_cp, key in (("pruned", mcp, "class_map"), ("whole", None, None)):
+        table = SEG._class_table("grapheme_break_table", max_cp, dev)
+        row(f"class_map-128MB ({label}: {table.numel():,}-entry {table.dtype} table)",
+            lambda table=table: LU.class_map_cuda(cps, table), lambda table=table: LU.class_map_plain(cps, table),
+            4 * n_cp, bound_ms(8 * n_cp), key, profiled="class_map_kernel")
+    cls = SEG._lead_cls(cps, lead, "grapheme_break_table", mcp)
+    streams = {"v": cls, "f": lead}
+    for scan_kind in SCAN_KINDS:
+        ops = (SL.Op(scan_kind, "o", SCAN_BUILDS[scan_kind], init=-7),)
+        moved = {"last": 9, "last2": 13}.get(scan_kind, 8) * n_cp  # int32 values, bool flags, int32 outputs
+        library = {"sum": lambda: torch.cumsum(cls, 0, dtype=torch.int32), "max": lambda: torch.cummax(cls, 0)}.get(scan_kind)
+        row(f"fused_scan-{scan_kind}-128MB", lambda ops=ops: tuple(SL.fused_scan(streams, ops, n_cp).values()),
+            lambda ops=ops: tuple(SL.fused_scan_plain(streams, ops, n_cp).values()), moved, bound_ms(moved),
+            "fused_scan" if scan_kind == "sum" else None, library=library, plain_samples=1, profiled="scan_", per_call=True)
+    del cls, streams
+    lb_cls = SEG._lb_classes(cps, lead, mcp)
+    cm = (lb_cls == SEG._L["CM"]) | (lb_cls == SEG._L["ZWJ"])
+    hard = sum(lb_cls == SEG._L[c] for c in ("BK", "CR", "LF", "NL", "SP", "ZW")) > 0
+    feats = SEG._lb_feats_scan(lb_cls, cm, hard, ~cm & lead, lead, n_cp)
+    env = {"cls": lb_cls, "lead": lead, **{k: feats[k] for k in SLC.LB_STREAMS if k in feats}}
+    env = {k: v.to(torch.int32) for k, v in env.items()}
+    del feats, cm, hard
+    row("lb_rules-128MB (the corpus's UAX#14 features)", lambda: SLC.lb_rules(env, n_cp),
+        lambda: SEG._lb_rules(env).to(torch.int32), 48 * n_cp, bound_ms(48 * n_cp), "lb_rules", plain_samples=3,
+        profiled="lb_rules_kernel")
+    del env, lb_cls, cps, lead, text
+    torch.cuda.empty_cache()
     phase("rows", "done", started)
 
     sources = {
@@ -958,6 +1296,9 @@ def main() -> int:
         "linear": ("stringwars_tpu_torch/csrc/affine.cu", "stringwars_tpu/ops/affine_pallas.py:170"),
         "ac_dfa": ("stringwars_tpu_torch/csrc/ahocorasick.cu", "stringwars_tpu/ops/ahocorasick.py:144"),
         "shiftand": ("stringwars_tpu_torch/csrc/shiftand.cu", "stringwars_tpu/ops/shiftand.py:108"),
+        "class_map": ("stringwars_tpu_torch/csrc/classmap.cu", "stringwars_tpu/ops/lut.py:128; stringwars_tpu/ops/rulemap.py:170"),
+        "fused_scan": ("stringwars_tpu_torch/csrc/scanline.cu", "stringwars_tpu/ops/scanline.py:203"),
+        "lb_rules": ("stringwars_tpu_torch/csrc/lbrules.cu", "stringwars_tpu/ops/scanline.py:375"),
     }
     kernels = [
         {
@@ -971,7 +1312,7 @@ def main() -> int:
         }
         for name, (source, replaces) in sources.items()
     ]
-    phase("total", f"{time.perf_counter() - whole:.1f} s")
+    phase("total", f"{time.perf_counter() - whole:.1f} s; profiler traces retaken for a missing kernel or range: {MISSED}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
