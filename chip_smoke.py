@@ -19,7 +19,12 @@ prints no result:
    multi-pattern cases against brute force; the class map over every
    segmentation table, pruned at 0xFFFF and whole, the fused scan of each
    kind both ways at 128 Mi positions and across its segment seams, the
-   UAX#14 rules on random class streams covering every pair of classes);
+   UAX#14 rules on random class streams covering every pair of classes; the
+   expand-and-compact fold kernel on UTF-8 rows of 32 and 64 bytes of a text
+   with 3-codepoint folds, of ``synthetic:naughty`` and of random bytes, and
+   on codepoint rows under a synthetic 3-table set at ``max_exp`` 1..4, the
+   range map over the fold's rule sets (base 0 and 1, pruned, fully pruned),
+   the codepoint-window count at m = 1, 8, 129 and 300);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -44,6 +49,13 @@ prints no result:
      ``len(text.split())``, the newline count the host's count of the newline
      codepoints less CRLF pairs, plus one, and the UTF-8 length
      ``len(bytes.decode())``; the launches are those of the suite's run;
+   - ``suites.normalization.main`` on the same corpus (``swtorch::`` rows):
+     its fold output equal to the plain version on the card, its total to
+     ``len(text.casefold())`` and 10,000 sampled rows to ``str.casefold``; its
+     1,000 compare booleans to the host's, both ``fold_tokens`` matrices to
+     the CPU route's (the plain rule walk); its 100 needle counts to the
+     plain window count on the card and to a host count of overlapping
+     matches in ``text.casefold()``; the launches are those of the suite's run;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
@@ -60,7 +72,11 @@ prints no result:
    and device time per call by kernel, by the scan programs' torch builds
    and by the other torch ops, the UTF-8 rows, and the class map,
    fused scan and UAX#14 rule kernels by profiler device time, the scans
-   beside ``torch.cumsum`` and ``torch.cummax``). A profiler trace that
+   beside ``torch.cumsum`` and ``torch.cummax``), and the case-folding rows
+   at the normalization suite's shapes (``range_map-fold-128MB``,
+   ``fold-32B-rows-128MB``, ``cp_window-<m>cp-128MB``, profiler device time).
+   The earlier suites run at a quarter second of warm-up and one second a
+   row. A profiler trace that
    misses a kernel is taken again, up to three times; where all three miss
    it, the row says so and keeps the CUDA-event time (its split: "not
    measured").
@@ -196,18 +212,26 @@ def range_device_ms(fn, name: str, calls: int = 3) -> float | None:
     return sum(e.device_time_total for e in spans(prof)) / calls / 1e3
 
 
-def device_breakdown(fn, kernels: dict[str, str], calls: int = 3) -> dict[str, float] | None:
+def device_breakdown(fn, kernels: dict[str, str], calls: int = 3, launches: dict[str, int] | None = None) -> dict[str, float] | None:
     """Device ms per call of ``fn`` by kernel (name -> substring of the CUDA
     kernel's name; each must launch in a call), the rest of the device work
-    ("torch") and the total. None if no trace saw every kernel."""
+    ("torch") and the total. With ``launches`` (each kernel's CUDA launches
+    per call), a kernel's share is its traced mean per launch times that
+    count: a trace may hold fewer launches of the port's kernels than were
+    made (seen: 5 of 20). None if no trace saw every kernel."""
     prof = profile(fn, calls, lambda p: all(any(k in e.key for e in device_events(p)) for k in kernels.values()),
                    what="+".join(kernels.values()))
     if prof is None:
         return None
     events = device_events(prof)
-    out = {name: sum(e.device_time_total for e in events if key in e.key) / calls / 1e3 for name, key in kernels.items()}
-    out["total"] = sum(e.device_time_total for e in events) / calls / 1e3
-    out["torch"] = out["total"] - sum(out[name] for name in kernels)
+    out = {}
+    for name, key in kernels.items():
+        mine = [e for e in events if key in e.key]
+        traced = sum(e.device_time_total for e in mine)
+        out[name] = (traced / calls if launches is None else launches[name] * traced / sum(e.count for e in mine)) / 1e3
+    torch_ms = sum(e.device_time_total for e in events if not any(k in e.key for k in kernels.values())) / calls / 1e3
+    out["total"] = sum(out.values()) + torch_ms
+    out["torch"] = torch_ms
     return out
 
 
@@ -324,6 +348,11 @@ SCAN_BUILDS = {
     "last2": lambda e: (e["v"], e["f"]),
     "delay": lambda e: e["v"],
 }
+# The normalization suite's device rows.
+NORMALIZATION_ROWS = (
+    "case-fold/swtorch::utf8_fold", "case-insensitive-compare/swtorch::uncased_eq",
+    "case-insensitive-find/swtorch::uncased_find",
+)
 # The tokenization suite's device rows (``suites/tokenization.device_rows``).
 TOKENIZATION_ROWS = (
     "tokenize-whitespace/swtorch::split", "tokenize-newlines/swtorch::split", "tokenize-words-tr29/swtorch::words",
@@ -363,6 +392,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.ops import fingerprint as FP
     from stringwars_tpu_torch.ops import hash as H
     from stringwars_tpu_torch.ops import hash_cuda as HC
+    from stringwars_tpu_torch.ops import casefold as CF
+    from stringwars_tpu_torch.ops import expand as EX
+    from stringwars_tpu_torch.ops import expand_cuda as EXC
+    from stringwars_tpu_torch.ops import rulemap as R
     from stringwars_tpu_torch.ops import affine as AF
     from stringwars_tpu_torch.ops import affine_cuda as AFC
     from stringwars_tpu_torch.ops import ahocorasick as AC
@@ -381,13 +414,14 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
+    from stringwars_tpu_torch.suites import normalization as norm_suite
     from stringwars_tpu_torch.suites import similarities as sim_suite
     from stringwars_tpu_torch.suites import tokenization as tok_suite
     from stringwars_tpu_torch.unicode import tables as UT
     from stringwars_tpu_torch.utils.profiler import card_identity
 
     counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
-                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES)
+                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES)
 
     def wait_corpus() -> bytes:
         if child.wait():
@@ -700,6 +734,85 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     env["eff"][pairs.numel() : 2 * pairs.numel()] = pairs % lb_classes
     errors["lb_rules"] = max(errors["lb_rules"], max_err(SLC.lb_rules(env, lb_n), SEG._lb_rules(env).to(torch.int32)))
     del env
+
+    # Case folding. The expand-and-compact kernel in each of its regimes:
+    # 32- and 64-byte UTF-8 rows of a BMP text with 3-codepoint folds (ΐ, ΰ,
+    # ﬃ) at max_exp 1..3, rows of synthetic:naughty bytes (every byte value,
+    # U+10FFFF) and of random bytes under the BMP fold tables (max_cp
+    # 0xFFFF), and codepoint rows of 32 and 64 (negative and past the
+    # table) under a synthetic 3-table set with lengths 0..4 at max_exp 3
+    # and 4. The range map over the fold's four rule sets, whole (base 0 and
+    # 1) and pruned, on BMP codepoints and on -3..0x11FFFF, aligned and not;
+    # a fully pruned set takes no kernel. The window count at m = 1, 8, 129
+    # and 300 over 16 Mi codepoints of three letters with planted needles,
+    # at three extents and unaligned.
+    fold_rng = np.random.default_rng(12)
+    fold_text = "".join(fold_rng.choice(list("aAbBzZ .ßẞΣσςΐΰﬃİǅⅫ日本한ωΩ\n"), 1 << 20))
+    fold_np = np.frombuffer(fold_text.encode(), np.uint8)
+    bmp = EX.fold_tables(0xFFFF)
+    junk_n = 1 << 16
+    utf8_rows = [
+        norm_suite.stream_rows(fold_np, 32, device=dev),
+        norm_suite.stream_rows(fold_np, 64, device=dev),
+        norm_suite.stream_rows(np.frombuffer(datasets.synthesize("naughty", 4 << 20), np.uint8), 32, device=dev),
+        T.PaddedTokens(random_bytes(junk_n * 32, 13, dev).view(junk_n, 32),
+                       torch.randint(0, 33, (junk_n,), dtype=torch.int32, device=dev, generator=g), 32),
+    ]
+    expand_checks = 0
+    for rows in utf8_rows:
+        for max_exp in (1, 2, 3):
+            got = EXC.expand_compact_rows(rows.data, rows.lengths, bmp, max_exp, rows.width, True)
+            want = EX.expand_compact_rows_plain(rows.data, rows.lengths, bmp, max_exp, rows.width, True)
+            errors["expand"] = max(errors["expand"], max_err(got[0], want[0]), max_err(got[1], want[1]))
+            expand_checks += 1
+    fused, fused_counts = EX.fold_tokens_fused(utf8_rows[0], 0xFFFF)
+    if int(fused_counts.sum()) != len(fold_text.casefold()) or fused.shape[1] != 3 * 32:
+        raise AssertionError(f"fused fold of the check text: {int(fused_counts.sum())} codepoints, "
+                             f"str.casefold {len(fold_text.casefold())}, width {fused.shape[1]}")
+    size3 = 70_000
+    t1 = ((torch.randint(-300, 300, (size3,), device=dev, generator=g) & 0xFFFF)
+          | (torch.randint(0, 5, (size3,), device=dev, generator=g) << 16)).cpu()
+    t23 = torch.randint(-(2**31), 2**31, (2, size3), device=dev, generator=g).cpu()
+    three = EX.prepare_tables(*(t.to(torch.int32).numpy() for t in (t1, t23[0], t23[1])))
+    cp_rows = torch.randint(-5, size3 + 300, (1 << 18, 64), dtype=torch.int32, device=dev, generator=g)
+    for group in (32, 64):
+        rows_cp = cp_rows[:, :group].contiguous()
+        lens_cp = torch.randint(0, group + 1, (rows_cp.shape[0],), dtype=torch.int32, device=dev, generator=g)
+        for max_exp in (3, 4):
+            got = EXC.expand_compact_rows(rows_cp, lens_cp, three, max_exp, group, False)
+            want = EX.expand_compact_rows_plain(rows_cp, lens_cp, three, max_exp, group, False)
+            errors["expand"] = max(errors["expand"], max_err(got[0], want[0]), max_err(got[1], want[1]))
+            expand_checks += 1
+    del utf8_rows, cp_rows, fused
+    rm_cps = torch.cat([
+        torch.randint(0, 0x10000, (6 << 20,), dtype=torch.int32, device=dev, generator=g),
+        torch.randint(-3, 0x120000, (2 << 20,), dtype=torch.int32, device=dev, generator=g),
+    ])
+    fold_rules = CF._fold_rules(None)[:4] + CF._fold_rules(0x4FF)[:1]
+    for rules in fold_rules:
+        table = torch.from_numpy(R.dense_delta_table(rules)).to(dev)
+        for view in (rm_cps, rm_cps[1:]):
+            got = LU.range_map_cuda(view, table, rules.base == 0)
+            errors["range_map"] = max(errors["range_map"], max_err(got, R.range_map_plain(view, rules)))
+            errors["range_map"] = max(errors["range_map"], max_err(R.range_map(view, rules), got))
+    pruned = CF._fold_rules(0x7F)[3]
+    if pruned.count or not torch.equal(R.range_map(rm_cps, pruned), torch.zeros_like(rm_cps)):
+        raise AssertionError("a fully pruned value map must read zeros without a kernel")
+    del rm_cps
+    alphabet = torch.tensor([0x61, 0x3C3, 0xDF], dtype=torch.int32, device=dev)
+    cp_stream = alphabet[torch.randint(0, 3, (16 << 20,), device=dev, generator=g)]
+    cp_stream[5000:6000] = 0x61  # a run: overlapping matches
+    window_checks = 0
+    for m in (1, 8, 129, 300):
+        needle = cp_stream[777 : 777 + m].clone()
+        for at in fold_rng.integers(0, cp_stream.numel() - m, 4).tolist() + [cp_stream.numel() - m]:
+            cp_stream[at : at + m] = needle
+        for nd in (needle, torch.full((m,), 0x61, dtype=torch.int32, device=dev)):
+            for view, extent in ((cp_stream, cp_stream.numel()), (cp_stream, cp_stream.numel() - 1), (cp_stream[1:], m + 5)):
+                got = FC.cp_window_count(view, extent, nd)
+                errors["cp_window"] = max(errors["cp_window"], max_err(got, F.cp_window_count_plain(view, extent, nd)))
+                window_checks += 1
+    del cp_stream
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -712,7 +825,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; {mp_oracle} small multi-pattern cases "
         f"equal brute force; class maps over 8 segmentation tables, pruned and whole, and two "
         f"int32 tables; {scan_checks} fused scans of the kinds {SCAN_KINDS} up to {scan_n:,} positions; the UAX#14 "
-        f"rules over {lb_n:,} random positions covering every pair of classes; launches {advanced}",
+        f"rules over {lb_n:,} random positions covering every pair of classes; {expand_checks} expand-and-compact "
+        f"batches (UTF-8 rows of 32 and 64, naughty and random bytes, codepoint rows under 3 tables, max_exp 1..4); "
+        f"range maps of {len(fold_rules)} fold rule sets and a fully pruned one; {window_checks} window counts at "
+        f"m = 1, 8, 129, 300; launches {advanced}",
         started,
     )
 
@@ -734,7 +850,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         started = time.perf_counter()
         ctx, _ = run_suite(
             find_suite.main,
-            ["--dataset-limit", "64mb", "--warmup", "0.5", "--time-limit", "2"],
+            ["--dataset-limit", "64mb", "--warmup", "0.25", "--time-limit", "1"],
             [
                 "substring-forward/swtorch::find_count<1gpu>",
                 "substring-backward/swtorch::rfind_count<1gpu>",
@@ -798,7 +914,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         started = time.perf_counter()
         ctx, _ = run_suite(
             hash_suite.main,
-            ["--dataset-limit", "128mb", "--warmup", "0.5", "--time-limit", "2"],
+            ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1"],
             [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8")]
             + ["stateful/swtorch::tree_hash64<1gpu>", "checksum/swtorch::bytesum<1gpu>"],
         )
@@ -822,7 +938,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         scales = fp_suite.ndim_scales()
         ctx, _ = run_suite(
             fp_suite.main,
-            ["--dataset-limit", "16mb", "--warmup", "0.5", "--time-limit", "2"],
+            ["--dataset-limit", "16mb", "--warmup", "0.25", "--time-limit", "1"],
             [f"minhash/ndim_{d}/swtorch::fingerprint<1gpu>" for d in scales],
         )
         tokens = ctx.staged["tokens"]
@@ -868,7 +984,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         try:
             ctx, _ = run_suite(
                 sim_suite.main,
-                ["--warmup", "0.5", "--time-limit", "2"],
+                ["--warmup", "0.25", "--time-limit", "1"],
                 [
                     "uniform/swtorch::levenshtein<1gpu>",
                     "uniform-utf8/swtorch::levenshtein<1gpu>",
@@ -926,7 +1042,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         synthesized = time.perf_counter() - started
         ctx, _ = run_suite(
             tok_suite.main,
-            ["--dataset", str(corpus), "--filter", "swtorch::", "--warmup", "0.5", "--time-limit", "2"],
+            ["--dataset", str(corpus), "--filter", "swtorch::", "--warmup", "0.25", "--time-limit", "1"],
             [f"{row}<1gpu>" for row in TOKENIZATION_ROWS],
         )
         suite_launches = launches()  # the suite's own run: the checks below launch class_map again
@@ -964,7 +1080,92 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             started,
         )
 
+    def normalization_path() -> None:
+        started = time.perf_counter()
+        raw = wait_corpus()
+        ctx, _ = run_suite(
+            norm_suite.main,
+            ["--dataset", str(corpus), "--filter", "swtorch::", "--warmup", "0.25", "--time-limit", "1"],
+            [f"{row}<1gpu>" for row in NORMALIZATION_ROWS],
+        )
+        suite_launches = launches()  # the suite's own run: the checks below launch the kernels again
+        ran = time.perf_counter()
+        staged = ctx.staged
+        rows, mcp = staged["rows"], staged["max_cp"]
+        if rows.data.device.type != "cuda" or staged["n"] != len(raw) or staged["n"] < CORPUS_BYTES - 16:
+            raise AssertionError(f"the normalization suite ran on {rows.data.device} over {staged['n']} bytes")
+        text = raw.decode()
+        folded_text = text.casefold()
+        if mcp != ord(max(text)):
+            raise AssertionError(f"codepoint ceiling {mcp:#x}, host {ord(max(text)):#x}")
+        # Fold: the whole output against the plain version on the card, the
+        # total against str.casefold, and 10,000 seeded rows decoded.
+        out, counts = staged["fold"]
+        max_exp = CF._fold_rules(mcp)[4]
+        want = EX.expand_compact_rows_plain(rows.data, rows.lengths, EX.fold_tables(mcp), max_exp, 32, True)
+        fold_err = max(max_err(out, want[0]), max_err(counts, want[1]))
+        errors["expand"] = max(errors["expand"], fold_err)
+        if fold_err or int(counts.sum()) != len(folded_text):
+            raise AssertionError(f"fold: {fold_err} from the plain version; {int(counts.sum())} codepoints against "
+                                 f"len(text.casefold()) {len(folded_text)}")
+        sample = np.random.default_rng(14).choice(rows.count, 10_000, replace=False)
+        idx = torch.from_numpy(sample).to(dev)
+        s_rows, s_lens = rows.data[idx].cpu().numpy(), rows.lengths[idx].cpu().numpy()
+        s_out, s_counts = out[idx].cpu().numpy(), counts[idx].cpu().numpy()
+        for r in range(sample.size):
+            if "".join(map(chr, s_out[r, : s_counts[r]])) != s_rows[r, : s_lens[r]].tobytes().decode().casefold():
+                raise AssertionError(f"fold of row {int(sample[r])} differs from str.casefold")
+        # Compare: the booleans against the host; both fold_tokens matrices
+        # (range-map kernel) against the same function on the CPU, whose
+        # range_map is the plain rule walk.
+        pairs, equal = staged["pairs"], staged["equal"].cpu()
+        host_equal = torch.tensor([a.decode().casefold() == b.decode().casefold() for a, b in pairs])
+        if not torch.equal(equal, host_equal):
+            raise AssertionError("uncased_eq booleans differ from the host's casefold-eq")
+        for side in staged["compare_rows"]:
+            got, got_counts = CF.fold_tokens(side)
+            want, want_counts = CF.fold_tokens(side.to("cpu"))
+            err = max(max_err(got.cpu(), want), max_err(got_counts.cpu(), want_counts))
+            errors["range_map"] = max(errors["range_map"], err)
+            if err:
+                raise AssertionError(f"fold_tokens with the range-map kernel differs from the rule walk by {err}")
+        # Find: the folded haystack is text.casefold(); each needle's count
+        # equals the plain window count on the card and a host count of
+        # overlapping matches in the folded text.
+        hay = staged["haystack"]
+        if not np.array_equal(hay.cpu().numpy(), np.frombuffer(folded_text.encode("utf-32-le"), np.int32)):
+            raise AssertionError("the folded haystack differs from text.casefold()")
+        host_counts = []
+        for nd in staged["needles"]:
+            needle_text, count = "".join(map(chr, nd.tolist())), 0
+            pos = folded_text.find(needle_text)
+            while pos >= 0:
+                count, pos = count + 1, folded_text.find(needle_text, pos + 1)
+            host_counts.append(count)
+            got = FC.cp_window_count(hay, hay.numel(), nd)
+            errors["cp_window"] = max(errors["cp_window"], max_err(got, F.cp_window_count_plain(hay, hay.numel(), nd)))
+        if staged["needle_counts"] != host_counts or errors["cp_window"]:
+            raise AssertionError(f"needle counts {staged['needle_counts']} differ from the host's {host_counts} or the plain version")
+        for counter in counters:
+            counter.update({k: suite_launches[k] for k in counter})
+        norm_keep.update(rows=rows, max_cp=mcp, max_exp=max_exp, haystack=hay, needles=staged["needles"],
+                         compare_rows=staged["compare_rows"])
+        n_text, n_folded = len(text), len(folded_text)
+        del ctx, staged, text, folded_text, out, counts, want
+        phase(
+            "main path",
+            f"normalization suite: {len(raw):,} B of synthetic:multilingual in {rows.count:,} rows of 32 B (max_cp "
+            f"{mcp:#x}, max_exp {max_exp}) on {dev}, suite run {ran - started:.1f} s; the fold equals the plain version "
+            f"on the card, its {n_folded:,} codepoints (from {n_text:,}) len(text.casefold()), 10,000 sampled rows "
+            f"str.casefold; {int(equal.sum())} of {len(pairs)} line pairs equal, as on the host, and both fold_tokens "
+            f"matrices equal the rule walk; {len(host_counts)} needle counts {host_counts[:12]}... equal the plain "
+            f"window count and the host's overlapping count over {hay.numel():,} folded codepoints; launches of the "
+            f"suite's run {launches()}",
+            started,
+        )
+
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path
+    norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     del suite_tape
@@ -973,6 +1174,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
     path(["class_map", "fused_scan", "lb_rules"], tokenization_path)
+    path(["expand", "range_map", "cp_window"], normalization_path)
     torch.cuda.empty_cache()
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
@@ -1276,7 +1478,64 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     row("lb_rules-128MB (the corpus's UAX#14 features)", lambda: SLC.lb_rules(env, n_cp),
         lambda: SEG._lb_rules(env).to(torch.int32), 48 * n_cp, bound_ms(48 * n_cp), "lb_rules", plain_samples=3,
         profiled="lb_rules_kernel")
-    del env, lb_cls, cps, lead, text
+    del env, lb_cls, cps, lead
+
+    # Case folding at the normalization suite's shapes (the same corpus):
+    # the range map of the unpruned simple-fold rules (base 0, the dense
+    # table's 125 k int32 entries) over the corpus's decoded codepoints, the
+    # class map's loop on an int32 table (bound: 8 B a codepoint), and that
+    # loop without the add (``lut_map``'s lookup); the fused fold of the
+    # suite's 32-byte rows (bound: per row 32 + 4 B in, 4 * max_exp * 32 + 4
+    # B out); the window count of the suite's first needle over its folded
+    # haystack (bound: 4 B a folded codepoint). Each by profiler device
+    # time: the window count is shorter than its wrapper's host work.
+    decoded, decoded_n = U8.utf8_decode(text, text_n)
+    stream = decoded[: int(decoded_n)]
+    simple = CF._fold_rules(None)[0]
+    simple_table = torch.from_numpy(R.dense_delta_table(simple)).to(dev)
+    row(f"range_map-fold-128MB ({stream.numel():,} codepoints, {simple.count} rules, {simple_table.numel():,}-entry int32 table)",
+        lambda: LU.range_map_cuda(stream, simple_table, True), lambda: R.range_map_plain(stream, simple),
+        4 * stream.numel(), bound_ms(8 * stream.numel()), "range_map", plain_samples=1, profiled="range_map_kernel")
+    row(f"lut_map-int32-128MB (the same codepoints and {simple_table.numel():,}-entry int32 table, no add)",
+        lambda: LU.class_map_cuda(stream, simple_table), lambda: LU.class_map_plain(stream, simple_table),
+        4 * stream.numel(), bound_ms(8 * stream.numel()), profiled="class_map_kernel")
+    del decoded, stream, text
+    frows, fmax_exp = norm_keep["rows"], norm_keep["max_exp"]
+    ftables = EX.fold_tables(norm_keep["max_cp"])
+    moved = frows.count * (32 + 4 + 4 * fmax_exp * 32 + 4)
+    row(f"fold-32B-rows-128MB ({frows.count:,} rows, max_exp {fmax_exp})",
+        lambda: EXC.expand_compact_rows(frows.data, frows.lengths, ftables, fmax_exp, 32, True),
+        lambda: EX.expand_compact_rows_plain(frows.data, frows.lengths, ftables, fmax_exp, 32, True),
+        text_n, bound_ms(moved), "expand", plain_samples=1, profiled="expand_kernel")
+    hay, needle = norm_keep["haystack"], norm_keep["needles"][0]
+    row(f"cp_window-{needle.numel()}cp-128MB ({hay.numel():,} folded codepoints)",
+        lambda: FC.cp_window_count(hay, hay.numel(), needle), lambda: F.cp_window_count_plain(hay, hay.numel(), needle),
+        4 * hay.numel(), bound_ms(4 * hay.numel()), "cp_window", profiled="cp_window_kernel")
+    # Where each normalization row's call spends its time: the call timed
+    # back to back (CUDA events; the find call ends in its count's .item()),
+    # beside its device time per call in its kernel and in the other torch
+    # ops (torch.profiler over 20 calls); device busy = device time over
+    # the call's.
+    a_rows, b_rows = norm_keep["compare_rows"]
+    for name, call, kernel in (
+        ("utf8_fold", lambda: EX.fold_tokens_fused(frows, norm_keep["max_cp"]), ("expand", "expand_kernel")),
+        ("uncased_eq", lambda: CF.uncased_equal_batch(a_rows, b_rows), ("range_map", "range_map_kernel")),
+        ("uncased_find", lambda: int(F.cp_window_count(hay, hay.numel(), needle).item()), ("cp_window", "cp_window_kernel")),
+    ):
+        call_ms = time_ms(call)
+        reset(*counters)
+        call()
+        torch.cuda.synchronize()
+        per_call = launches()  # one CUDA launch per call of each of these wrappers
+        split = device_breakdown(call, dict([kernel]), calls=20, launches=per_call)
+        if split is None:
+            detail = f"not measured (no profiler trace in {TRACES} saw {kernel[1]})"
+        else:
+            detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; device busy {split['total'] / call_ms:.2f}"
+        phase("row", f"{name} call (the suite's): {call_ms:.4f} ms back to back, {per_call[kernel[0]]} launches; "
+                     f"device ms per call: {detail}")
+    norm_keep.clear()
+    del frows, hay, needle, a_rows, b_rows
     torch.cuda.empty_cache()
     phase("rows", "done", started)
 
@@ -1299,6 +1558,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "class_map": ("stringwars_tpu_torch/csrc/classmap.cu", "stringwars_tpu/ops/lut.py:128; stringwars_tpu/ops/rulemap.py:170"),
         "fused_scan": ("stringwars_tpu_torch/csrc/scanline.cu", "stringwars_tpu/ops/scanline.py:203"),
         "lb_rules": ("stringwars_tpu_torch/csrc/lbrules.cu", "stringwars_tpu/ops/scanline.py:375"),
+        "expand": ("stringwars_tpu_torch/csrc/expand.cu", "stringwars_tpu/ops/casefold_pallas.py:128"),
+        "range_map": ("stringwars_tpu_torch/csrc/classmap.cu", "stringwars_tpu/ops/rulemap.py:184"),
+        "cp_window": ("stringwars_tpu_torch/csrc/cpfind.cu", "stringwars_tpu/ops/find_pallas.py:260"),
     }
     kernels = [
         {

@@ -50,6 +50,9 @@ SIGNATURES = {
     "sw_ac_count": (_P, _N, _P, _N, _P, _N, _N, _N, _P, _P),
     "sw_shiftand": (_P, _N, _P, _N, _N, _N, _P, _P),
     "sw_class_map": (_P, _N, _P, _N, _N, _P, _P),
+    "sw_range_map": (_P, _N, _P, _N, _N, _P, _P),
+    "sw_expand": (_P, _N, _N, _N, _P, _P, _P, _P, _N, _N, _P, _P, _P),
+    "sw_cp_window": (_P, _N, _P, _N, _P, _P),
     "sw_fused_scan": (_P, _N, _N, _N, _P, _N, _P),
     "sw_lb_rules": (_P, _N, _P, _P),
 }

@@ -18,6 +18,21 @@
 // text's codepoints hit a few hot lines of it: staging the 64 KiB class
 // table in shared memory per block was slower on the 128 MB multilingual
 // corpus (0.4100 against 0.3889 ms on an H100 SXM at 700 W).
+//
+// K10 · range map (second entry point, sw_range_map): out[i] =
+// (add_base ? cp : 0) + table[clamp(cp, 0, size - 1)] over an int32 table,
+// the add wrapping as int32 arithmetic does.
+//
+// Replaces stringwars_tpu/ops/rulemap.py::_range_kernel (via _range_call <-
+// range_map): cp * [base == 0] + sum_r d_r * [lo_r <= cp <= hi_r and
+// cp & pmask_r == par_r]. The TPU walks the rules per codepoint, or looks up
+// the dense delta table in 128-lane windows (rulemap.py:326-342), both for
+// its slow gathers. Here the wrapper stages that dense table
+// (ops/rulemap.dense_delta_table, whose last entry matches no rule, so a
+// clamped lookup past it reads 0) and the kernel is the class map's loop
+// with the add of the codepoint fused: the same bound, 8 bytes a codepoint.
+// The whole simple-fold table is about 125 k entries (0.5 MB): text touches
+// a few lines of it, which stay in L1 and L2.
 #include "common.cuh"
 
 namespace swt {
@@ -28,10 +43,18 @@ __device__ __forceinline__ int32_t lookup(const T* __restrict__ table, int32_t c
   return static_cast<int32_t>(__ldg(table + i));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-class_map_kernel(const int32_t* __restrict__ cps, int64_t n, const T* __restrict__ table, int64_t size,
-                 int32_t* __restrict__ out, int aligned) {
+// The range map's value: the looked-up entry, plus cp when kAddBase.
+template <bool kAddBase, typename T>
+__device__ __forceinline__ int32_t map_one(const T* __restrict__ table, int32_t cp, int32_t last) {
+  const int32_t v = lookup(table, cp, last);
+  return kAddBase ? static_cast<int32_t>(static_cast<uint32_t>(cp) + static_cast<uint32_t>(v)) : v;
+}
+
+// The grid-stride loop of both kernels: 16-byte vectors when both pointers
+// are aligned, then the ragged tail one codepoint a thread.
+template <bool kAddBase, typename T>
+__device__ __forceinline__ void map_stream(const int32_t* __restrict__ cps, int64_t n, const T* __restrict__ table,
+                                           int64_t size, int32_t* __restrict__ out, int aligned) {
   const int32_t last = static_cast<int32_t>(size - 1);
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -42,20 +65,35 @@ class_map_kernel(const int32_t* __restrict__ cps, int64_t n, const T* __restrict
     int4* dst = reinterpret_cast<int4*>(out);
     for (int64_t i = tid; i < vectors; i += stride) {
       const int4 v = __ldg(src + i);
-      dst[i] = make_int4(lookup(table, v.x, last), lookup(table, v.y, last), lookup(table, v.z, last),
-                         lookup(table, v.w, last));
+      dst[i] = make_int4(map_one<kAddBase>(table, v.x, last), map_one<kAddBase>(table, v.y, last),
+                         map_one<kAddBase>(table, v.z, last), map_one<kAddBase>(table, v.w, last));
     }
     done = vectors << 2;
   }
-  for (int64_t i = done + tid; i < n; i += stride) out[i] = lookup(table, __ldg(cps + i), last);
+  for (int64_t i = done + tid; i < n; i += stride) out[i] = map_one<kAddBase>(table, __ldg(cps + i), last);
 }
 
 template <typename T>
-int launch(const int32_t* cps, int64_t n, const T* table, int64_t size, int32_t* out, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+class_map_kernel(const int32_t* __restrict__ cps, int64_t n, const T* __restrict__ table, int64_t size,
+                 int32_t* __restrict__ out, int aligned) {
+  map_stream<false>(cps, n, table, size, out, aligned);
+}
+
+template <bool kAddBase>
+__global__ void __launch_bounds__(kThreads)
+range_map_kernel(const int32_t* __restrict__ cps, int64_t n, const int32_t* __restrict__ table, int64_t size,
+                 int32_t* __restrict__ out, int aligned) {
+  map_stream<kAddBase>(cps, n, table, size, out, aligned);
+}
+
+template <typename Kernel, typename T>
+int launch(Kernel kernel, const int32_t* cps, int64_t n, const T* table, int64_t size, int32_t* out,
+           cudaStream_t stream) {
   const int aligned = ((reinterpret_cast<uintptr_t>(cps) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   const int64_t want = ((aligned ? n >> 2 : n) + kThreads - 1) / kThreads;
-  const int grid = resident_grid(class_map_kernel<T>, 0, want);
-  class_map_kernel<T><<<grid, kThreads, 0, stream>>>(cps, n, table, size, out, aligned);
+  const int grid = resident_grid(kernel, 0, want);
+  kernel<<<grid, kThreads, 0, stream>>>(cps, n, table, size, out, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -71,6 +109,21 @@ extern "C" int sw_class_map(const void* cps, int64_t n, const void* table, int64
   const auto* c = static_cast<const int32_t*>(cps);
   auto* o = static_cast<int32_t*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (table_bytes == 1) return swt::launch(c, n, static_cast<const uint8_t*>(table), size, o, s);
-  return swt::launch(c, n, static_cast<const int32_t*>(table), size, o, s);
+  if (table_bytes == 1) {
+    return swt::launch(swt::class_map_kernel<uint8_t>, c, n, static_cast<const uint8_t*>(table), size, o, s);
+  }
+  return swt::launch(swt::class_map_kernel<int32_t>, c, n, static_cast<const int32_t*>(table), size, o, s);
+}
+
+// cps: int32[n]; table: int32[size], size in [1, 2^31); add_base: 0 or 1;
+// out: int32[n].
+extern "C" int sw_range_map(const void* cps, int64_t n, const void* table, int64_t size, int64_t add_base, void* out,
+                            void* stream) {
+  if (n <= 0 || size <= 0 || size >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* c = static_cast<const int32_t*>(cps);
+  const auto* t = static_cast<const int32_t*>(table);
+  auto* o = static_cast<int32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return add_base ? swt::launch(swt::range_map_kernel<true>, c, n, t, size, o, s)
+                  : swt::launch(swt::range_map_kernel<false>, c, n, t, size, o, s);
 }

@@ -11,6 +11,9 @@ all-matches substring scans (forward find and backward rfind loops,
 - ``find_count_batch``: one count per needle of a ``NeedleBatch``.
 - ``byteset_count``: how many bytes of ``hay[:n]`` belong to a set
   (``byteset_counts``: several sets, one device sync).
+- ``cp_window_count``: the ``find_count`` of an int32 needle in an int32
+  codepoint stream (the uncased find over a folded haystack), as a 0-d
+  int64 tensor on the stream's device; any needle length.
 
 Each public function takes the hand-written CUDA kernels of
 ``ops/find_cuda.py`` for a CUDA tensor and the plain torch versions below
@@ -174,6 +177,36 @@ def rfind_count_batch_plain(hay: torch.Tensor, batch: NeedleBatch, n: int | None
     return as_tensor(counts), as_tensor(lasts)
 
 
+def _cp_extent(stream: torch.Tensor, n: int, needle: torch.Tensor) -> int:
+    if stream.dim() != 1 or stream.dtype != torch.int32 or needle.dim() != 1 or needle.dtype != torch.int32:
+        raise ValueError(f"expected 1-D int32 stream and needle, got {stream.dtype}{tuple(stream.shape)} and "
+                         f"{needle.dtype}{tuple(needle.shape)}")
+    if needle.device != stream.device:
+        raise ValueError(f"needle on {needle.device}, stream on {stream.device}")
+    if needle.numel() == 0:
+        raise ValueError("empty needle")
+    n = int(n)
+    if not 0 <= n <= stream.numel():
+        raise ValueError(f"n={n} outside a stream of {stream.numel()} codepoints")
+    return n
+
+
+def cp_window_count_plain(stream: torch.Tensor, n: int, needle: torch.Tensor) -> torch.Tensor:
+    """Number of p <= n - m with ``stream[p:p+m] == needle``, overlapping
+    matches included, as a 0-d int64 tensor: candidates at the needle's
+    first codepoint, filtered by each further one."""
+    n = _cp_extent(stream, n, needle)
+    m = needle.numel()
+    if m > n:
+        return torch.zeros((), dtype=torch.int64, device=stream.device)
+    starts = torch.nonzero(stream[: n - m + 1] == needle[0]).squeeze(1)
+    for j in range(1, m):
+        if starts.numel() == 0:
+            break
+        starts = starts[stream[starts + j] == needle[j]]
+    return torch.tensor(starts.numel(), dtype=torch.int64, device=stream.device)
+
+
 def byteset_count_plain(hay: torch.Tensor, table: torch.Tensor, n: int | None = None) -> torch.Tensor:
     """Members of the set among ``hay[:n]``, as an int64 tensor of one element:
     a 256-bin histogram weighted by the membership table."""
@@ -246,3 +279,13 @@ def byteset_counts(hay: torch.Tensor, tables: Sequence[torch.Tensor], n: int | N
 def byteset_count(hay: torch.Tensor, table: torch.Tensor, n: int | None = None) -> int:
     """Count of bytes of ``hay[:n]`` that belong to the set."""
     return byteset_counts(hay, [table], n)[0]
+
+
+def cp_window_count(stream: torch.Tensor, n: int, needle: torch.Tensor) -> torch.Tensor:
+    """All (overlapping) matches of the int32 ``needle`` in ``stream[:n]``, as
+    a 0-d int64 tensor on the stream's device, without waiting for it."""
+    if _on_card(stream):
+        from stringwars_tpu_torch.ops import find_cuda
+
+        return find_cuda.cp_window_count(stream, n, needle)
+    return cp_window_count_plain(stream, n, needle)

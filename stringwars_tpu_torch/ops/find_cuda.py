@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/find.cu``.
 
-The counterpart of ``stringwars_tpu.ops.find_pallas`` (and of the XLA
-byteset count). Each wrapper checks its tensors, allocates the outputs,
+The counterpart of ``stringwars_tpu.ops.find_pallas`` (its packed-word
+count and its codepoint-window count, ``csrc/cpfind.cu``) and of the XLA
+byteset count. Each wrapper checks its tensors, allocates the outputs,
 launches on PyTorch's current stream without synchronizing, raises on a
 CUDA launch error, and adds one to its entry of ``LAUNCHES``. A CPU tensor
 raises: the plain versions live in ``ops/find.py``.
@@ -12,10 +13,10 @@ from __future__ import annotations
 import torch
 
 from stringwars_tpu_torch import build
-from stringwars_tpu_torch.ops.find import NeedleBatch, _extent
+from stringwars_tpu_torch.ops.find import NeedleBatch, _cp_extent, _extent
 
 # Launches of each kernel since process start (or the last reset).
-LAUNCHES = {"find_count": 0, "rfind_count": 0, "byteset_count": 0}
+LAUNCHES = {"find_count": 0, "rfind_count": 0, "byteset_count": 0, "cp_window": 0}
 
 
 def _check_batch(hay: torch.Tensor, batch: NeedleBatch) -> None:
@@ -77,3 +78,22 @@ def byteset_count(hay: torch.Tensor, table: torch.Tensor, n: int | None = None) 
     build.check(code, "byteset_count")
     LAUNCHES["byteset_count"] += 1
     return out
+
+
+def cp_window_count(stream: torch.Tensor, n: int, needle: torch.Tensor) -> torch.Tensor:
+    """0-d int64 on the device: all (overlapping) matches of the int32
+    ``needle`` in the int32 ``stream[:n]``."""
+    if not isinstance(stream, torch.Tensor) or stream.device.type != "cuda":
+        raise ValueError(f"cp_window: the CUDA kernel needs a CUDA tensor, got {getattr(stream, 'device', type(stream))}")
+    n = _cp_extent(stream, n, needle)
+    if not stream.is_contiguous() or not needle.is_contiguous():
+        raise ValueError("cp_window: expected a contiguous stream and needle")
+    count = torch.zeros(1, dtype=torch.int64, device=stream.device)
+    if needle.numel() <= n:
+        lib = build.library()
+        with torch.cuda.device(stream.device):
+            code = lib.sw_cp_window(stream.data_ptr(), n, needle.data_ptr(), needle.numel(), count.data_ptr(),
+                                    build.stream_of(stream))
+        build.check(code, "cp_window")
+        LAUNCHES["cp_window"] += 1
+    return count[0]

@@ -16,6 +16,10 @@ class table from its run boundaries.
   ``class_map`` takes, narrowed to uint8 when every value fits.
 - ``lut_map(values, table)``: int32 in, int32 out, any shape; the JAX
   function's contract, with out-of-range values clamped to the table.
+- ``range_map_cuda(cps, table, add_base)``: ``cp * add_base +
+  table[clamp(cp, 0, size - 1)]`` over an int32 table by the second entry
+  point of ``csrc/classmap.cu``, the lookup of ``ops/rulemap.range_map``
+  (the TPU's ``_range_kernel``), counted apart as ``range_map``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from stringwars_tpu_torch import build
 
 # Launches of csrc/classmap.cu since process start (or the last reset).
-LAUNCHES = {"class_map": 0}
+LAUNCHES = {"class_map": 0, "range_map": 0}
 
 
 def stage_table(table, device) -> torch.Tensor:
@@ -74,6 +78,29 @@ def class_map_cuda(cps: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
             )
         build.check(code, "class_map")
         LAUNCHES["class_map"] += 1
+    return out.view(cps.shape)
+
+
+def range_map_cuda(cps: torch.Tensor, table: torch.Tensor, add_base: bool) -> torch.Tensor:
+    """``(cps if add_base else 0) + table[clamp(cps, 0, size - 1)]`` as int32
+    (the add wraps) by the CUDA kernel, any shape, without waiting for it.
+    ``table``: a contiguous 1-D int32 tensor on the codepoints' device."""
+    if not isinstance(cps, torch.Tensor) or cps.device.type != "cuda":
+        raise ValueError(f"range_map: the CUDA kernel needs a CUDA tensor, got {getattr(cps, 'device', type(cps))}")
+    _check(cps, table)
+    if table.dtype != torch.int32 or not table.is_contiguous():
+        raise ValueError(f"range_map: expected a contiguous int32 table, got {table.dtype}")
+    flat = cps.reshape(-1).to(torch.int32).contiguous()
+    out = torch.empty_like(flat)
+    if flat.numel():
+        lib = build.library()
+        with torch.cuda.device(cps.device):
+            code = lib.sw_range_map(
+                flat.data_ptr(), flat.numel(), table.data_ptr(), table.numel(), int(bool(add_base)),
+                out.data_ptr(), build.stream_of(flat),
+            )
+        build.check(code, "range_map")
+        LAUNCHES["range_map"] += 1
     return out.view(cps.shape)
 
 

@@ -8,8 +8,8 @@ package's, array for array:
   ``prune(max_cp)`` keeps the boundaries a corpus' codepoint ceiling can
   reach; ``StepRules.from_numpy`` carries the JAX package's rules across.
 - ``FoldRules`` / ``compile_fold`` / ``compile_sparse_values``: range rules
-  for sparse delta and value maps (case folding and friends, used from the
-  normalization slice on).
+  for sparse delta and value maps (case folding and friends);
+  ``FoldRules.from_numpy`` carries the JAX package's rules across.
 
 On the TPU, ``step_map`` walks the boundaries in a Pallas kernel or, when the
 table is small, takes the lane-gather LUT of ``ops/lut.py``: both avoid
@@ -21,8 +21,15 @@ the table are clamped, which is exact for a step function (constant past
 its last boundary) and is what the TPU kernels do; the JAX package's CPU
 gather instead reads a fill value past the end.
 
-``range_map`` (the TPU's ``_range_kernel``) has no user on the segmentation
-path and comes with the normalization slice.
+``range_map`` evaluates range rules, ``cp * [base == 0] + sum of the deltas
+of the rules that match cp``. On the TPU it walks the rules in a Pallas
+kernel (``_range_kernel``) or, when the table is small, takes the lane LUT
+over the dense delta table (``rulemap.py:326-342``); both avoid slow gathers.
+Here it reads the dense table of ``dense_delta_table`` once per codepoint:
+the CUDA kernel ``sw_range_map`` of ``csrc/classmap.cu`` on a card (the add
+of ``cp`` fused), ``range_map_plain`` (the rule walk of the JAX CPU route,
+an oracle independent of the table) on the CPU. The table's last entry
+carries no rule, so a codepoint past it reads 0, as the rule walk gives.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from stringwars_tpu_torch.ops.lut import class_map, stage_table
+from stringwars_tpu_torch.ops.lut import class_map, range_map_cuda, stage_table
 
 MAX_CP = 0x110000
 
@@ -101,6 +108,19 @@ class FoldRules:
     pmask: np.ndarray
     par: np.ndarray
     base: int = 0  # 0: out = cp + acc (delta map); 1: out = acc (value map)
+    # The dense table staged per device by ``range_map``; kept on the object,
+    # so that it lives exactly as long as the rules.
+    staged: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
+
+    @classmethod
+    def from_numpy(cls, lo, hi, delta, pmask, par, base: int = 0) -> "FoldRules":
+        """Rules from the JAX package's (or any) five rule arrays and base."""
+        arrays = [np.asarray(a, np.int32) for a in (lo, hi, delta, pmask, par)]
+        if any(a.ndim != 1 or a.shape != arrays[0].shape for a in arrays):
+            raise ValueError(f"expected five 1-D rule arrays of one length, got {[a.shape for a in arrays]}")
+        if base not in (0, 1):
+            raise ValueError(f"base must be 0 (delta map) or 1 (value map), got {base}")
+        return cls(*arrays, base=int(base))
 
     @property
     def count(self) -> int:
@@ -179,3 +199,60 @@ def step_map(cps: torch.Tensor, rules: StepRules, table=None) -> torch.Tensor:
     size = rules.size
     dense = stage_table(expand_steps(rules, size), cps.device) if table is None else table[:size]
     return class_map(cps, dense)
+
+
+def dense_delta_table(rules: FoldRules) -> np.ndarray:
+    """Dense int32 delta (or value) table over ``[0, hi.max() + 2)``: entry
+    ``cp`` is the sum of the deltas of the rules that match ``cp``. The last
+    entry matches no rule, so a lookup clamped to the table reads 0 past it."""
+    if rules.count == 0:
+        raise ValueError("a fully pruned rule set has no table")
+    size = int(rules.hi.max()) + 2
+    t = np.zeros(size, np.int64)
+    for r in range(rules.count):
+        seg = np.arange(int(rules.lo[r]), int(rules.hi[r]) + 1, dtype=np.int64)
+        pm = int(rules.pmask[r])
+        if pm:
+            seg = seg[(seg & pm) == int(rules.par[r])]
+        t[seg] += int(rules.delta[r])
+    return t.astype(np.int32)
+
+
+def range_map_plain(cps: torch.Tensor, rules: FoldRules) -> torch.Tensor:
+    """The rules walked over any-shape codepoints, int32 (the JAX package's
+    CPU route, ``rulemap.py:316-325``): the oracle for the table. Every rule
+    is tested against a slice of the codepoints at once, in slices of about
+    16 M (codepoint, rule) pairs, so the walk takes a few large tensor ops
+    rather than several per rule."""
+    flat = cps.reshape(-1).to(torch.int32)
+    acc = torch.zeros_like(flat)
+    if rules.count:
+        lo, hi, delta, pmask, par = (
+            torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(flat.device)
+            for a in (rules.lo, rules.hi, rules.delta, rules.pmask, rules.par)
+        )
+        step = max(1, (1 << 24) // rules.count)
+        for i in range(0, flat.numel(), step):
+            x = flat[i : i + step, None]
+            ok = (x >= lo) & (x <= hi) & ((x & pmask) == par)
+            acc[i : i + step] = torch.where(ok, delta, 0).sum(1, dtype=torch.int32)
+    return (flat + acc if rules.base == 0 else acc).view(cps.shape)
+
+
+def range_map(cps: torch.Tensor, rules: FoldRules) -> torch.Tensor:
+    """Evaluate range rules over any-shape codepoints, int32: a delta map
+    (``cp`` plus the matching deltas) when ``rules.base == 0``, a sparse value
+    map (the deltas alone) when 1. The kernel over the dense table for a CUDA
+    tensor, the rule walk for a CPU tensor."""
+    if rules.count == 0:  # pruned below every rule: nothing matches
+        cps = cps.to(torch.int32)
+        return cps.clone() if rules.base == 0 else torch.zeros_like(cps)
+    if cps.device.type == "cpu":
+        return range_map_plain(cps, rules)
+    if cps.device.type != "cuda":
+        raise ValueError(f"range_map runs on a CUDA or CPU tensor, not {cps.device}")
+    table = rules.staged.get(cps.device)
+    if table is None:
+        table = torch.from_numpy(dense_delta_table(rules)).to(cps.device)
+        rules.staged[cps.device] = table
+    return range_map_cuda(cps, table, add_base=rules.base == 0)

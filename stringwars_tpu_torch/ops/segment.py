@@ -155,7 +155,8 @@ _WS_OPS = (
 def whitespace_token_count(
     data: torch.Tensor, n: int, *, max_cp: int | None = None, scanline: bool | None = None
 ) -> torch.Tensor:
-    """Count of runs of non-whitespace codepoints (Unicode White_Space)."""
+    """Count of runs of non-whitespace codepoints (whitespace as ``str.isspace``:
+    the 25 UCD White_Space codepoints plus U+001C-U+001F)."""
     cp, is_lead, _ = _byte_space(data, n)
     is_ws = _class_of(cp, "whitespace_table", max_cp) > 0
     tok = is_lead & ~is_ws

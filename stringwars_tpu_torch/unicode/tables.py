@@ -15,20 +15,28 @@ The port of the segmentation part of ``stringwars_tpu.unicode.tables``:
   ``regex``) and its output is committed. Nothing is read from or written
   to a cache outside the package.
 
+- ``casefold_tables``: full case folding (C+F) as ``(inline, multi, pool)``,
+  from ``str.casefold`` of every codepoint, computed at first use and kept
+  in memory only. The tables follow the UCD of
+  the running Python, ``unicodedata.unidata_version`` (``UNIDATA_VERSION``:
+  15.0.0 under Python 3.12, the version of the committed break tables).
+
 The value tuples number the classes exactly as the JAX package does, so a
-class id means the same in both packages. Case folding, decompositions,
-combining classes and compositions come with the normalization slice.
+class id means the same in both packages. Decompositions, combining classes
+and compositions come with the normalization slice.
 """
 
 from __future__ import annotations
 
 import functools
+import unicodedata
 from pathlib import Path
 
 import numpy as np
 
 MAX_CP = 0x110000
-UCD_VERSION = "15.0.0"
+UCD_VERSION = "15.0.0"  # of the committed break tables
+UNIDATA_VERSION = unicodedata.unidata_version  # of str.casefold, hence of casefold_tables
 DATA_PATH = Path(__file__).resolve().parent / "data" / f"breaks-ucd{UCD_VERSION}.npz"
 
 NEWLINE_CPS = (0x0A, 0x0B, 0x0C, 0x0D, 0x85, 0x2028, 0x2029)
@@ -100,11 +108,51 @@ def _break_table(name: str, dtype) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def whitespace_table() -> np.ndarray:
     ws = np.zeros(MAX_CP, dtype=bool)
-    for cp in range(0x4000):  # all UCD White_Space cps are < 0x4000
+    # str.isspace: 29 codepoints, the 25 of UCD White_Space plus the
+    # separators U+001C-U+001F; all lie below 0x4000.
+    for cp in range(0x4000):
         if chr(cp).isspace():
             ws[cp] = True
     ws.setflags(write=False)
     return ws
+
+
+def _pooled(mapping: dict[int, list[int]]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Encode cp -> sequence as (inline, multi, pool): ``inline[cp]`` is the
+    mapped cp when the sequence has one codepoint, else -1; ``multi[cp]``
+    packs ``pool_offset << 5 | length`` for longer sequences, whose
+    codepoints follow one another in ``pool``."""
+    inline = np.arange(MAX_CP, dtype=np.int32)
+    multi = np.zeros(MAX_CP, dtype=np.int64)
+    pool: list[int] = []
+    for cp, seq in mapping.items():
+        if len(seq) == 1:
+            inline[cp] = seq[0]
+        else:
+            if len(seq) >= 32:
+                raise ValueError(f"U+{cp:04X} maps to {len(seq)} codepoints, more than 5 bits hold")
+            multi[cp] = (len(pool) << 5) | len(seq)
+            inline[cp] = -1
+            pool.extend(seq)
+    return inline, multi, np.array(pool or [0], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def casefold_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(inline int32, multi int64, pool int32) over [0, 0x110000): full case
+    folding of each codepoint by ``str.casefold`` (surrogates map to
+    themselves). Read-only arrays; the same values as the JAX package's."""
+    mapping: dict[int, list[int]] = {}
+    for cp in range(MAX_CP):
+        if 0xD800 <= cp <= 0xDFFF:
+            continue
+        folded = chr(cp).casefold()
+        if folded != chr(cp):
+            mapping[cp] = [ord(c) for c in folded]
+    tables = _pooled(mapping)
+    for t in tables:
+        t.setflags(write=False)
+    return tables
 
 
 @functools.lru_cache(maxsize=None)

@@ -150,3 +150,93 @@ def test_class_map_plain_rejects_mismatched_tables():
         L.class_map_plain(cps.float(), torch.zeros(4, dtype=torch.uint8))
     with pytest.raises(ValueError):
         L.class_map_cuda(cps, torch.zeros(4, dtype=torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Range rules (the case-fold maps): FoldRules, dense tables, range_map
+# ---------------------------------------------------------------------------
+
+def _fold_rule_sets():
+    """The JAX package's four fold rule sets, whole and pruned at 0x4FF."""
+    from stringwars_tpu.ops import casefold as JC
+
+    whole = JC._fold_rules(None)[:4]
+    return {"simple": whole[0], "mlen": whole[1], "e12": whole[2], "e3": whole[3],
+            "simple-0x4ff": JC._fold_rules(0x4FF)[0], "e12-0x4ff": JC._fold_rules(0x4FF)[2]}
+
+
+def _port_rules(jrules):
+    return R.FoldRules.from_numpy(jrules.lo, jrules.hi, jrules.delta, jrules.pmask, jrules.par, jrules.base)
+
+
+def test_fold_rules_from_numpy():
+    jrules = _fold_rule_sets()["simple"]
+    rules = _port_rules(jrules)
+    assert rules.count == jrules.count and rules.base == 0
+    for field in ("lo", "hi", "delta", "pmask", "par"):
+        np.testing.assert_array_equal(getattr(rules, field), getattr(jrules, field))
+        assert getattr(rules, field).dtype == np.int32
+    assert rules.prune(0x7F).count == jrules.prune(0x7F).count
+    with pytest.raises(ValueError):
+        R.FoldRules.from_numpy(jrules.lo, jrules.hi[:-1], jrules.delta, jrules.pmask, jrules.par)
+    with pytest.raises(ValueError):
+        R.FoldRules.from_numpy(jrules.lo, jrules.hi, jrules.delta, jrules.pmask, jrules.par, base=2)
+
+
+@pytest.mark.parametrize("name", ["simple", "mlen", "e12", "e3", "simple-0x4ff"])
+def test_dense_delta_table_equals_jax(name):
+    jrules = _fold_rule_sets()[name]
+    got = R.dense_delta_table(_port_rules(jrules))
+    want = JR._dense_delta_table(jrules)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got[-1] == 0  # the rule-free last entry
+
+
+def _range_cps(rng, rules, count=3000):
+    """Random BMP and astral codepoints, every rule's ends and their
+    neighbours, negatives and codepoints past the dense table."""
+    ends = np.concatenate([rules.lo, rules.hi, rules.lo - 1, rules.hi + 1])
+    return np.concatenate([
+        rng.integers(0, 0x600, count), rng.integers(0, 0x110000, count // 4), ends,
+        [-5, -1, 0, int(rules.hi.max()) + 1, int(rules.hi.max()) + 2, 0x10FFFF, 0x110000, 0x7FFFFFF],
+    ]).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["simple", "e12", "e3", "simple-0x4ff", "e12-0x4ff"])
+def test_range_map_equals_jax_kernel_and_xla(name, rng):
+    """Base 0 (simple fold) and base 1 (value maps), whole and pruned: the
+    port's rule walk, and the dense table the CUDA kernel reads, equal the
+    JAX Pallas route (rule walk or lane LUT, in interpret mode) and its
+    XLA route."""
+    jrules = _fold_rule_sets()[name]
+    rules = _port_rules(jrules)
+    cps = _range_cps(rng, rules)
+    got = R.range_map(torch.from_numpy(cps), rules)
+    assert got.dtype == torch.int32
+    want_xla = np.asarray(JR.range_map(jnp.asarray(cps), jrules))
+    np.testing.assert_array_equal(got.numpy(), want_xla)
+    some = np.concatenate([cps[:1024], cps[-(4 * rules.count + 8):]])  # the rule ends and the values past the table
+    want_kernel = np.asarray(JR.range_map(jnp.asarray(some), jrules, interpret=True))
+    np.testing.assert_array_equal(R.range_map(torch.from_numpy(some), rules).numpy(), want_kernel)
+    # The kernel's form: (cp if base == 0) + dense[clamp(cp)], wrapping.
+    dense = torch.from_numpy(R.dense_delta_table(rules))
+    table_form = L.class_map_plain(torch.from_numpy(cps), dense) + (torch.from_numpy(cps) if rules.base == 0 else 0)
+    np.testing.assert_array_equal(table_form.to(torch.int32).numpy(), got.numpy())
+
+
+def test_range_map_fully_pruned_and_shapes():
+    jrules = _fold_rule_sets()["e3"]
+    rules = _port_rules(jrules).prune(0x7F)  # e3 has no key below 0x390
+    assert rules.count == 0 and jrules.prune(0x7F).count == 0
+    cps = np.arange(-3, 300, dtype=np.int32).reshape(3, 101)
+    for base in (0, 1):
+        pruned = R.FoldRules.from_numpy(rules.lo, rules.hi, rules.delta, rules.pmask, rules.par, base)
+        jpruned = JR.FoldRules(jrules.lo[:0], jrules.hi[:0], jrules.delta[:0], jrules.pmask[:0], jrules.par[:0], base)
+        got = R.range_map(torch.from_numpy(cps), pruned)
+        assert tuple(got.shape) == (3, 101)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(JR.range_map(jnp.asarray(cps), jpruned, interpret=True)))
+    with pytest.raises(ValueError):
+        R.dense_delta_table(rules)
+    with pytest.raises(ValueError):
+        L.range_map_cuda(torch.from_numpy(cps), torch.zeros(4, dtype=torch.int32), True)
