@@ -24,7 +24,10 @@ prints no result:
    with 3-codepoint folds, of ``synthetic:naughty`` and of random bytes, and
    on codepoint rows under a synthetic 3-table set at ``max_exp`` 1..4, the
    range map over the fold's rule sets (base 0 and 1, pruned, fully pruned),
-   the codepoint-window count at m = 1, 8, 129 and 300);
+   the codepoint-window count at m = 1, 8, 129 and 300; the BPE merge loop
+   over 512 and 30,000 merges, the shared-memory and global-memory table
+   regimes (the 512-merge table in both), on the JAX tests' cases and at
+   every width 1..32, and 3,000 rows against ``bpe_encode_ref``);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -48,7 +51,10 @@ prints no result:
      plain feature route's on the card, the whitespace count
      ``len(text.split())``, the newline count the host's count of the newline
      codepoints less CRLF pairs, plus one, and the UTF-8 length
-     ``len(bytes.decode())``; the launches are those of the suite's run;
+     ``len(bytes.decode())``; the BPE row's ids and counts over its 400,000
+     pretokens must equal ``bpe_encode_plain`` on the card, 2,000 sampled
+     rows ``bpe_encode_ref`` (its pre-split and training seconds on a line
+     of their own); the launches are those of the suite's run;
    - ``suites.normalization.main`` on the same corpus (``swtorch::`` rows):
      its fold output equal to the plain version on the card, its total to
      ``len(text.casefold())`` and 10,000 sampled rows to ``str.casefold``; its
@@ -74,7 +80,13 @@ prints no result:
    fused scan and UAX#14 rule kernels by profiler device time, the scans
    beside ``torch.cumsum`` and ``torch.cummax``), and the case-folding rows
    at the normalization suite's shapes (``range_map-fold-128MB``,
-   ``fold-32B-rows-128MB``, ``cp_window-<m>cp-128MB``, profiler device time).
+   ``fold-32B-rows-128MB``, ``cp_window-<m>cp-128MB``, profiler device time),
+   and the BPE rows ``bpe-512m-400k`` (the tokenization suite's batch),
+   ``bpe-512m-400k-global`` (the same with the table read from global
+   memory) and ``bpe-512m-4M`` (4,000,000 pretokens of the same corpus, the
+   same table), by profiler device time beside the plain version and a
+   bound from the alive slots and looked-up pairs that the plain version
+   counts.
    The earlier suites run at a quarter second of warm-up and one second a
    row. A profiler trace that
    misses a kernel is taken again, up to three times; where all three miss
@@ -358,8 +370,24 @@ TOKENIZATION_ROWS = (
     "tokenize-whitespace/swtorch::split", "tokenize-newlines/swtorch::split", "tokenize-words-tr29/swtorch::words",
     "tokenize-graphemes-tr29/swtorch::graphemes", "tokenize-sentences-tr29/swtorch::sentences",
     "tokenize-lines-uax14/swtorch::linebreaks", "utf8-length/swtorch::count_utf8",
-    "utf8-iterate/swtorch::decode_utf32", "find-nth-utf8/swtorch::find_nth",
+    "utf8-iterate/swtorch::decode_utf32", "find-nth-utf8/swtorch::find_nth", "tokenize-bpe/swtorch::bpe_encode",
 )
+BPE_ROWS_4M = 4_000_000  # pretokens of the bpe-512m-4M row
+BPE_CHARS_4M = 32 << 20  # characters of the corpus pre-split for it
+
+
+def bpe_operations(slots: int, pairs: int, merges: int) -> int:
+    """32-bit operations that the BPE merge loop needs, from what the plain
+    version counts the rows doing (``bpe_encode_plain(work=True)``): for
+    each alive slot in each iteration of its row (its merging rounds and
+    the one that finds no pair), 8: the next alive slot and its id (2), its
+    part in the row minimum (1), the match (1), the run's parity (2), the
+    eaten partner (1), the update (1); and for each pair looked up (an alive
+    slot with an alive slot to its right), 3 for its key and the hit (shift,
+    or, compare) and 3 for each step of the binary search (load, compare,
+    select), ceil(log2(merges + 1)) steps. Slots past a row's end and rows
+    that have stopped need nothing."""
+    return 8 * slots + pairs * (3 + 3 * math.ceil(math.log2(merges + 1)))
 
 
 def main() -> int:
@@ -386,6 +414,8 @@ def main() -> int:
 def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch import build, datasets, entry
     from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import bpe as BPE
+    from stringwars_tpu_torch.ops import bpe_cuda as BPC
     from stringwars_tpu_torch.ops import bytesum as B
     from stringwars_tpu_torch.ops import find as F
     from stringwars_tpu_torch.ops import find_cuda as FC
@@ -421,7 +451,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.utils.profiler import card_identity
 
     counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
-                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES)
+                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES)
 
     def wait_corpus() -> bytes:
         if child.wait():
@@ -813,6 +843,67 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 errors["cp_window"] = max(errors["cp_window"], max_err(got, F.cp_window_count_plain(view, extent, nd)))
                 window_checks += 1
     del cp_stream
+
+    # BPE: the kernel against bpe_encode_plain, ids and counts exactly, over
+    # 512 trained merges (the shared-memory regime, and the global one asked
+    # for) and 30,000 merges (the 512 and random pairs: the global regime),
+    # on the JAX tests' cases
+    # (hand merges, overlap runs a*1..32, fuzzed words over 3-5 letters at
+    # widths up to 16 and 17-32, random bytes: 4,001 rows each, not a
+    # multiple of a block's 8 rows), and at every width 1..32 on 1,001 rows
+    # of lengths 0..W; 3,000 rows against the host oracle bpe_encode_ref.
+    bpe_rng = np.random.default_rng(15)
+
+    def bpe_words(alphabet: bytes, lo: int, hi: int, count: int) -> list[bytes]:
+        letters_np = np.frombuffer(alphabet, np.uint8)
+        return [bpe_rng.choice(letters_np, int(bpe_rng.integers(lo, hi + 1))).tobytes() for _ in range(count)]
+
+    a_, b_, c_ = ord("a"), ord("b"), ord("c")
+    bpe_sets = {
+        "abc-1..16": bpe_words(b"abc", 1, 16, 4001),
+        "abcde-1..16": bpe_words(b"abcde", 1, 16, 4001),
+        "abcd-17..32": bpe_words(b"abcd", 17, 32, 4001),
+        "bytes-0..32": [bytes(bpe_rng.integers(0, 256, int(bpe_rng.integers(0, 33)), dtype=np.uint8)) for _ in range(4001)],
+    }
+    merges512 = BPE.train_merges(sum(bpe_sets.values(), []), 512)
+    merges_big, seen_pairs = list(merges512), set(merges512)
+    while len(merges_big) < 30_000:
+        pair = (int(bpe_rng.integers(0, 256 + len(merges_big))), int(bpe_rng.integers(0, 256 + len(merges_big))))
+        if pair not in seen_pairs:
+            seen_pairs.add(pair)
+            merges_big.append(pair)
+    hand = [(a_, a_), (a_, b_), (256, c_), (257, 257)]
+    runs = [(a_, a_), (256, 256), (257, a_)]
+    table512, table_big = BPE.MergeTable.from_merges(merges512), BPE.MergeTable.from_merges(merges_big)
+    bpe_cases = [(tokens, None, merges, table) for merges, table in ((merges512, table512), (merges_big, table_big))
+                 for tokens in bpe_sets.values()]
+    bpe_cases += [
+        ([b"", b"a", b"aa", b"aaa", b"aaaa", b"aaaaa", b"ab", b"aab", b"aac", b"aacaac", b"abab", b"cabcab", b"bca"], None,
+         hand, BPE.MergeTable.from_merges(hand)),
+        ([b"a" * k for k in range(1, 33)], None, runs, BPE.MergeTable.from_merges(runs)),
+    ]
+    bpe_cases += [(bpe_words(b"abcd", 0, w, 1001), w, None, table) for table in (table512, table_big) for w in range(1, 33)]
+    bpe_regimes, bpe_checks, bpe_oracle = set(), 0, 0
+    for tokens, width, merges, table in bpe_cases:
+        rows_np, lens_np = BPE.pack_rows(tokens, width)
+        rows_t, lens_t = torch.from_numpy(rows_np).to(dev), torch.from_numpy(lens_np).to(dev)
+        got = BPC.bpe_encode(rows_t, lens_t, table)
+        want = BPE.bpe_encode_plain(rows_t, lens_t, table)
+        errors["bpe"] = max(errors["bpe"], max_err(got[0], want[0]), max_err(got[1], want[1]))
+        bpe_regimes.add(BPC.regime_of(table))
+        if BPC.regime_of(table) == "shared":
+            forced = BPC.bpe_encode(rows_t, lens_t, table, global_table=True)
+            errors["bpe"] = max(errors["bpe"], max_err(forced[0], want[0]), max_err(forced[1], want[1]))
+        bpe_checks += 1
+        if merges is merges512 and width is None:
+            ids_h, counts_h = got[0].cpu().numpy(), got[1].cpu().numpy()
+            for i in range(0, len(tokens), max(1, len(tokens) // 750)):
+                if ids_h[i, : counts_h[i]].tolist() != BPE.bpe_encode_ref(tokens[i], merges):
+                    raise AssertionError(f"bpe row {tokens[i]!r}: kernel {ids_h[i].tolist()}, bpe_encode_ref differs")
+                bpe_oracle += 1
+    if bpe_regimes != {"shared", "global"}:
+        raise AssertionError(f"the BPE checks missed a table regime: {bpe_regimes}")
+    del bpe_cases, table512, table_big
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -828,7 +919,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"rules over {lb_n:,} random positions covering every pair of classes; {expand_checks} expand-and-compact "
         f"batches (UTF-8 rows of 32 and 64, naughty and random bytes, codepoint rows under 3 tables, max_exp 1..4); "
         f"range maps of {len(fold_rules)} fold rule sets and a fully pruned one; {window_checks} window counts at "
-        f"m = 1, 8, 129, 300; launches {advanced}",
+        f"m = 1, 8, 129, 300; {bpe_checks} BPE batches in the table regimes {sorted(bpe_regimes)} (512 and 30,000 "
+        f"merges; the JAX tests' cases, widths 1..32), {bpe_oracle} rows equal bpe_encode_ref; launches {advanced}",
         started,
     )
 
@@ -1070,13 +1162,38 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             counter.update({k: suite_launches[k] for k in counter})
         if counts != plain or counts["tokenize-whitespace/swtorch::split"] != len(text.split()):
             raise AssertionError(f"tokenization counts {counts} differ from the plain route / host {plain}")
-        del ctx, staged, data, text
+        # BPE: the row's last ids and counts over all its rows against the
+        # plain version on the card, and 2,000 seeded rows against the host
+        # oracle.
+        bpe = staged["bpe"]
+        ids, bpe_counts, pretokens = bpe["ids"], bpe["counts"], bpe["pretokens"]
+        if bpe["data"].device.type != "cuda" or ids.shape != bpe["data"].shape or len(pretokens) != tok_suite.BPE_ROWS:
+            raise AssertionError(f"the BPE row ran on {bpe['data'].device}: ids {tuple(ids.shape)}, {len(pretokens)} pretokens")
+        want = BPE.bpe_encode_plain(bpe["data"], bpe["lengths"], bpe["table"])
+        bpe_err = max(max_err(ids, want[0]), max_err(bpe_counts, want[1]))
+        errors["bpe"] = max(errors["bpe"], bpe_err)
+        if bpe_err:
+            raise AssertionError(f"the BPE row's ids differ from bpe_encode_plain by {bpe_err}")
+        sample = np.random.default_rng(16).choice(len(pretokens), 2000, replace=False)
+        ids_h, counts_h = ids.cpu().numpy(), bpe_counts.cpu().numpy()
+        for r in sample.tolist():
+            if ids_h[r, : counts_h[r]].tolist() != BPE.bpe_encode_ref(pretokens[r], bpe["merges"]):
+                raise AssertionError(f"BPE row {r} ({pretokens[r]!r}) differs from bpe_encode_ref")
+        tok_keep.update(bpe=bpe, text=text)
+        phase(
+            "bpe staging",
+            f"{len(pretokens):,} pretokens ({int(bpe['lengths'].sum()):,} B, width {ids.shape[1]}) of the first "
+            f"{tok_suite.BPE_CHARS:,} characters: pre-split {bpe['seconds']['pre-split']:.3f} s, "
+            f"{len(bpe['merges'])} merges trained in {bpe['seconds']['train']:.3f} s",
+        )
+        del ctx, staged, data, text, want
         phase(
             "main path",
             f"tokenization suite: {n:,} B of synthetic:multilingual (max_cp {mcp:#x}; synthesized by the child process, "
             f"waited {synthesized:.1f} s) on {dev}; every segmentation count equals the plain feature route on the card, "
             f"the whitespace count len(text.split()), the newline count the host's, the UTF-8 counts len(decode()): {counts}; "
-            f"launches of the suite's run {launches()}",
+            f"BPE ids of all {len(pretokens):,} rows ({int(counts_h.sum()):,} ids) equal bpe_encode_plain on the card, "
+            f"2,000 sampled rows bpe_encode_ref; launches of the suite's run {launches()}",
             started,
         )
 
@@ -1166,6 +1283,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
 
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path
     norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
+    tok_keep: dict = {}  # the tokenization suite's BPE batch and decoded text, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     del suite_tape
@@ -1173,7 +1291,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
-    path(["class_map", "fused_scan", "lb_rules"], tokenization_path)
+    path(["class_map", "fused_scan", "lb_rules", "bpe"], tokenization_path)
     path(["expand", "range_map", "cp_window"], normalization_path)
     torch.cuda.empty_cache()
 
@@ -1480,6 +1598,43 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         profiled="lb_rules_kernel")
     del env, lb_cls, cps, lead
 
+    # BPE at the tokenization suite's shape: its staged batch (400,000
+    # pretokens sorted by length, 512 merges: the shared-memory regime, and
+    # again with the table read from global memory), and the first
+    # 4,000,000 kept pretokens of the corpus's first 32 Mi characters under
+    # the same table, staged with numpy. Bound: the larger of the bytes (u8
+    # rows and int32 lengths in, int32 ids and counts out) and
+    # bpe_operations over the slots and pairs the plain version counts. By
+    # profiler device time, as the multi-pattern rows.
+    bpe = tok_keep["bpe"]
+    bpe_table = bpe["table"]
+    started_4m = time.perf_counter()
+    _, by_length = tok_suite.bpe_rows(tok_keep["text"][:BPE_CHARS_4M], BPE_ROWS_4M)
+    rows_4m, lens_4m = BPE.pack_rows(by_length)
+    if rows_4m.shape[0] != BPE_ROWS_4M:
+        raise AssertionError(f"the corpus's first {BPE_CHARS_4M:,} characters hold {rows_4m.shape[0]:,} pretokens of 1..32 B")
+    staged_4m = time.perf_counter() - started_4m
+    del by_length, tok_keep["text"]
+    data_4m, lens_4m = torch.from_numpy(rows_4m).to(dev), torch.from_numpy(lens_4m).to(dev)
+    for label, data_b, lens_b, key, global_table in (
+        ("bpe-512m-400k", bpe["data"], bpe["lengths"], "bpe", False),
+        ("bpe-512m-400k-global", bpe["data"], bpe["lengths"], None, True),
+        ("bpe-512m-4M", data_4m, lens_4m, None, False),
+    ):
+        _, _, work = BPE.bpe_encode_plain(data_b, lens_b, bpe_table, work=True)
+        rounds, slots, pairs = work["iterations"], int(work["slots"].sum()), int(work["pairs"].sum())
+        n_rows, width = data_b.shape
+        moved = n_rows * width + 4 * n_rows + 4 * n_rows * width + 4 * n_rows
+        operations = bpe_operations(slots, pairs, bpe_table.size)
+        row(f"{label} ({n_rows:,} rows of width {width}, {BPC.regime_of(bpe_table, global_table)} table)",
+            lambda data_b=data_b, lens_b=lens_b, g=global_table: BPC.bpe_encode(data_b, lens_b, bpe_table, global_table=g),
+            lambda data_b=data_b, lens_b=lens_b: BPE.bpe_encode_plain(data_b, lens_b, bpe_table),
+            int(lens_b.sum()), bound_ms(moved, operations), key, plain_samples=1, profiled="bpe_kernel",
+            note=f"; {int(rounds.sum()):,} row iterations (mean {float(rounds.float().mean()):.2f}, max {int(rounds.max())}) "
+                 f"over {slots:,} alive slots and {pairs:,} pairs looked up: {operations:,} operations, {moved:,} B moved"
+                 + (f"; staged in {staged_4m:.1f} s" if data_b is data_4m else ""))
+    del rows_4m, data_4m, lens_4m, data_b, lens_b
+
     # Case folding at the normalization suite's shapes (the same corpus):
     # the range map of the unpruned simple-fold rules (base 0, the dense
     # table's 125 k int32 entries) over the corpus's decoded codepoints, the
@@ -1511,16 +1666,18 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     row(f"cp_window-{needle.numel()}cp-128MB ({hay.numel():,} folded codepoints)",
         lambda: FC.cp_window_count(hay, hay.numel(), needle), lambda: F.cp_window_count_plain(hay, hay.numel(), needle),
         4 * hay.numel(), bound_ms(4 * hay.numel()), "cp_window", profiled="cp_window_kernel")
-    # Where each normalization row's call spends its time: the call timed
-    # back to back (CUDA events; the find call ends in its count's .item()),
-    # beside its device time per call in its kernel and in the other torch
-    # ops (torch.profiler over 20 calls); device busy = device time over
-    # the call's.
+    # Where each normalization row's call and the BPE row's call spend their
+    # time: the call timed back to back (CUDA events; the find and BPE calls
+    # end in a count's .item()), beside its device time per call in its
+    # kernel and in the other torch ops (torch.profiler over 20 calls);
+    # device busy = device time over the call's.
     a_rows, b_rows = norm_keep["compare_rows"]
     for name, call, kernel in (
         ("utf8_fold", lambda: EX.fold_tokens_fused(frows, norm_keep["max_cp"]), ("expand", "expand_kernel")),
         ("uncased_eq", lambda: CF.uncased_equal_batch(a_rows, b_rows), ("range_map", "range_map_kernel")),
         ("uncased_find", lambda: int(F.cp_window_count(hay, hay.numel(), needle).item()), ("cp_window", "cp_window_kernel")),
+        ("bpe_encode", lambda: int(BPE.bpe_encode_fused(bpe["data"], bpe["lengths"], bpe_table)[1].sum().item()),
+         ("bpe", "bpe_kernel")),
     ):
         call_ms = time_ms(call)
         reset(*counters)
@@ -1535,7 +1692,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         phase("row", f"{name} call (the suite's): {call_ms:.4f} ms back to back, {per_call[kernel[0]]} launches; "
                      f"device ms per call: {detail}")
     norm_keep.clear()
-    del frows, hay, needle, a_rows, b_rows
+    tok_keep.clear()
+    del frows, hay, needle, a_rows, b_rows, bpe
     torch.cuda.empty_cache()
     phase("rows", "done", started)
 
@@ -1561,6 +1719,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "expand": ("stringwars_tpu_torch/csrc/expand.cu", "stringwars_tpu/ops/casefold_pallas.py:128"),
         "range_map": ("stringwars_tpu_torch/csrc/classmap.cu", "stringwars_tpu/ops/rulemap.py:184"),
         "cp_window": ("stringwars_tpu_torch/csrc/cpfind.cu", "stringwars_tpu/ops/find_pallas.py:260"),
+        "bpe": ("stringwars_tpu_torch/csrc/bpe.cu", "stringwars_tpu/ops/bpe_pallas.py:92"),
     }
     kernels = [
         {

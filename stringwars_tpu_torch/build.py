@@ -55,6 +55,7 @@ SIGNATURES = {
     "sw_cp_window": (_P, _N, _P, _N, _P, _P),
     "sw_fused_scan": (_P, _N, _N, _N, _P, _N, _P),
     "sw_lb_rules": (_P, _N, _P, _P),
+    "sw_bpe": (_P, _N, _N, _P, _P, _N, _N, _P, _P, _P),
 }
 
 

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from stringwars_tpu.ops import bpe as JB
 from stringwars_tpu.ops import segment as JS
 from stringwars_tpu.ops import utf8 as JU
 from stringwars_tpu.suites.tokenization import _cp_ceiling as jax_cp_ceiling
+from stringwars_tpu.tape import PaddedTokens as JaxPaddedTokens
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.suites import tokenization as suite
 
@@ -26,6 +28,7 @@ DEVICE_ROWS = [
     "utf8-length/swtorch::count_utf8<1cpu>",
     "utf8-iterate/swtorch::decode_utf32<1cpu>",
     "find-nth-utf8/swtorch::find_nth<1cpu>",
+    "tokenize-bpe/swtorch::bpe_encode<1cpu>",
 ]
 HOST_ROWS = [
     "tokenize-whitespace/str.split",
@@ -33,10 +36,12 @@ HOST_ROWS = [
     "tokenize-words-tr29/regex-WORD",
     "tokenize-graphemes-tr29/regex-\\X",
     "utf8-length/bytes.decode-len",
+    "tokenize-bpe/python-bpe",
 ]
 GROUPS = [
     "# tokenize-whitespace", "# tokenize-newlines", "# tokenize-words-tr29", "# tokenize-graphemes-tr29",
     "# tokenize-sentences-tr29", "# tokenize-lines-uax14", "# utf8-length", "# utf8-iterate", "# find-nth-utf8",
+    "# tokenize-bpe",
 ]
 
 
@@ -105,6 +110,38 @@ def test_suite_counts_equal_jax(suite_run, corpus):
     text = raw.decode()
     assert counts["utf8-length/swtorch::count_utf8<1cpu>"] == len(text)
     assert counts["tokenize-whitespace/swtorch::split<1cpu>"] == len(text.split())
+
+
+def test_suite_bpe_equals_jax(suite_run, corpus):
+    """The tokenize-bpe group has the JAX group's shape, and its device row's
+    last ids and counts equal the JAX encoder on the same pretokens and
+    merges. The JAX group's pre-split needs ``regex``; the other tests of
+    this file do not."""
+    import regex
+
+    ctx, _ = suite_run
+    bpe = ctx.staged["bpe"]
+    text = corpus.read_bytes().decode("utf-8", "ignore")
+    gpt2 = regex.compile(r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
+    kept = [p.encode() for p in gpt2.findall(text[: 4 << 20])]
+    kept = [p for p in kept if 0 < len(p) <= 32][:400_000]
+    assert bpe["pretokens"] == sorted(kept, key=len) and len(kept) > 3_000
+    assert len(bpe["merges"]) == 512  # trained on kept[:30_000]: test_torch_bpe holds the trainer to JAX's
+    data, lengths = bpe["data"].numpy(), bpe["lengths"].numpy()
+    assert data.shape == (len(kept), max(map(len, kept))) and data.dtype == np.uint8
+    want = JB.bpe_encode(JaxPaddedTokens(data=jnp.asarray(data), lengths=jnp.asarray(lengths), width=data.shape[1]),
+                         JB.MergeTable.from_merges(bpe["merges"]))
+    np.testing.assert_array_equal(bpe["ids"].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(bpe["counts"].numpy(), np.asarray(want[1]))
+    assert set(bpe["seconds"]) == {"pre-split", "train"}
+
+
+def test_bpe_rows_run_without_regex(corpus, monkeypatch):
+    """The card has no ``regex``: the BPE group runs all the same."""
+    monkeypatch.setitem(sys.modules, "regex", None)
+    _, lines = _run(["--device", "cpu", "--dataset", str(corpus), "--dataset-limit", "8kb"], SWTPU_FILTER="bpe")
+    _row(lines, "tokenize-bpe/swtorch::bpe_encode<1cpu>")
+    _row(lines, "tokenize-bpe/python-bpe")
 
 
 def test_cp_ceiling_equals_jax():
