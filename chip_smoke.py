@@ -27,7 +27,16 @@ prints no result:
    the codepoint-window count at m = 1, 8, 129 and 300; the BPE merge loop
    over 512 and 30,000 merges, the shared-memory and global-memory table
    regimes (the 512-merge table in both), on the JAX tests' cases and at
-   every width 1..32, and 3,000 rows against ``bpe_encode_ref``);
+   every width 1..32, and 3,000 rows against ``bpe_encode_ref``; the ChaCha20
+   keystream XOR at lengths 0..1 MiB + 13 and the counters 0, 1 and
+   0xFFFFFFF0 (the wrap), at views of offsets 1..15, and the RFC 8439 §2.4.2
+   vector; Poly1305 at lengths 0..300, 65,536 and across its runs, partials
+   and fold, at offsets 1..15, under the adversarial key (r at its largest
+   once clamped, s = 2^128 - 1) over 0xFF blocks, and the RFC vector, also
+   against ``poly1305_ref``; SHA-256 at the boundary lengths with junk past
+   them at every bucket width of the hash suite (a token over 4,096 B
+   among them) and over the hash layouts, also against ``hashlib``; the
+   Threefry fill against the pinned ``jax.random.bits`` words);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -37,7 +46,8 @@ prints no result:
      distinct words as a DFA, four and eight words both ways (the two
      kernels must agree), the dictionary also against the plain version;
    - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
-     digests must equal ``swh64_ref``;
+     digests must equal ``swh64_ref``, every SHA-256 digest the plain
+     version on the card and 10,000 sampled ones ``hashlib``;
    - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
      documents' min-hashes must equal the numpy spec replay, and the quality
      line is read back;
@@ -62,6 +72,11 @@ prints no result:
      the CPU route's (the plain rule walk); its 100 needle counts to the
      plain window count on the card and to a host count of overlapping
      matches in ``text.casefold()``; the launches are those of the suite's run;
+   - ``suites.encryption.main`` on 128 MB of ``synthetic:long-lines``: both
+     corpus seals (ciphertext and tag) equal to the plain versions on the
+     card, the decryption rows' plaintexts to the corpus, the 64 per-token
+     seals of each cipher to ``aead_ref``, XChaCha to the draft's vector, and
+     a tampered tag refused; the launches are those of the suite's run;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
@@ -86,7 +101,10 @@ prints no result:
    memory) and ``bpe-512m-4M`` (4,000,000 pretokens of the same corpus, the
    same table), by profiler device time beside the plain version and a
    bound from the alive slots and looked-up pairs that the plain version
-   counts.
+   counts; and ``chacha20-xor-128MB``, ``poly1305-128MB``,
+   ``aead-seal-128MB`` (the encryption suite's corpus call),
+   ``sha256-words-128MB`` (the hash suite's buckets) and
+   ``fill_random-128MB``.
    The earlier suites run at a quarter second of warm-up and one second a
    row. A profiler trace that
    misses a kernel is taken again, up to three times; where all three miss
@@ -106,6 +124,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -365,6 +384,12 @@ NORMALIZATION_ROWS = (
     "case-fold/swtorch::utf8_fold", "case-insensitive-compare/swtorch::uncased_eq",
     "case-insensitive-find/swtorch::uncased_find",
 )
+# The encryption suite's device rows (group, row), without the scope.
+ENCRYPTION_ROWS = tuple(
+    [("keygen", c) for c in ("chacha20poly1305", "xchacha20poly1305", "fill_random")]
+    + [("encryption", c) for c in ("chacha20poly1305", "xchacha20poly1305", "chacha20poly1305-corpus", "xchacha20poly1305-corpus")]
+    + [("decryption", c) for c in ("chacha20poly1305-corpus", "xchacha20poly1305-corpus")]
+)
 # The tokenization suite's device rows (``suites/tokenization.device_rows``).
 TOKENIZATION_ROWS = (
     "tokenize-whitespace/swtorch::split", "tokenize-newlines/swtorch::split", "tokenize-words-tr29/swtorch::words",
@@ -374,6 +399,15 @@ TOKENIZATION_ROWS = (
 )
 BPE_ROWS_4M = 4_000_000  # pretokens of the bpe-512m-4M row
 BPE_CHARS_4M = 32 << 20  # characters of the corpus pre-split for it
+# jax.random.bits(jax.random.PRNGKey(seed), (count,), uint32)[at : at + 8],
+# pinned: the machine with the card has no JAX (tests/test_torch_fill_random.py
+# holds them to JAX). seed -> (count, at, words).
+THREEFRY_PINS = {
+    1: (8, 0, (0x704A38B7, 0x88A4083E, 0x7227B57A, 0x703ABFF1, 0xE5B993A4, 0x8F1716BC, 0xFBDFED74, 0xD78CB814)),
+    2: (8, 0, (0xA40AE269, 0xE68DDB64, 0x3AE385E9, 0xE1B135C9, 0x6B113C1D, 0x33CB5CB4, 0xBBC4D164, 0x2FFEC274)),
+    77: (65539, 65531, (0x17E275B6, 0xBDACB8C1, 0x0EC6CC21, 0xC47C6C00, 0x8E75FCBB, 0x6CFECD12, 0x033FEBBB, 0x226E252D)),
+    2**31 - 1: (1000, 992, (0x7CC7D313, 0xB9A3C2D1, 0x8E03AB1E, 0x25C9867E, 0x2B423E4B, 0x657FDE11, 0xEDBD0F99, 0x729E782E)),
+}
 
 
 def bpe_operations(slots: int, pairs: int, merges: int) -> int:
@@ -417,6 +451,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.ops import bpe as BPE
     from stringwars_tpu_torch.ops import bpe_cuda as BPC
     from stringwars_tpu_torch.ops import bytesum as B
+    from stringwars_tpu_torch.ops import chacha as CC
     from stringwars_tpu_torch.ops import find as F
     from stringwars_tpu_torch.ops import find_cuda as FC
     from stringwars_tpu_torch.ops import fingerprint as FP
@@ -440,7 +475,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.ops import scanline as SL
     from stringwars_tpu_torch.ops import scanline_cuda as SLC
     from stringwars_tpu_torch.ops import segment as SEG
+    from stringwars_tpu_torch.ops import sha256 as SHA
     from stringwars_tpu_torch.ops import utf8 as U8
+    from stringwars_tpu_torch.suites import encryption as enc_suite
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
@@ -451,7 +488,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.utils.profiler import card_identity
 
     counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
-                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES)
+                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES, CC.LAUNCHES, SHA.LAUNCHES)
 
     def wait_corpus() -> bytes:
         if child.wait():
@@ -904,6 +941,100 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     if bpe_regimes != {"shared", "global"}:
         raise AssertionError(f"the BPE checks missed a table regime: {bpe_regimes}")
     del bpe_cases, table512, table_big
+    # ChaCha20: lengths 0..1 MiB + 13 at the counters 0, 1 and 0xFFFFFFF0
+    # (the counter wraps), views at offsets 1..15 (the 4-byte and byte
+    # paths), and the RFC 8439 §2.4.2 vector. Poly1305: lengths 0..300,
+    # 65,536, and across the kernel's 256-byte runs, its 64 KiB partials and
+    # the fold's runs of partials (past 256 partials), views at offsets 1..15;
+    # the clamped r at its largest with s = 2^128 - 1 over 0xFF blocks; the
+    # RFC vector; against the plain version and poly1305_ref.
+    cc_rng = np.random.default_rng(17)
+    cc_key, cc_nonce = cc_rng.integers(0, 256, 32, dtype=np.uint8).tobytes(), cc_rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+    cc_buf = random_bytes((17 << 20) + 64, 18, dev)
+    cc_checks = poly_checks = poly_oracle = 0
+
+    def byte_err(a: bytes, b: bytes) -> int:
+        return max_err(torch.tensor(list(a)), torch.tensor(list(b)))
+
+    for n_cc in (0, 1, 63, 64, 65, 4095, (1 << 20) + 13):
+        for counter in (0, 1, 0xFFFFFFF0):
+            view = cc_buf[:n_cc]
+            got = CC.chacha20_xor_cuda(cc_key, cc_nonce, view, counter)
+            errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(got, CC.chacha20_xor_plain(cc_key, cc_nonce, view, counter)))
+            cc_checks += 1
+    for off in range(1, 16):
+        view = cc_buf[off : off + 4096 + off]
+        got = CC.chacha20_xor_cuda(cc_key, cc_nonce, view, 1)
+        errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(got, CC.chacha20_xor_plain(cc_key, cc_nonce, view, 1)))
+        cc_checks += 1
+    sunscreen = (b"Ladies and Gentlemen of the class of '99: If I could offer you "
+                 b"only one tip for the future, sunscreen would be it.")
+    rfc_ct = CC.chacha20_xor_cuda(bytes(range(32)), bytes.fromhex("000000000000004a00000000"),
+                                  torch.tensor(list(sunscreen), dtype=torch.uint8, device=dev), 1)
+    if rfc_ct.cpu().numpy().tobytes().hex() != (
+        "6e2e359a2568f98041ba0728dd0d6981e97e7aec1d4360c20a27afccfd9fae0bf91b65c5524733ab8f593dabcd62b3571639d624e65152ab"
+        "8f530c359f0861d807ca0dbf500d6a6156a38e088a22b65e52bc514d16ccf806818ce91ab77937365af90bbf74a35be6b40b8eedf2785e42874d"
+    ):
+        raise AssertionError("ChaCha20 of the RFC 8439 §2.4.2 plaintext differs from its vector")
+    span = 16 * 4096  # bytes of one partial of the MAC kernel's first pass
+    poly_cases = [(0, n) for n in range(301)] + [(0, n) for n in (65536, 255, 256, 257, 4095, span - 1, span, span + 1,
+                                                                     3 * span + 5, 256 * span, 257 * span + 7 * 16 + 3)]
+    poly_cases += [(off, 1000 + off) for off in range(1, 16)]
+    for off, n_poly in poly_cases:
+        view = cc_buf[off : off + n_poly]
+        key32 = cc_rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        got = CC.poly1305_tag(key32, view)
+        errors["poly1305"] = max(errors["poly1305"], byte_err(got, CC.poly1305_plain(key32, view)))
+        if n_poly <= 4096:
+            errors["poly1305"] = max(errors["poly1305"], byte_err(got, CC.poly1305_ref(key32, view.cpu().numpy().tobytes())))
+            poly_oracle += 1
+        poly_checks += 1
+    adversarial = bytes([0xFF] * 32)
+    for n_poly in (16, 17, 160, 4096 + 3, span + 16):
+        ones = torch.full((n_poly,), 0xFF, dtype=torch.uint8, device=dev)
+        got = CC.poly1305_tag(adversarial, ones)
+        errors["poly1305"] = max(errors["poly1305"], byte_err(got, CC.poly1305_plain(adversarial, ones)),
+                                 byte_err(got, CC.poly1305_ref(adversarial, b"\xff" * n_poly)))
+        poly_checks += 1
+    rfc_tag = CC.poly1305_tag(bytes.fromhex("85d6be7857556d337f4452fe42d506a80103808afb0db2fd4abff6af4149f51b"),
+                              torch.tensor(list(b"Cryptographic Forum Research Group"), dtype=torch.uint8, device=dev))
+    if rfc_tag != bytes.fromhex("a8061dc1305136c6c22b8baf0c0127a9"):
+        raise AssertionError(f"Poly1305 of the RFC 8439 §2.5.2 message: {rfc_tag.hex()}")
+    del cc_buf
+    # SHA-256: the boundary lengths with 0xAB junk past them at every bucket
+    # width of the hash suite (64, 256, 1,024, 4,096 and the catch bucket's,
+    # here 4,160 with a token of 4,100 B) and at a 4-byte width, and every
+    # hash layout above (tokens of 0..130 B, and 600 of 1..5,000 B in the
+    # suite's buckets), against the plain version and hashlib.
+    sha_checks = sha_oracle = 0
+    boundary = [0, 55, 56, 63, 64, 65, 119, 120, 128, 129, 191, 192]
+    sha_sets = []
+    for width in (4, 64, 256, 1024, 4096, 4160):
+        tokens = [rng.integers(0, 256, k, dtype=np.uint8).tobytes() for k in boundary + [width - 60, width] if 0 <= k <= width]
+        rows = np.full((len(tokens), width), 0xAB, np.uint8)
+        for i, t in enumerate(tokens):
+            rows[i, : len(t)] = np.frombuffer(t, np.uint8)
+        sha_sets.append((tokens, T.PaddedTokens.from_numpy(rows, [len(t) for t in tokens], device=dev)))
+    sha_sets.append((sweep, layouts[0]))
+    sha_sets.append((sweep, layouts[1]))
+    for tokens, padded in sha_sets:
+        got = SHA.sha256_cuda(padded)
+        errors["sha256"] = max(errors["sha256"], max_err(got, SHA.sha256_plain(padded)))
+        for i, digest in enumerate(SHA.digest_bytes(got)):
+            if digest.tobytes() != hashlib.sha256(tokens[i]).digest():
+                raise AssertionError(f"SHA-256 of a {len(tokens[i])}-byte token in rows of {padded.width} differs from hashlib")
+            sha_oracle += 1
+        sha_checks += 1
+    for padded in layouts[2:]:
+        errors["sha256"] = max(errors["sha256"], max_err(SHA.sha256_cuda(padded), SHA.sha256_plain(padded)))
+        sha_checks += 1
+    # Threefry: the pinned JAX words, and 32 Mi words against the plain version.
+    for seed, (count, at, words) in THREEFRY_PINS.items():
+        got = M.threefry_bits_cuda(seed, count, dev)
+        errors["threefry"] = max(errors["threefry"], max_err(got, M.threefry_bits_plain(seed, count, dev)))
+        if got[at : at + len(words)].tolist() != list(words):
+            raise AssertionError(f"Threefry words of seed {seed} at {at} differ from the pinned jax.random.bits")
+    errors["threefry"] = max(errors["threefry"], max_err(M.threefry_bits_cuda(5, 32 << 20, dev), M.threefry_bits_plain(5, 32 << 20, dev)))
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -920,7 +1051,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"batches (UTF-8 rows of 32 and 64, naughty and random bytes, codepoint rows under 3 tables, max_exp 1..4); "
         f"range maps of {len(fold_rules)} fold rule sets and a fully pruned one; {window_checks} window counts at "
         f"m = 1, 8, 129, 300; {bpe_checks} BPE batches in the table regimes {sorted(bpe_regimes)} (512 and 30,000 "
-        f"merges; the JAX tests' cases, widths 1..32), {bpe_oracle} rows equal bpe_encode_ref; launches {advanced}",
+        f"merges; the JAX tests' cases, widths 1..32), {bpe_oracle} rows equal bpe_encode_ref; {cc_checks} ChaCha20 "
+        f"streams (counters 0, 1, 0xFFFFFFF0; offsets 1..15) and the RFC 8439 §2.4.2 vector; {poly_checks} Poly1305 "
+        f"tags, {poly_oracle} equal poly1305_ref, the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
+        f"hashlib; Threefry equal to the pinned jax.random.bits; launches {advanced}",
         started,
     )
 
@@ -1008,8 +1142,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             hash_suite.main,
             ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1"],
             [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8")]
-            + ["stateful/swtorch::tree_hash64<1gpu>", "checksum/swtorch::bytesum<1gpu>"],
+            + ["stateful/swtorch::tree_hash64<1gpu>", "checksum/swtorch::bytesum<1gpu>", "checksum/swtorch::sha256<1gpu>"],
         )
+        suite_launches = launches()  # the suite's own run: the checks below launch the kernels again
         if ctx.tape.device.type != "cuda" or ctx.tape.total_bytes < 100 << 20:
             raise AssertionError(f"the hash suite ran on {ctx.tape.device} over {ctx.tape.total_bytes} bytes")
         idx, digests = ctx.staged.digests(H.swh64)
@@ -1017,11 +1152,29 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         want = [H.swh64_ref(t) for t in first]
         if list(idx[:8]) != list(range(8)) or [int(d) for d in digests[:8]] != want:
             raise AssertionError(f"swh64 of the first 8 tokens: suite {digests[:8]}, swh64_ref {want}")
+        # SHA-256: every digest of every bucket against the plain version on
+        # the card, and 10,000 seeded tokens against hashlib.
+        for padded in ctx.staged.buckets:
+            err = max_err(SHA.sha256_cuda(padded), SHA.sha256_plain(padded))
+            errors["sha256"] = max(errors["sha256"], err)
+            if err:
+                raise AssertionError(f"SHA-256 of the {padded.count:,} tokens of width {padded.width} differ from the plain version")
+        idx, digests = ctx.staged.digests(SHA.sha256)
+        sample = np.random.default_rng(19).choice(idx.size, 10_000, replace=False)
+        offsets, data = ctx.tape.offsets.cpu().numpy(), ctx.tape.data.cpu().numpy()
+        got = SHA.digest_bytes(torch.from_numpy(digests[sample]))
+        for row, i in enumerate(idx[sample].tolist()):
+            if got[row].tobytes() != hashlib.sha256(data[offsets[i] : offsets[i + 1]].tobytes()).digest():
+                raise AssertionError(f"SHA-256 of token {i} differs from hashlib")
+        for counter in counters:
+            counter.update({k: suite_launches[k] for k in counter})
+        hash_keep["buckets"] = ctx.staged
         phase(
             "main path",
             f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
-            f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; "
-            f"launches {launches()}",
+            f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; every "
+            f"SHA-256 digest equals the plain version on the card, 10,000 sampled tokens hashlib; launches of the "
+            f"suite's run {launches()}",
             started,
         )
 
@@ -1281,18 +1434,81 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             started,
         )
 
+    def encryption_path() -> None:
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            enc_suite.main,
+            ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1"],
+            [f"{group}/swtorch::{row}<1gpu>" for group, row in ENCRYPTION_ROWS],
+        )
+        suite_launches = launches()  # the suite's own run: the checks below launch the kernels again
+        staged, key = ctx.staged, enc_suite.KEY
+        corpus = staged["corpus"]
+        if corpus.device.type != "cuda" or corpus.numel() < 100 << 20:
+            raise AssertionError(f"the encryption suite ran on {corpus.device} over {corpus.numel()} bytes")
+        # The corpus seals against the plain versions on the card; the
+        # decryption rows' plaintexts against the corpus.
+        for label, nonce_len, _, _ in enc_suite.device_ciphers():
+            nonce, ct, tag = staged["sealed"][label]
+            sub, sub_nonce = (key, nonce) if nonce_len == 12 else CC._xchacha_subkey(key, nonce)
+            want_ct, want_tag = CC.aead_encrypt_plain(sub, sub_nonce, corpus)
+            err = max(max_err(ct, want_ct), byte_err(tag, want_tag))
+            errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(ct, want_ct))
+            errors["poly1305"] = max(errors["poly1305"], byte_err(tag, want_tag))
+            if err or not torch.equal(staged["opened"][label], corpus):
+                raise AssertionError(f"{label}: the corpus seal differs from the plain version ({err}) or does not open to the corpus")
+        # The 64 per-token seals of each cipher against aead_ref; the XChaCha
+        # draft vector; a flipped tag bit must not open.
+        sample = staged["sample"]
+        for label, nonce_len, _, _ in enc_suite.device_ciphers():
+            seals = staged["seals"][label]
+            if len(seals) != len(sample):
+                raise AssertionError(f"{label}: {len(seals)} per-token seals for {len(sample)} tokens")
+            for token, (nonce, ct, tag) in zip(sample, seals):
+                sub, sub_nonce = (key, nonce) if nonce_len == 12 else CC._xchacha_subkey(key, nonce)
+                if (ct.cpu().numpy().tobytes(), tag) != CC.aead_ref(sub, sub_nonce, token):
+                    raise AssertionError(f"{label}: the seal of a {len(token)}-byte token differs from aead_ref")
+        draft_ct, draft_tag = CC.xchacha_aead_encrypt(
+            bytes.fromhex("808182838485868788898a8b8c8d8e8f909192939495969798999a9b9c9d9e9f"),
+            bytes.fromhex("404142434445464748494a4b4c4d4e4f5051525354555657"),
+            torch.tensor(list(sunscreen), dtype=torch.uint8, device=dev), bytes.fromhex("50515253c0c1c2c3c4c5c6c7"))
+        if draft_ct.cpu().numpy().tobytes().hex()[:32] != "bd6d179d3e83d43b9576579493c0e939" or \
+                draft_tag != bytes.fromhex("c0875924c1c7987947deafd8780acf49"):
+            raise AssertionError("XChaCha20-Poly1305 of the draft's §A.3 inputs differs from its vector")
+        nonce, ct, tag = staged["sealed"]["chacha20poly1305"]
+        try:
+            CC.aead_decrypt(key, nonce, ct, bytes([tag[0] ^ 1]) + tag[1:])
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("a tampered tag opened")
+        for counter in counters:
+            counter.update({k: suite_launches[k] for k in counter})
+        enc_keep.update(corpus=corpus, sealed=staged["sealed"]["chacha20poly1305"])
+        phase(
+            "main path",
+            f"encryption suite: {corpus.numel():,} B of synthetic:long-lines on {corpus.device}; both corpus seals "
+            f"(ciphertext and tag) equal the plain versions on the card and open to the corpus; {len(sample)} per-token "
+            f"seals of each cipher equal aead_ref; the XChaCha draft vector; a tampered tag is refused; launches of the "
+            f"suite's run {launches()}",
+            started,
+        )
+
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path
     norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
     tok_keep: dict = {}  # the tokenization suite's BPE batch and decoded text, for the rows phase
+    hash_keep: dict = {}  # the hash suite's buckets, for the rows phase
+    enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     del suite_tape
-    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum"], hash_path)
+    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum", "sha256"], hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
     path(["class_map", "fused_scan", "lb_rules", "bpe"], tokenization_path)
     path(["expand", "range_map", "cp_window"], normalization_path)
+    path(["chacha20_xor", "poly1305", "threefry"], encryption_path)
     torch.cuda.empty_cache()
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
@@ -1694,6 +1910,46 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     norm_keep.clear()
     tok_keep.clear()
     del frows, hay, needle, a_rows, b_rows, bpe
+
+    # The encryption and SHA-256 rows at the main path's shapes: the
+    # encryption suite's corpus (128 MB of synthetic:long-lines) through the
+    # keystream XOR, the MAC alone (raw mode, the key on the card) and the
+    # suite's corpus call (aead_encrypt: the one-time key, the XOR, the MAC of
+    # the AEAD's input, the tag read back); the hash suite's buckets through
+    # SHA-256; the Threefry fill of 128 MiB. Bounds: 32-bit instructions per
+    # block of each function, counted in its kernel's note (ChaCha20 993 a
+    # 64-byte block, Poly1305 70 a 16-byte block, SHA-256 1,384 a 64-byte
+    # block, Threefry 73 a word), or the bytes, whichever is larger.
+    corpus, (seal_nonce, _, _) = enc_keep["corpus"], enc_keep["sealed"]
+    key, n_enc = enc_suite.KEY, enc_keep["corpus"].numel()
+    key_dev = torch.tensor(list(key), dtype=torch.uint8, device=dev)
+    blocks64, blocks16 = -(-n_enc // 64), -(-n_enc // 16)
+    row(f"chacha20-xor-128MB ({n_enc:,} B)", lambda: CC.chacha20_xor_cuda(key, seal_nonce, corpus),
+        lambda: CC.chacha20_xor_plain(key, seal_nonce, corpus), n_enc, bound_ms(2 * n_enc, 993 * blocks64), "chacha20_xor",
+        plain_samples=1)
+    row(f"poly1305-128MB ({n_enc:,} B, raw mode)", lambda: CC.poly1305_cuda(key_dev, corpus),
+        lambda: torch.tensor(list(CC.poly1305_plain(key, corpus)), dtype=torch.uint8, device=dev), n_enc,
+        bound_ms(n_enc, 70 * blocks16), "poly1305", plain_samples=1)
+
+    def tag_tensor(sealed):
+        return sealed[0], torch.tensor(list(sealed[1]), dtype=torch.uint8)
+
+    row(f"aead-seal-128MB (the suite's chacha20poly1305-corpus call, {n_enc:,} B)",
+        lambda: tag_tensor(CC.aead_encrypt(key, seal_nonce, corpus)),
+        lambda: tag_tensor(CC.aead_encrypt_plain(key, seal_nonce, corpus)), n_enc,
+        bound_ms(2 * n_enc, 993 * (blocks64 + 1) + 70 * (blocks16 + 1)), plain_samples=1)
+    enc_keep.clear()
+    del corpus, key_dev
+    buckets = hash_keep.pop("buckets")
+    sha_blocks = sum(int(((p.lengths.to(torch.int64) + 9 + 63) // 64).sum()) for p in buckets.buckets)
+    row(f"sha256-words-128MB ({buckets.tokens:,} tokens in {len(buckets.buckets)} buckets, {sha_blocks:,} blocks)",
+        lambda: tuple(SHA.sha256_cuda(p) for p in buckets.buckets), lambda: tuple(SHA.sha256_plain(p) for p in buckets.buckets),
+        buckets.token_bytes, bound_ms(buckets.token_bytes + 36 * buckets.tokens, 1384 * sha_blocks), "sha256", plain_samples=1)
+    del buckets
+    fill_words = 32 << 20
+    row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),
+        lambda: M.threefry_bits_plain(1, fill_words, dev), 4 * fill_words, bound_ms(4 * fill_words, 73 * fill_words), "threefry",
+        plain_samples=1)
     torch.cuda.empty_cache()
     phase("rows", "done", started)
 
@@ -1720,6 +1976,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "range_map": ("stringwars_tpu_torch/csrc/classmap.cu", "stringwars_tpu/ops/rulemap.py:184"),
         "cp_window": ("stringwars_tpu_torch/csrc/cpfind.cu", "stringwars_tpu/ops/find_pallas.py:260"),
         "bpe": ("stringwars_tpu_torch/csrc/bpe.cu", "stringwars_tpu/ops/bpe_pallas.py:92"),
+        "chacha20_xor": ("stringwars_tpu_torch/csrc/chacha.cu", "stringwars_tpu/ops/chacha.py:102"),
+        "poly1305": ("stringwars_tpu_torch/csrc/chacha.cu", "stringwars_tpu/ops/chacha.py:219"),
+        "sha256": ("stringwars_tpu_torch/csrc/sha256.cu", "stringwars_tpu/ops/sha256.py:112"),
+        "threefry": ("stringwars_tpu_torch/csrc/threefry.cu", "stringwars_tpu/ops/memops.py:104"),
     }
     kernels = [
         {

@@ -1,15 +1,18 @@
-"""Memory ops, the LUT part: ``out[i] = lut[data[i]]`` (family K12).
+"""Memory ops: the LUT translate and the counter-based random fill (family K12).
 
-The port of ``stringwars_tpu.ops.memops.lut_translate`` and
-``invert_case_lut`` (reference ``memory/bench.rs:110-166``). The JAX
-package's select-plane form (``lut_translate_planes``) routes around the
-TPU's slow u8 gathers and is not ported: the kernel ``csrc/lut.cu`` looks
-the table up in shared memory. The rest of memops (fill, copy, move, PRNG
-fill) comes with the memory suite.
+The port of ``stringwars_tpu.ops.memops.lut_translate``,
+``invert_case_lut`` (reference ``memory/bench.rs:110-166``),
+``fill_random_words`` and ``fill_random``. The JAX package's select-plane
+form (``lut_translate_planes``) routes around the TPU's slow u8 gathers and
+is not ported: the kernel ``csrc/lut.cu`` looks the table up in shared
+memory. The random fill is Threefry-2x32, bit for bit the words of
+``jax.random.bits(jax.random.PRNGKey(seed), ...)`` (``csrc/threefry.cu``).
+The rest of memops (fill, copy, move) comes with the memory suite.
 
-``lut_translate_plain`` is the plain torch version; ``lut_translate_cuda``
-launches the kernel; ``lut_translate`` takes the kernel for a CUDA tensor
-and the plain version for a CPU tensor.
+``*_plain`` are the plain torch versions; ``*_cuda`` launch the kernels;
+``lut_translate`` takes the kernel for a CUDA tensor and the plain version
+for a CPU tensor, and the fills run on the ``device`` they are given (the
+card unless the caller names the CPU).
 """
 
 from __future__ import annotations
@@ -19,8 +22,12 @@ import torch
 
 from stringwars_tpu_torch import build
 
-# Launches of csrc/lut.cu since process start (or the last reset).
-LAUNCHES = {"lut_translate": 0}
+# Launches of csrc/lut.cu and csrc/threefry.cu since process start (or the last reset).
+LAUNCHES = {"lut_translate": 0, "threefry": 0}
+
+_M32 = 0xFFFFFFFF
+# Threefry-2x32's rotations, by round group (jax/_src/prng.py).
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def invert_case_lut() -> np.ndarray:
@@ -75,3 +82,70 @@ def lut_translate(data: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     if data.device.type == "cpu":
         return lut_translate_plain(data, lut)
     raise ValueError(f"lut_translate runs on a CUDA or CPU tensor, not {data.device}")
+
+
+# ---------------------------------------------------------------------------
+# Counter-based random words (Threefry-2x32, as jax.random.bits)
+# ---------------------------------------------------------------------------
+
+def threefry_key(seed: int) -> tuple[int, int]:
+    """The Threefry key of ``jax.random.PRNGKey(seed)``: the seed's high and
+    low 32 bits (a seed below 2^31 has the key (0, seed))."""
+    seed = int(seed)
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"seed must be in [0, 2^64), got {seed}")
+    return seed >> 32, seed & _M32
+
+
+def threefry_bits_plain(seed: int, count: int, device="cpu") -> torch.Tensor:
+    """uint32[count]: word i is x0 ^ x1 of Threefry-2x32 (20 rounds) under
+    ``threefry_key(seed)`` at the counter (i >> 32, i & 0xFFFFFFFF), in int64
+    torch ops masked to 32 bits."""
+    k0, k1 = threefry_key(seed)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    i = torch.arange(count, dtype=torch.int64, device=device)
+    x0 = ((i >> 32) + ks[0]) & _M32
+    x1 = ((i & _M32) + ks[1]) & _M32
+    for group in range(5):
+        for r in _THREEFRY_ROTATIONS[group % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & _M32
+        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & _M32
+    return (x0 ^ x1).to(torch.uint32)
+
+
+def threefry_bits_cuda(seed: int, count: int, device="cuda") -> torch.Tensor:
+    """``threefry_bits_plain`` by the CUDA kernel, on the device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"threefry_bits_cuda: the CUDA kernel needs a CUDA device, got {device}")
+    k0, k1 = threefry_key(seed)
+    out = torch.empty(count, dtype=torch.uint32, device=device)
+    if count:
+        lib = build.library()
+        with torch.cuda.device(device):
+            code = lib.sw_threefry_bits(k0, k1, count, out.data_ptr(), build.stream_of(out))
+        build.check(code, "threefry")
+        LAUNCHES["threefry"] += 1
+    return out
+
+
+def fill_random_words(seed: int, n: int, device="cuda") -> torch.Tensor:
+    """Counter-based random uint32 words covering ``n`` bytes: the words of
+    ``jax.random.bits(jax.random.PRNGKey(seed), ((n + 3) // 4,), uint32)``."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    device = torch.device(device)
+    count = (n + 3) // 4
+    if device.type == "cuda":
+        return threefry_bits_cuda(seed, count, device)
+    if device.type == "cpu":
+        return threefry_bits_plain(seed, count, device)
+    raise ValueError(f"fill_random runs on a CUDA device or the CPU, not {device}")
+
+
+def fill_random(seed: int, n: int, device="cuda") -> torch.Tensor:
+    """``n`` counter-based random bytes on ``device`` (the AES-CTR keystream
+    analog): the little-endian bytes of ``fill_random_words``."""
+    return fill_random_words(seed, n, device).view(torch.uint8)[:n]

@@ -10,9 +10,11 @@ CUDA kernels of ``ops/hash_cuda.py``; with ``--device cpu`` the same rows
 suite run, on the device, and the staging seconds go to stderr. Host
 baselines (the ``xxhash`` wheel, CPython builtins, ``zlib``, ``hashlib``)
 run the same corpus under the same deadline pacing as the reference's
-Python suite; a row whose module is missing is SKIPPED.
+Python suite; a row whose module is missing is SKIPPED. The checksum
+group's ``swtorch::sha256`` row hashes every token of the same buckets per
+call (``ops/sha256.py``).
 
-Not ported yet: the ``xxh3_64`` and ``sha256`` device rows.
+Not ported yet: the ``xxh3_64`` device row.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from stringwars_tpu_torch.ops import bytesum as B
 from stringwars_tpu_torch.ops import hash as H
+from stringwars_tpu_torch.ops import sha256 as SHA
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens, Tape, bucket_spans
 from stringwars_tpu_torch.utils.config import get_env_bool
@@ -157,7 +160,7 @@ def bench_stateful(ctx: SuiteContext, host: HostCopy) -> None:
     ctx.run("stateful/xxhash.xxh64_stream", "bytes", host_stream_factory)
 
 
-def bench_checksum(ctx: SuiteContext, host: HostCopy) -> None:
+def bench_checksum(ctx: SuiteContext, staged: HashBuckets, host: HostCopy) -> None:
     data, n = ctx.tape.data, ctx.tape.total_bytes
     for scope in ctx.scopes:
         ctx.run(
@@ -166,6 +169,8 @@ def bench_checksum(ctx: SuiteContext, host: HostCopy) -> None:
             lambda: lambda: (B.bytesum(data, n), WorkUnits(elements=1, bytes=n))[1],
             device=scope.device,
         )
+        ctx.run(f"checksum/swtorch::sha256{scope.name}", "bytes", lambda: device_routine(staged, SHA.sha256),
+                device=scope.device)
 
     def host_factory(module: str, fn_name: str):
         def factory():
@@ -227,7 +232,7 @@ def main(argv: list[str] | None = None) -> SuiteContext:
     bench_stateful(ctx, host)
 
     ctx.group("checksum")
-    bench_checksum(ctx, host)
+    bench_checksum(ctx, staged, host)
 
     if get_env_bool("COLLISIONS"):
         report_collisions(staged, host)

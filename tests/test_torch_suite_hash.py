@@ -1,6 +1,8 @@
 """The port's hash and fingerprints suites end to end on the CPU
 (``--device cpu``), against the JAX package on the same corpus file."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -8,8 +10,10 @@ import torch
 from stringwars_tpu import tape as jax_tape
 from stringwars_tpu.ops import fingerprint as JF
 from stringwars_tpu.ops import hash as JH
+from stringwars_tpu.ops.sha256 import prepare_sha256, sha256_digest_bytes
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.ops import hash as H
+from stringwars_tpu_torch.ops import sha256 as SHA
 from stringwars_tpu_torch.suites import fingerprints as fp_suite
 from stringwars_tpu_torch.suites import hash as hash_suite
 
@@ -24,6 +28,7 @@ HASH_ROWS = [
     "stateful/swtorch::tree_hash64<1cpu>",
     "stateful/xxhash.xxh64_stream",
     "checksum/swtorch::bytesum<1cpu>",
+    "checksum/swtorch::sha256<1cpu>",
     "checksum/zlib.crc32",
     "checksum/hashlib.sha256",
 ]
@@ -87,6 +92,20 @@ def test_hash_suite_tree_row_matches_jax(hash_run, corpus):
     ref_tape = jax_tape.Tape.from_buffer(raw.tobytes(), "words")
     hay = np.asarray(ref_tape.data)[: ref_tape.total_bytes]
     assert H.tree_hash64(ctx.tape.data, ctx.tape.total_bytes) == JH.tree_hash64(hay)
+
+
+def test_hash_suite_sha256_row_matches_hashlib_and_jax(hash_run, corpus):
+    """The sha256 row's buckets: every token's digest equals hashlib's, and
+    the first bucket's the JAX package's over its own bucket."""
+    ctx, _ = hash_run
+    idx, digests = ctx.staged.digests(SHA.sha256)
+    tokens = ctx.tape.to_list()
+    assert list(idx) == list(range(len(tokens)))
+    got = SHA.digest_bytes(torch.from_numpy(digests))
+    for i in range(0, len(tokens), 7):
+        assert got[i].tobytes() == hashlib.sha256(tokens[i]).digest()
+    ref = jax_tape.bucket_by_length(jax_tape.Tape.from_buffer(corpus.read_bytes(), "words"), hash_suite.BUCKET_EDGES)[0]
+    np.testing.assert_array_equal(SHA.digest_bytes(SHA.sha256(ctx.staged.buckets[0])), sha256_digest_bytes(prepare_sha256(ref)))
 
 
 def test_collision_audit(corpus, monkeypatch, capsys):
