@@ -13,13 +13,18 @@ prints no result:
    (the hashes also against the published digests of the empty input; the
    Myers and alignment kernels over pattern lengths 0..1023 against texts of
    0..1100 B in the byte, DNA and codepoint alphabets, global and local,
-   affine and linear, and 64 pairs against the brute-force oracles; the
+   affine and linear, and 64 pairs against the brute-force oracles, and the
+   alignment kernel at the edges of its lane groups and strips (8, 16 and 32
+   lanes a pair, strips of 8 and 16 rows, pairs of several passes); the
    Aho-Corasick DFA kernel in each table regime and the Shift-And kernel with
    one and two state words, at their own and at small chunks, and 64 small
    multi-pattern cases against brute force; the class map over every
-   segmentation table, pruned at 0xFFFF and whole, the fused scan of each
-   kind both ways at 128 Mi positions and across its segment seams, the
-   UAX#14 rules on random class streams covering every pair of classes; the
+   segmentation table, pruned at 0xFFFF and whole, the fused scan (one
+   launch a program, the builds inside it) of each kind both ways at 128 Mi
+   positions and across the seams of its tiles (1,024 to 8,192 positions,
+   by the program's on-chip streams), and each of the 8 segmentation
+   programs both ways on random streams of 1 to 4 Mi positions; the UAX#14
+   rules on random class streams covering every pair of classes; the
    expand-and-compact fold kernel on UTF-8 rows of 32 and 64 bytes of a text
    with 3-codepoint folds, of ``synthetic:naughty`` and of random bytes, and
    on codepoint rows under a synthetic 3-table set at ``max_exp`` 1..4, the
@@ -64,7 +69,9 @@ prints no result:
      ``len(bytes.decode())``; the BPE row's ids and counts over its 400,000
      pretokens must equal ``bpe_encode_plain`` on the card, 2,000 sampled
      rows ``bpe_encode_ref`` (its pre-split and training seconds on a line
-     of their own); the launches are those of the suite's run;
+     of their own); each of the 8 scan programs of the five segmentation
+     functions, on the corpus's own streams, equal to the plain executor on
+     the card; the launches are those of the suite's run;
    - ``suites.normalization.main`` on the same corpus (``swtorch::`` rows):
      its fold output equal to the plain version on the card, its total to
      ``len(text.casefold())`` and 10,000 sampled rows to ``str.casefold``; its
@@ -80,7 +87,9 @@ prints no result:
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
-   shapes, and the similarities reference's own H100 cell), each kernel
+   shapes, the similarities reference's own H100 cell, and the alignment
+   rows at the similarities suite's own 4,096 pairs, whose times the kernels
+   line's ``affine`` and ``linear`` entries take), each kernel
    timed with CUDA events (median of 5 runs of back-to-back calls, after
    warm-up) beside its plain version on the card (one run for the DP rows),
    its bound (the least time the card could take: bytes over 3.35 TB/s or
@@ -90,8 +99,10 @@ prints no result:
    (their wrappers' host work outlasts the kernel) and print the
    back-to-back call time beside it; the tokenization rows at 128 MB (each
    segmentation function beside its plain feature route, with its launches
-   and device time per call by kernel, by the scan programs' torch builds
-   and by the other torch ops, the UTF-8 rows, and the class map,
+   (one of the scan kernel for each of its scan programs) and device time
+   per call by kernel and by the other torch ops (no build runs as a torch
+   op: a trace of the call must hold no ``scanline.build`` range), the UTF-8
+   rows, and the class map,
    fused scan and UAX#14 rule kernels by profiler device time, the scans
    beside ``torch.cumsum`` and ``torch.cummax``), and the case-folding rows
    at the normalization suite's shapes (``range_map-fold-128MB``,
@@ -137,7 +148,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 SAMPLES = 5  # timed samples per row, after WARM calls
 WARM = 2
@@ -225,22 +235,6 @@ def device_ms(fn, kernel: str, calls: int = 30, per_call: bool = False) -> float
     events = [e for e in device_events(prof) if kernel in e.key]
     launches = calls if per_call else sum(e.count for e in events)
     return sum(e.device_time_total for e in events) / launches / 1e3
-
-
-def range_device_ms(fn, name: str, calls: int = 3) -> float | None:
-    """Device ms per call of ``fn`` in the kernels launched inside the
-    ``torch.profiler.record_function`` range ``name``, from a trace of the
-    host and the card over ``calls`` calls (a host range's device time is
-    its ops' kernels'; 0 where they launch none). None if no trace saw the
-    range."""
-
-    def spans(prof) -> list:
-        return [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
-
-    prof = profile(fn, calls, lambda p: bool(spans(p)), cpu=True, what=name)
-    if prof is None:
-        return None
-    return sum(e.device_time_total for e in spans(prof)) / calls / 1e3
 
 
 def device_breakdown(fn, kernels: dict[str, str], calls: int = 3, launches: dict[str, int] | None = None) -> dict[str, float] | None:
@@ -379,6 +373,18 @@ SCAN_BUILDS = {
     "last2": lambda e: (e["v"], e["f"]),
     "delay": lambda e: e["v"],
 }
+# The input streams of the segmentation programs (ops/segment.py), and the
+# programs themselves.
+SEG_BOOL_STREAMS = ("tok", "lead", "pict", "ri", "nonext", "ctl", "lnk", "nel", "keep", "nl", "basemask", "ign", "ps",
+                    "stop", "cm", "hard")
+SEG_INT_STREAMS = ("cls", "incb", "eff")
+
+
+def segment_programs(SEG) -> tuple:
+    return (SEG._WS_OPS, SEG._GRAPH_OPS, SEG._WORD_OPS_FWD, SEG._WORD_OPS_BWD, SEG._SENT_OPS_FWD, SEG._SENT_OPS_BWD,
+            SEG._LB_OPS_FWD, SEG._LB_OPS_BWD)
+
+
 # The normalization suite's device rows.
 NORMALIZATION_ROWS = (
     "case-fold/swtorch::utf8_fold", "case-insensitive-compare/swtorch::uncased_eq",
@@ -737,6 +743,22 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                     raise AssertionError(f"{fn} of {set_name} pair {i}: kernel {dp_outs[(set_name, fn)][i]}, oracle {value}")
             oracle_checked += 1
     del dp_sets
+    # Pairs at each boundary of the alignment kernel's lane groups and
+    # strips: a batch per (lanes a pair, strip height), set by its number of
+    # pairs and its longest a, the lengths of a at each strip's and pass's
+    # edge (the last batch takes several passes).
+    align_shapes = []
+    for count, lens in ((6400, (1, 7, 8, 9, 63, 64, 65, 127, 128)), (3200, (7, 8, 9, 63, 64, 65, 100, 127, 128)),
+                        (3200, (15, 16, 17, 127, 128, 129, 255, 256)),
+                        (256, (31, 32, 33, 255, 256, 257, 511, 512, 513, 1024, 1025, 2049))):
+        a_t = [acgt[rng.integers(0, 4, lens[i % len(lens)])].tobytes() for i in range(count)]
+        b_t = [acgt[rng.integers(0, 4, int(rng.integers(0, 300)))].tobytes() for _ in range(count)]
+        ab = AF.affine_from_tokens(a_t, b_t, device=dev)
+        for go, ge, local in ((-5, -1, False), (-5, -1, True), (-2, -2, False), (-2, -2, True)):
+            key = "linear" if go == ge else "affine"
+            want = S._score_scan(ab.pairs, 2, -1, go, ge, local=local)
+            errors[key] = max(errors[key], max_err(AFC.align(ab, 2, -1, go, ge, local=local), want))
+        align_shapes.append((count, max(lens), ab.shape()))
     torch.cuda.synchronize()
     del big
 
@@ -762,16 +784,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     del cps
 
     # Fused scans: each kind both ways against the plain executor, at 128 Mi
-    # positions and across the kernel's segment seams, with bool and int8
-    # flags (set where > 0) of several densities.
-    seg = SLC.SEGMENT
+    # positions and across the seams of the kernel's tiles (1,024 to 8,192
+    # positions, by the program's on-chip streams), with bool and int8
+    # flags (set where > 0) of several densities; then every segmentation
+    # program both ways on random streams (the corpus's own streams are held
+    # in the tokenization path).
     scan_n = 128 << 20
     values = torch.randint(-1000, 1000, (scan_n,), dtype=torch.int32, device=dev, generator=g)
     flags_b = torch.rand(scan_n, device=dev, generator=g) < 0.05
     flags_i8 = torch.randint(-2, 3, (scan_n,), dtype=torch.int8, device=dev, generator=g)
     sparse = torch.rand(scan_n, device=dev, generator=g) < 1e-4
-    scan_checks = 0
-    for n_scan in (1, seg - 1, seg, seg + 1, 3 * seg + 7, 40 * seg + 3, scan_n):
+    scan_checks = program_checks = 0
+    seams = sorted({k * t + d for t in (2048, 4096, 8192) for k, d in ((1, -1), (1, 0), (1, 1), (3, 7))} | {1, 40 * 8192 + 3})
+    for n_scan in seams + [scan_n]:
         for flags in (flags_b, flags_i8, sparse) if n_scan < scan_n else (flags_b,):
             streams = {"v": values[:n_scan], "f": flags[:n_scan]}
             for reverse in (False, True):
@@ -783,6 +808,22 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                         errors["fused_scan"] = max(errors["fused_scan"], max_err(got[key], want[key]))
                     scan_checks += 1
     del values, flags_b, flags_i8, sparse, streams, got, want
+    program_inputs = {
+        name: torch.rand(4 << 20, device=dev, generator=g) < 0.3 for name in SEG_BOOL_STREAMS
+    }
+    program_inputs.update({
+        name: torch.randint(-9, 24, (4 << 20,), dtype=torch.int32, device=dev, generator=g) for name in SEG_INT_STREAMS
+    })
+    for n_scan in seams + [4 << 20]:
+        cut = {k: v[:n_scan] for k, v in program_inputs.items()}
+        for ops in segment_programs(SEG):
+            for reverse in (False, True):
+                got = SL.fused_scan(cut, ops, n_scan, reverse=reverse)
+                want = SL.fused_scan_plain(cut, ops, n_scan, reverse=reverse)
+                for key in want:
+                    errors["fused_scan"] = max(errors["fused_scan"], max_err(got[key], want[key]))
+                program_checks += 1
+    del program_inputs, cut, got, want
 
     # UAX#14 rules on random class streams (classes from the continuation
     # sentinel -9 to the last class; every (prev, eff) and (before_sp, eff)
@@ -1044,9 +1085,12 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views, 4 DP batches of "
         f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
-        f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; {mp_oracle} small multi-pattern cases "
+        f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; alignment batches at the edges of "
+        f"the kernel's lane groups and strips, (pairs, longest a, (lanes, rows)): {align_shapes}; "
+        f"{mp_oracle} small multi-pattern cases "
         f"equal brute force; class maps over 8 segmentation tables, pruned and whole, and two "
-        f"int32 tables; {scan_checks} fused scans of the kinds {SCAN_KINDS} up to {scan_n:,} positions; the UAX#14 "
+        f"int32 tables; {scan_checks} fused scans of the kinds {SCAN_KINDS} up to {scan_n:,} positions, "
+        f"{program_checks} of the 8 segmentation programs on random streams of 1 to {4 << 20:,} positions; the UAX#14 "
         f"rules over {lb_n:,} random positions covering every pair of classes; {expand_checks} expand-and-compact "
         f"batches (UTF-8 rows of 32 and 64, naughty and random bytes, codepoint rows under 3 tables, max_exp 1..4); "
         f"range maps of {len(fold_rules)} fold rule sets and a fully pruned one; {window_checks} window counts at "
@@ -1243,6 +1287,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         staged = ctx.staged
         if staged["batch"].device.type != "cuda":
             raise AssertionError(f"the similarities suite ran on {staged['batch'].device}")
+        sim_keep["batch"] = staged["batch"]
         pairs = list(zip(staged["pairs_a"][:8], staged["pairs_b"][:8]))
         oracles = {
             "levenshtein": [S.levenshtein_ref(x, y) for x, y in pairs],
@@ -1311,6 +1356,29 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             "find-nth-utf8/swtorch::find_nth": int(np.flatnonzero(lead)[-1]),
         }
         plain = {row: int(value) for row, value in plain.items()}
+        # Every segmentation program on the corpus's own streams: each
+        # fused_scan call of the five functions (one launch of the scan
+        # kernel, its builds inside) against the plain executor on the card.
+        programs_seen = []
+
+        def held(inputs, ops, n_scan, *, reverse=False, outputs=None):
+            got = SL.fused_scan(inputs, ops, n_scan, reverse=reverse, outputs=outputs)
+            want = SL.fused_scan_plain(inputs, ops, n_scan, reverse=reverse, outputs=outputs)
+            for key in want:
+                errors["fused_scan"] = max(errors["fused_scan"], max_err(got[key], want[key]))
+            programs_seen.append(len(ops))
+            return got
+
+        SEG.fused_scan = held
+        try:
+            for fn in (SEG.whitespace_token_count, SEG.grapheme_boundaries, SEG.word_boundaries,
+                       SEG.sentence_boundaries, SEG.linebreak_opportunities):
+                fn(data, n, max_cp=mcp)
+        finally:
+            SEG.fused_scan = SL.fused_scan
+        if errors["fused_scan"] or len(programs_seen) != 8:
+            raise AssertionError(f"scan programs on the corpus: {len(programs_seen)} calls, error {errors['fused_scan']}")
+        torch.cuda.empty_cache()
         for counter in counters:
             counter.update({k: suite_launches[k] for k in counter})
         if counts != plain or counts["tokenize-whitespace/swtorch::split"] != len(text.split()):
@@ -1345,6 +1413,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             f"tokenization suite: {n:,} B of synthetic:multilingual (max_cp {mcp:#x}; synthesized by the child process, "
             f"waited {synthesized:.1f} s) on {dev}; every segmentation count equals the plain feature route on the card, "
             f"the whitespace count len(text.split()), the newline count the host's, the UTF-8 counts len(decode()): {counts}; "
+            f"the 8 scan programs ({programs_seen} ops) on the corpus's streams equal the plain executor on the card; "
             f"BPE ids of all {len(pretokens):,} rows ({int(counts_h.sum()):,} ids) equal bpe_encode_plain on the card, "
             f"2,000 sampled rows bpe_encode_ref; launches of the suite's run {launches()}",
             started,
@@ -1497,6 +1566,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path
     norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
     tok_keep: dict = {}  # the tokenization suite's BPE batch and decoded text, for the rows phase
+    sim_keep: dict = {}  # the similarities suite's pairs, for the rows phase
     hash_keep: dict = {}  # the hash suite's buckets, for the rows phase
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
@@ -1705,11 +1775,12 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             bound_ms(in_bytes, myers_instructions(mb)), key, plain_samples=1, cells=mb.cells())
 
     def align_row(name, ab, go, ge, local, key=None):
-        in_bytes = (ab.a_cols.numel() + ab.b_cols.numel()) * 4 + 12 * ab.count
+        in_bytes = (ab.pairs.a.numel() + ab.pairs.b.numel()) * 4 + 12 * ab.count
         per_cell = ALIGN_OPS[("linear" if go == ge else "affine", local)]
         row(name, lambda: AFC.align(ab, 2, -1, go, ge, local=local),
             lambda: S._score_scan(ab.pairs, 2, -1, go, ge, local=local), in_bytes,
-            bound_ms(in_bytes, per_cell * ab.cells()), key, plain_samples=1, cells=ab.cells())
+            bound_ms(in_bytes, per_cell * ab.cells()), key, plain_samples=1, cells=ab.cells(),
+            note=f", (lanes a pair, strip rows) {ab.shape()}")
 
     myers_row("lev-myers-64kx256B", MY.MyersBatch.from_arrays(ca, cb, full, full, nbits=MY.BYTE_BITS, device=dev), "myers")
     reads = [acgt[dp_rng.integers(0, 4, width)].tobytes() for _ in range(64)]
@@ -1718,10 +1789,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         MY.myers_from_tokens([reads[i % 64] for i in range(pairs)], [reads[(i * 7 + 1) % 64] for i in range(pairs)], device=dev),
     )
     gotoh = AF.AffineBatch.from_pairs(S.PairBatch.from_numpy(ca, cb, full, full, device=dev))
-    align_row("nw-affine-64kx256B", gotoh, -5, -1, False, "affine")
+    align_row("nw-affine-64kx256B", gotoh, -5, -1, False)
     align_row("sw-affine-64kx256B", gotoh, -5, -1, True)
-    align_row("nw-linear-64kx256B", gotoh, -2, -2, False, "linear")
+    align_row("nw-linear-64kx256B", gotoh, -2, -2, False)
     del gotoh, ca, cb
+    # The similarities suite's own batch (the main path's shape: 4,096 pairs
+    # of synthetic:dna-100b lines), each body global and local: the rows
+    # that the kernels line's affine and linear entries take.
+    suite_pairs = AF.AffineBatch.from_pairs(sim_keep["batch"])
+    align_row(f"nw-affine-suite-{suite_pairs.count}x100B", suite_pairs, -5, -1, False, "affine")
+    align_row(f"sw-affine-suite-{suite_pairs.count}x100B", suite_pairs, -5, -1, True)
+    align_row(f"nw-linear-suite-{suite_pairs.count}x100B", suite_pairs, -2, -2, False, "linear")
+    align_row(f"sw-linear-suite-{suite_pairs.count}x100B", suite_pairs, -2, -2, True)
+    del suite_pairs
 
     # The reference's own H100 cell (BASELINE.md:52,55-57): 1 KB ACGT reads
     # (synthetic:dna lines) at its GPU batch, side = round(sqrt(132 SMs x
@@ -1755,6 +1835,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     del raw
     mcp = tok_suite._cp_ceiling(int(text.max()))
     new_kernels = {"class_map": "class_map_kernel", "fused_scan": "scan_", "lb_rules": "lb_rules_kernel"}
+    # The scan programs each function runs, one launch each.
+    scan_calls = {"whitespace": ["ws"], "graphemes": ["graph"], "words": ["fwd", "bwd"], "sentences": ["fwd", "bwd"],
+                  "linebreaks": ["fwd", "bwd"]}
     for name, fn in (
         ("whitespace", SEG.whitespace_token_count),
         ("graphemes", SEG.grapheme_boundaries),
@@ -1768,12 +1851,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         torch.cuda.synchronize()
         per_call = {k: v for k, v in {**LU.LAUNCHES, **SLC.LAUNCHES}.items() if v}
         split = device_breakdown(call, {k: v for k, v in new_kernels.items() if k in per_call})
-        builds = range_device_ms(call, SL.BUILD_RANGE)
-        if split is None or builds is None:
-            detail = f"not measured (no profiler trace in {TRACES} saw every kernel and the build range)"
+        # The builds run inside the scan kernel: no build range, no torch op.
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            call()
+            torch.cuda.synchronize()
+        if any(e.name == SL.BUILD_RANGE for e in prof.events()):
+            raise AssertionError(f"tokenize-{name}: a build ran as torch ops ({SL.BUILD_RANGE}) on the card")
+        if per_call.get("fused_scan", 0) != len(scan_calls[name]):
+            raise AssertionError(f"tokenize-{name}: {per_call} launches, {len(scan_calls[name])} scan programs")
+        if split is None:
+            detail = f"not measured (no profiler trace in {TRACES} saw every kernel)"
         else:
-            split["builds"] = builds
-            split["other torch"] = split.pop("torch") - builds
+            split["builds"] = 0.0
+            split["other torch"] = split.pop("torch")
             detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         row(f"tokenize-{name}-128MB", call, lambda fn=fn: fn(text, text_n, max_cp=mcp, scanline=False), text_n,
             bound_ms(text_n), plain_samples=1, note=f"; launches per call {per_call}; device ms per call: {detail}")
@@ -1800,7 +1890,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         library = {"sum": lambda: torch.cumsum(cls, 0, dtype=torch.int32), "max": lambda: torch.cummax(cls, 0)}.get(scan_kind)
         row(f"fused_scan-{scan_kind}-128MB", lambda ops=ops: tuple(SL.fused_scan(streams, ops, n_cp).values()),
             lambda ops=ops: tuple(SL.fused_scan_plain(streams, ops, n_cp).values()), moved, bound_ms(moved),
-            "fused_scan" if scan_kind == "sum" else None, library=library, plain_samples=1, profiled="scan_", per_call=True)
+            "fused_scan" if scan_kind == "sum" else None, library=library, plain_samples=1, profiled="scan_")
     del cls, streams
     lb_cls = SEG._lb_classes(cps, lead, mcp)
     cm = (lb_cls == SEG._L["CM"]) | (lb_cls == SEG._L["ZWJ"])

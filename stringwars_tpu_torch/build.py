@@ -46,14 +46,14 @@ SIGNATURES = {
     "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _N, _P, _P, _P),
     "sw_lut_translate": (_P, _N, _P, _P, _P),
     "sw_myers": (_P, _N, _P, _P, _P, _N, _P, _P, _P),
-    "sw_align": (_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P, _P),
+    "sw_align": (_P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P),
     "sw_ac_count": (_P, _N, _P, _N, _P, _N, _N, _N, _P, _P),
     "sw_shiftand": (_P, _N, _P, _N, _N, _N, _P, _P),
     "sw_class_map": (_P, _N, _P, _N, _N, _P, _P),
     "sw_range_map": (_P, _N, _P, _N, _N, _P, _P),
     "sw_expand": (_P, _N, _N, _N, _P, _P, _P, _P, _N, _N, _P, _P, _P),
     "sw_cp_window": (_P, _N, _P, _N, _P, _P),
-    "sw_fused_scan": (_P, _N, _N, _N, _P, _N, _P),
+    "sw_fused_scan": (_P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _N, _N, _P),
     "sw_lb_rules": (_P, _N, _P, _P),
     "sw_bpe": (_P, _N, _N, _P, _P, _N, _N, _P, _P, _P),
     "sw_threefry_bits": (_N, _N, _N, _P, _P),

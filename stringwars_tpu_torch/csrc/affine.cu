@@ -24,130 +24,208 @@
 //     H_diag + s) (3);
 //   local linear 6: the floor fused as __viaddmax_s32_relu, plus the
 //     running maximum (1).
-// This kernel does not use DPX yet: its separate adds and maxes take about
-// 11, 13, 6 and 8. The DP matrices never reach device memory whole. The
-// design:
+// The kernel uses exactly these forms. The DP matrices never reach device
+// memory. The design:
 //
-// - One thread per pair, pairs on consecutive threads; the characters are
-//   staged transposed (int32[L, B]) so every load of a warp is one
-//   coalesced 128-byte row. Each thread loops to its own pair's |a| and |b|,
-//   so the TPU's sentinel algebra (fake cells outside each pair's
-//   rectangle, affine_pallas.py:108-113, :175-184) is not needed: no cell
-//   outside the rectangle is ever computed.
-// - Row strips instead of the TPU's anti-diagonal: a thread holds a strip of
-//   kRows = 16 rows of H and Z (and the strip's a chars) in registers and
-//   sweeps every column of b, reading the row above the strip (H and V) from
-//   a per-pair scratch row and writing the strip's bottom row back in its
-//   place. The scratch costs 8 bytes read and written per column and strip,
-//   half a byte per cell; the anti-diagonal was the TPU's way to vectorize
-//   inside a pair, and the GPU vectorizes across pairs instead.
+// - A lane group per pair: 8, 16 or 32 lanes of a warp (`group`, chosen by
+//   the wrapper from the batch's longest a and its number of pairs, so that
+//   small batches still put enough warps on each SM). Lane l holds a strip
+//   of R = ceil(|a| / group) rows of a (at most kRows = 8 or 16, which
+//   keeps two blocks of 8 warps an SM in registers) with their H and Z.
+// - The group sweeps b as a wavefront: at step s, lane l computes column
+//   s - l of its strip, so a pair of |b| columns takes |b| + group - 1
+//   steps. The strip's bottom H and V (and the column's b char) pass to the
+//   next lane by __shfl_up_sync; lane 0 takes each b char from a chunk that
+//   the group loads one chunk ahead. Pairs of different lengths run their
+//   own loops: the shuffles name the group's lanes only.
+// - A pair longer than group * kRows rows takes several passes; the last
+//   lane of a pass leaves its bottom H and V per column in a scratch row
+//   that lane 0 of the next pass reads (one chunk ahead, as the b chars).
 // - NEG = -(1 << 20) stands for minus infinity (V above row 1, Z left of
-//   column 1): one gap cost is ever added to it, and scores of 1 KB x 1 KB
-//   stay within +-2^12.
+//   column 1): one gap cost is ever added to it, and scores of a few KB
+//   stay within +-2^14.
+// - The local score is each lane's running maximum, reduced over the group
+//   with __reduce_max_sync.
 #include "common.cuh"
 
 namespace swt {
 
 constexpr int kNeg = -(1 << 20);
-constexpr int kRows = 16;
+constexpr int kAlignThreads = 256;
 
-template <bool kLocal, bool kAffine>
-__global__ void __launch_bounds__(128)
-align_kernel(const int32_t* __restrict__ a_cols, const int32_t* __restrict__ b_cols, const int32_t* __restrict__ a_len,
-             const int32_t* __restrict__ b_len, int64_t pairs, int match, int mismatch, int go, int ge,
-             int32_t* __restrict__ row_h, int32_t* __restrict__ row_v, int32_t* __restrict__ out) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
-  const int alen = a_len[p], blen = b_len[p];
-  // H of a gap of n chars along row 0 or column 0; 0 in the local score.
-  auto edge = [&](int n) { return (kLocal || n == 0) ? 0 : go + (n - 1) * ge; };
-  if (alen <= 0 || blen <= 0) {
-    out[p] = edge(max(alen, 0) + max(blen, 0));
+template <bool kLocal, bool kAffine, int kRows>
+__global__ void __launch_bounds__(kAlignThreads, 2)
+align_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int64_t width,
+             const int32_t* __restrict__ a_len, const int32_t* __restrict__ b_len, int64_t pairs, int group, int match,
+             int mismatch, int go, int ge, int32_t* __restrict__ scratch, int32_t* __restrict__ out) {
+  const int64_t thread = static_cast<int64_t>(blockIdx.x) * kAlignThreads + threadIdx.x;
+  const int64_t p = thread / group;
+  if (p >= pairs) return;  // whole groups: group divides kAlignThreads
+  const int lane = static_cast<int>(threadIdx.x) & (group - 1);
+  const int warp_lane = static_cast<int>(threadIdx.x) & 31;
+  const unsigned mask = group == 32 ? 0xffffffffu : ((1u << group) - 1u) << (warp_lane & ~(group - 1));
+  const int m = a_len[p], n = b_len[p];
+  // H of a gap of k chars along row 0 or column 0; 0 in the local score.
+  auto edge = [&](int k) { return (kLocal || k == 0) ? 0 : go + (k - 1) * ge; };
+  if (m <= 0 || n <= 0) {
+    if (lane == 0) out[p] = edge(max(m, 0) + max(n, 0));
     return;
   }
-  int32_t* hrow = row_h + p;  // column j of the row above the current strip at [j * pairs]
-  int32_t* vrow = row_v + p;
-  for (int j = 1; j <= blen; ++j) {
-    hrow[static_cast<int64_t>(j) * pairs] = edge(j);
-    if (kAffine) vrow[static_cast<int64_t>(j) * pairs] = kNeg;
-  }
+  const int32_t* ap = a + p * width;
+  const int32_t* bp = b + p * width;
+  int32_t* top = scratch ? scratch + p * 2 * (width + 1) : nullptr;  // H, V of a pass's bottom row, per column
+  const int rows_per_lane = min(kRows, (m + group - 1) / group);
+  const int pass_rows = rows_per_lane * group;
   int best = 0;
-  for (int i0 = 1; i0 <= alen; i0 += kRows) {
-    const int rows = min(kRows, alen - i0 + 1);
-    int ach[kRows], left_h[kRows], left_z[kRows];
+  for (int i0 = 0; i0 < m; i0 += pass_rows) {
+    const int first = i0 + lane * rows_per_lane;  // rows first + 1 .. first + rows
+    const int rows = max(0, min(rows_per_lane, m - first));
+    const bool last_pass = i0 + pass_rows >= m;
+    // Every lane of the group holds a whole strip: its cells need no row
+    // guard (decided for the group, so that its lanes never diverge on it).
+    const bool whole = __all_sync(mask, rows == kRows);
+    int ach[kRows], hl[kRows], zl[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      ach[r] = r < rows ? a_cols[static_cast<int64_t>(i0 - 1 + r) * pairs + p] : -1;
-      left_h[r] = edge(i0 + r);  // H[i][0]
-      left_z[r] = kNeg;          // Z[i][0]
+      ach[r] = r < rows ? ap[first + r] : -1;
+      hl[r] = edge(first + r + 1);  // H[i][0]
+      zl[r] = kNeg;                 // Z[i][0]
     }
-    int diag_top = edge(i0 - 1);  // H[i0-1][j-1], starting at column 0
-    for (int j = 1; j <= blen; ++j) {
-      const int64_t at = static_cast<int64_t>(j) * pairs;
-      const int c = b_cols[static_cast<int64_t>(j - 1) * pairs + p];
-      int up_h = hrow[at];
-      int up_v = kAffine ? vrow[at] : 0;
-      int dh = diag_top;
-      diag_top = up_h;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const int s = ach[r] == c ? match : mismatch;
+    int diag_top = edge(first);  // H[first][j - 1], from column 0
+    // Column chunks of `group`: the b chars (and, after the first pass, the
+    // row above the pass) that lane 0 reads, loaded one chunk ahead.
+    auto load_chunk = [&](int c0, int& ch, int& th, int& tv) {
+      const int j = c0 + lane;
+      ch = j < n ? bp[j] : 0;
+      if (i0 > 0) {
+        th = j < n ? top[2 * (j + 1)] : 0;
+        tv = j < n ? top[2 * (j + 1) + 1] : 0;
+      }
+    };
+    int cur_c, cur_h = 0, cur_v = 0, next_c, next_h = 0, next_v = 0;
+    load_chunk(0, cur_c, cur_h, cur_v);
+    load_chunk(group, next_c, next_h, next_v);
+    __syncwarp(mask);
+    int out_h = 0, out_v = kNeg, out_c = 0;
+    const int steps = n + group - 1;
+    for (int s = 0; s < steps; ++s) {
+      const int at = s & (group - 1);
+      int up_h = __shfl_up_sync(mask, out_h, 1, group);
+      int up_v = __shfl_up_sync(mask, out_v, 1, group);
+      int c = __shfl_up_sync(mask, out_c, 1, group);
+      const int c0 = __shfl_sync(mask, cur_c, at, group);
+      int h0 = 0, v0 = 0;
+      if (i0 > 0) {
+        h0 = __shfl_sync(mask, cur_h, at, group);
+        v0 = __shfl_sync(mask, cur_v, at, group);
+      }
+      if (at == group - 1) {  // the next chunk becomes current; load the one after
+        cur_c = next_c;
+        cur_h = next_h;
+        cur_v = next_v;
+        load_chunk(s + 1 + group, next_c, next_h, next_v);
+      }
+      const int j = s - lane;  // this lane's column, 0-based
+      if (lane == 0) {
+        c = c0;
+        up_h = i0 > 0 ? h0 : edge(j + 1);
+        up_v = i0 > 0 ? v0 : kNeg;
+      }
+      if (j >= 0 && j < n && rows > 0) {
+        int dh = diag_top;
+        diag_top = up_h;
+        // One cell of the column, row r of the strip.
+        auto cell = [&](int r) {
+          const int sub = ach[r] == c ? match : mismatch;
           int h;
           if (kAffine) {
-            const int v = max(up_h + go, up_v + ge);
-            const int z = max(left_h[r] + go, left_z[r] + ge);
-            h = max(max(v, z), dh + s);
-            left_z[r] = z;
+            const int v = __viaddmax_s32(up_h, go, up_v + ge);
+            const int z = __viaddmax_s32(hl[r], go, zl[r] + ge);
+            h = kLocal ? __vimax3_s32_relu(v, z, dh + sub) : __vimax3_s32(v, z, dh + sub);
+            zl[r] = z;
             up_v = v;
           } else {
-            h = max(dh + s, max(up_h, left_h[r]) + go);
+            const int h_in = max(up_h, hl[r]);
+            h = kLocal ? __viaddmax_s32_relu(h_in, go, dh + sub) : __viaddmax_s32(h_in, go, dh + sub);
           }
-          if (kLocal) {
-            h = max(h, 0);
-            best = max(best, h);
-          }
-          dh = left_h[r];
-          left_h[r] = h;
+          if (kLocal) best = max(best, h);
+          dh = hl[r];
+          hl[r] = h;
           up_h = h;
+        };
+        if (whole) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) cell(r);
+        } else {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            if (r < rows) cell(r);
+          }
         }
+        if (!last_pass && lane == group - 1) {
+          top[2 * (j + 1)] = up_h;
+          top[2 * (j + 1) + 1] = up_v;
+        }
+        if (!kLocal && last_pass && first + rows == m && j == n - 1) out[p] = up_h;
       }
-      hrow[at] = up_h;
-      if (kAffine) vrow[at] = up_v;
+      out_h = up_h;
+      out_v = up_v;
+      out_c = c;
     }
+    __syncwarp(mask);  // the pass's bottom row is in scratch for the next
   }
-  out[p] = kLocal ? best : hrow[static_cast<int64_t>(blen) * pairs];
+  if (kLocal) {
+    best = __reduce_max_sync(mask, best);
+    if (lane == 0) out[p] = best;
+  }
 }
 
 template <bool kLocal, bool kAffine>
-int launch_align(const void* a_cols, const void* b_cols, const void* a_len, const void* b_len, int64_t pairs, int match,
-                 int mismatch, int go, int ge, void* row_h, void* row_v, void* out, cudaStream_t stream) {
-  const int threads = pair_threads(pairs);
-  const auto blocks = static_cast<unsigned>((pairs + threads - 1) / threads);
-  align_kernel<kLocal, kAffine><<<blocks, threads, 0, stream>>>(
-      static_cast<const int32_t*>(a_cols), static_cast<const int32_t*>(b_cols), static_cast<const int32_t*>(a_len),
-      static_cast<const int32_t*>(b_len), pairs, match, mismatch, go, ge, static_cast<int32_t*>(row_h),
-      static_cast<int32_t*>(row_v), static_cast<int32_t*>(out));
+int launch_align(const void* a, const void* b, int64_t width, const void* a_len, const void* b_len, int64_t pairs,
+                 int group, int rows, int match, int mismatch, int go, int ge, void* scratch, void* out,
+                 cudaStream_t stream) {
+  const int64_t threads = pairs * group;
+  const auto blocks = static_cast<unsigned>((threads + kAlignThreads - 1) / kAlignThreads);
+  const auto* A = static_cast<const int32_t*>(a);
+  const auto* B = static_cast<const int32_t*>(b);
+  const auto* AL = static_cast<const int32_t*>(a_len);
+  const auto* BL = static_cast<const int32_t*>(b_len);
+  auto* S = static_cast<int32_t*>(scratch);
+  auto* O = static_cast<int32_t*>(out);
+  if (rows == 8) {
+    align_kernel<kLocal, kAffine, 8><<<blocks, kAlignThreads, 0, stream>>>(A, B, width, AL, BL, pairs, group, match,
+                                                                            mismatch, go, ge, S, O);
+  } else {
+    align_kernel<kLocal, kAffine, 16><<<blocks, kAlignThreads, 0, stream>>>(A, B, width, AL, BL, pairs, group, match,
+                                                                             mismatch, go, ge, S, O);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace swt
 
-// Alignment score of `pairs` pairs. a_cols, b_cols: int32[L, pairs] with L
-// >= every |a| and |b|; a_len, b_len: int32[pairs]; row_h and row_v: int32
-// scratch of (L + 1) * pairs each (row_v unused by the linear body); out:
+// Alignment score of `pairs` pairs. a, b: int32[pairs, width] (the pairs'
+// own rows, every |a|, |b| <= width); a_len, b_len: int32[pairs]; group:
+// lanes per pair (8, 16 or 32); rows: the kernel's strip height kRows (8
+// or 16; a lane holds min(rows, ceil(|a| / group)) rows); scratch: int32
+// of 2 * (width + 1) per pair where some |a| > group * rows, else null; out:
 // int32[pairs]. affine != 0 takes the Gotoh body, 0 the linear one (which
 // reads gap_open only); local != 0 gives Smith-Waterman.
-extern "C" int sw_align(const void* a_cols, const void* b_cols, const void* a_len, const void* b_len, int64_t pairs,
-                        int64_t match, int64_t mismatch, int64_t gap_open, int64_t gap_extend, int64_t affine,
-                        int64_t local, void* row_h, void* row_v, void* out, void* stream) {
+extern "C" int sw_align(const void* a, const void* b, int64_t width, const void* a_len, const void* b_len,
+                        int64_t pairs, int64_t group, int64_t rows, int64_t match, int64_t mismatch, int64_t gap_open,
+                        int64_t gap_extend, int64_t affine, int64_t local, void* scratch, void* out, void* stream) {
+  if (pairs <= 0 || width <= 0 || (group != 8 && group != 16 && group != 32) || (rows != 8 && rows != 16) ||
+      !a || !b || !a_len || !b_len || !out) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(group), r = static_cast<int>(rows);
   const int mt = static_cast<int>(match), mm = static_cast<int>(mismatch);
   const int go = static_cast<int>(gap_open), ge = static_cast<int>(gap_extend);
   if (affine) {
-    return local ? swt::launch_align<true, true>(a_cols, b_cols, a_len, b_len, pairs, mt, mm, go, ge, row_h, row_v, out, s)
-                 : swt::launch_align<false, true>(a_cols, b_cols, a_len, b_len, pairs, mt, mm, go, ge, row_h, row_v, out, s);
+    return local ? swt::launch_align<true, true>(a, b, width, a_len, b_len, pairs, g, r, mt, mm, go, ge, scratch, out, s)
+                 : swt::launch_align<false, true>(a, b, width, a_len, b_len, pairs, g, r, mt, mm, go, ge, scratch, out, s);
   }
-  return local ? swt::launch_align<true, false>(a_cols, b_cols, a_len, b_len, pairs, mt, mm, go, ge, row_h, row_v, out, s)
-               : swt::launch_align<false, false>(a_cols, b_cols, a_len, b_len, pairs, mt, mm, go, ge, row_h, row_v, out, s);
+  return local ? swt::launch_align<true, false>(a, b, width, a_len, b_len, pairs, g, r, mt, mm, go, ge, scratch, out, s)
+               : swt::launch_align<false, false>(a, b, width, a_len, b_len, pairs, g, r, mt, mm, go, ge, scratch, out, s);
 }

@@ -2,10 +2,12 @@
 
 The counterpart of ``stringwars_tpu.ops.affine_pallas._affine``, with its
 two bodies: Gotoh affine (three DP matrices) and linear (one), each global
-or local. The wrapper checks the staged batch, allocates the output and the
-kernel's scratch rows, launches on PyTorch's current stream without
-synchronizing, raises on a CUDA launch error, and adds one to the entry of
-``LAUNCHES`` of the body it ran. A CPU batch raises: the plain version is
+or local. The wrapper checks the staged batch, picks the kernel's lanes per
+pair and strip height (``AffineBatch.shape``), allocates the output and,
+for pairs that take several passes, the scratch row between passes,
+launches on PyTorch's current stream without synchronizing, raises on a
+CUDA launch error, and adds one to the entry of ``LAUNCHES`` of the body it
+ran. A CPU batch raises: the plain version is
 ``ops/similarity._score_scan``.
 """
 
@@ -21,21 +23,23 @@ LAUNCHES = {"affine": 0, "linear": 0}
 
 
 def _check(batch: AffineBatch) -> None:
-    a_cols, b_cols = batch.a_cols, batch.b_cols
-    if a_cols.device.type != "cuda":
-        raise ValueError(f"align: the CUDA kernel needs a CUDA tensor, got {a_cols.device}")
+    a, b = batch.pairs.a, batch.pairs.b
+    if a.device.type != "cuda":
+        raise ValueError(f"align: the CUDA kernel needs a CUDA tensor, got {a.device}")
     B = batch.count
-    for name, t in (("a_cols", a_cols), ("b_cols", b_cols)):
-        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != B or not t.is_contiguous():
-            raise ValueError(f"align: {name} must be a contiguous int32[L, {B}], got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape != a.shape or not t.is_contiguous():
+            raise ValueError(
+                f"align: pairs.{name} must be a contiguous int32[{B}, L], got {t.dtype} {tuple(t.shape)}"
+            )
     for name, t in (("a_len", batch.pairs.a_len), ("b_len", batch.pairs.b_len)):
         if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
             raise ValueError(f"align: {name} must be a contiguous int32[{B}] tensor")
-    for t in (b_cols, batch.pairs.a_len, batch.pairs.b_len):
-        if t.device != a_cols.device:
-            raise ValueError(f"align: batch tensors on {t.device} and {a_cols.device}")
-    if B and (batch.host_a_len.max() > a_cols.shape[0] or batch.host_b_len.max() > b_cols.shape[0]):
-        raise ValueError("align: a pair is longer than its staged columns")
+    for t in (b, batch.pairs.a_len, batch.pairs.b_len):
+        if t.device != a.device:
+            raise ValueError(f"align: batch tensors on {t.device} and {a.device}")
+    if B and (batch.host_a_len.max() > a.shape[1] or batch.host_b_len.max() > a.shape[1]):
+        raise ValueError("align: a pair is longer than its staged rows")
 
 
 def align(batch: AffineBatch, match: int, mismatch: int, gap_open: int, gap_extend: int, *, local: bool) -> torch.Tensor:
@@ -47,15 +51,17 @@ def align(batch: AffineBatch, match: int, mismatch: int, gap_open: int, gap_exte
     out = torch.empty(B, dtype=torch.int32, device=batch.device)
     if B == 0:
         return out
-    rows = (batch.b_cols.shape[0] + 1) * B
-    row_h = torch.empty(rows, dtype=torch.int32, device=batch.device)
-    row_v = torch.empty(rows if body == "affine" else 1, dtype=torch.int32, device=batch.device)
+    group, rows = batch.shape()
+    width = batch.pairs.a.shape[1]
+    scratch = None
+    if batch.host_a_len.max() > group * rows:  # several passes: the row between them
+        scratch = torch.empty(B * 2 * (width + 1), dtype=torch.int32, device=batch.device)
     lib = build.library()
     with torch.cuda.device(batch.device):
         code = lib.sw_align(
-            batch.a_cols.data_ptr(), batch.b_cols.data_ptr(), batch.pairs.a_len.data_ptr(),
-            batch.pairs.b_len.data_ptr(), B, int(match), int(mismatch), int(gap_open), int(gap_extend),
-            int(body == "affine"), int(local), row_h.data_ptr(), row_v.data_ptr(), out.data_ptr(),
+            batch.pairs.a.data_ptr(), batch.pairs.b.data_ptr(), width, batch.pairs.a_len.data_ptr(),
+            batch.pairs.b_len.data_ptr(), B, group, rows, int(match), int(mismatch), int(gap_open), int(gap_extend),
+            int(body == "affine"), int(local), 0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
             build.stream_of(out),
         )
     build.check(code, body)

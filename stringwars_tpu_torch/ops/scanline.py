@@ -9,15 +9,16 @@ the program's input streams and the outputs of earlier ops.
 
 ``fused_scan(inputs, ops, n, reverse=...)`` runs a program. The TPU runs a
 whole program in one Pallas pass over a grid that runs in order, carrying
-each op's state from tile to tile. Here the program runs in stages: the
-builds are torch elementwise ops (each in the profiler range
-``BUILD_RANGE``, so a trace separates them), and the scans of every op whose build
-does not read a pending op's output go through one call of a group
-executor. On a CUDA tensor the executor is the kernel ``csrc/scanline.cu``
-(``ops/scanline_cuda.fused_scan_group``: carries across blocks by
-reduce-then-scan); on a CPU tensor it is ``scan_group_plain`` below
+each op's state from tile to tile. On a CUDA tensor so does the kernel
+``csrc/scanline.cu``: one launch a call, the builds lowered to its IR
+(``ops/scanline_ir.py``) and evaluated inside it, the carries found by a
+decoupled look-back (``ops/scanline_cuda.fused_scan_kernel``). On a CPU
+tensor the plain executor runs it: ``run_program`` calls the builds as torch
+elementwise ops (each in the profiler range ``BUILD_RANGE``) and hands every
+group of ops whose builds read no pending output to ``scan_group_plain``
 (cumulative sums and maxima, and gathers at the last flagged index).
-``fused_scan_plain`` takes the plain executor on any device.
+``fused_scan_plain`` takes the plain executor on any device: it is the
+comparison for the kernel on the card.
 
 ``elementwise_map(inputs, fn, n)`` evaluates a rule function over named
 streams. On the CPU it runs ``fn`` on the whole tensors, as the JAX package
@@ -35,9 +36,9 @@ from typing import Callable
 import torch
 
 KINDS = ("sum", "max", "last", "last2", "delay", "id")
-MAX_GROUP = 8  # ops per kernel call (kMaxOps of csrc/scanline.cu)
-# The ``torch.profiler`` range around each op's build: the device time of
-# the builds, arithmetic the TPU kernel does inside its one pass.
+MAX_GROUP = 8  # ops per call of the plain group executor
+# The ``torch.profiler`` range around each op's build in the plain executor
+# (the kernel evaluates the builds inside its one pass, as the TPU's does).
 BUILD_RANGE = "scanline.build"
 
 
@@ -193,27 +194,42 @@ def scan_group_plain(group, n: int, reverse: bool) -> dict[str, torch.Tensor]:
     return out
 
 
-def fused_scan_plain(inputs: dict, ops: tuple[Op, ...], n: int, *, reverse: bool = False) -> dict[str, torch.Tensor]:
+def _only(result: dict[str, torch.Tensor], outputs) -> dict[str, torch.Tensor]:
+    """The outputs named in ``outputs`` (all of them for None)."""
+    if outputs is None:
+        return result
+    missing = set(outputs) - set(result)
+    if missing:
+        raise KeyError(f"fused_scan: no op makes the outputs {sorted(missing)}")
+    return {name: stream for name, stream in result.items() if name in set(outputs)}
+
+
+def fused_scan_plain(
+    inputs: dict, ops: tuple[Op, ...], n: int, *, reverse: bool = False, outputs=None
+) -> dict[str, torch.Tensor]:
     """``fused_scan`` by the plain executor, on any device."""
-    return run_program(inputs, ops, n, reverse, scan_group_plain)
+    return _only(run_program(inputs, ops, n, reverse, scan_group_plain), outputs)
 
 
-def fused_scan(inputs: dict, ops: tuple[Op, ...], n: int, *, reverse: bool = False) -> dict[str, torch.Tensor]:
+def fused_scan(
+    inputs: dict, ops: tuple[Op, ...], n: int, *, reverse: bool = False, outputs=None
+) -> dict[str, torch.Tensor]:
     """Run the program ``ops`` over streams of n positions.
 
-    ``inputs``: name -> stream (int32, int8, uint8 or bool; read up to n).
-    Returns name -> int32[n] for every op output. ``reverse=True`` computes
-    suffix scans ("next value"): position n - 1 comes first. On a CUDA
-    tensor the scans run in the kernel ``csrc/scanline.cu``; on a CPU tensor
-    in ``scan_group_plain``.
+    ``inputs``: name -> stream (bool or integer; read up to n). Returns name
+    -> int32[n] for every op output, or for those named in ``outputs`` (the
+    kernel then writes only those). ``reverse=True`` computes suffix scans
+    ("next value"): position n - 1 comes first. On a CUDA tensor the program
+    runs in one launch of the kernel ``csrc/scanline.cu``; on a CPU tensor in
+    the plain executor.
     """
     device = next(iter(inputs.values())).device
     if device.type == "cuda":
-        from stringwars_tpu_torch.ops.scanline_cuda import fused_scan_group
+        from stringwars_tpu_torch.ops.scanline_cuda import fused_scan_kernel
 
-        return run_program(inputs, ops, n, reverse, fused_scan_group)
+        return fused_scan_kernel(inputs, ops, n, reverse, outputs)
     if device.type == "cpu":
-        return run_program(inputs, ops, n, reverse, scan_group_plain)
+        return fused_scan_plain(inputs, ops, n, reverse=reverse, outputs=outputs)
     raise ValueError(f"fused_scan runs on CUDA or CPU tensors, not {device}")
 
 

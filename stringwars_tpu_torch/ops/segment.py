@@ -16,8 +16,8 @@ route on a card, the plain route on the CPU):
   ``_*_feats_xla``: each feature is its own torch scan (cumulative sums and
   maxima, gathers at the last flagged index);
 - the scan route (``_*_feats_scan``) runs the JAX package's op programs
-  through ``ops/scanline.fused_scan``: the CUDA kernel ``csrc/scanline.cu``
-  on a card.
+  through ``ops/scanline.fused_scan``: one launch of the CUDA kernel
+  ``csrc/scanline.cu`` a program on a card, naming the outputs it reads.
 
 The rule functions ``_graph_rules``, ``_word_rules`` and ``_sent_rules`` run
 as torch elementwise ops on both routes, as in the JAX package. The UAX#14
@@ -161,7 +161,7 @@ def whitespace_token_count(
     is_ws = _class_of(cp, "whitespace_table", max_cp) > 0
     tok = is_lead & ~is_ws
     if _use_scanline(scanline, data):
-        prev_tok = fused_scan({"tok": tok, "lead": is_lead}, _WS_OPS, n)["ptok"] > 0
+        prev_tok = fused_scan({"tok": tok, "lead": is_lead}, _WS_OPS, n, outputs=("ptok",))["ptok"] > 0
     else:
         prev_tok = _prev1(tok, is_lead, False)
     return _count(tok & ~prev_tok)
@@ -212,6 +212,19 @@ def _graph_feats_plain(cls, pict, incb, is_lead, n):
     }
 
 
+# The outputs of each program that its caller reads (``fused_scan``'s
+# ``outputs``: the kernel writes no other to device memory).
+_GRAPH_FEATS = (
+    "prev", "ri_run_prev", "pe_before_zwj", "ctl_prev", "incb_at_j", "cum_at_j", "linker_at_prev", "lead_ord",
+)
+_WORD_FEATS = ("prev_eff", "prev2_eff", "prev_raw", "prev_is_nl", "ri_run_prev_eff", "lead_ord")
+_SENT_FEATS = (
+    "effraw", "pk", "hk", "ctx_cls", "ctx9_cls", "prev_raw", "prev_eff", "prev2_eff", "prev_parasep", "lead_ord",
+)
+_LB_FEATS = (
+    "base_cls", "has_base", "hard_at_base", "prev_raw", "prev", "before_sp", "prev2", "ri_run_prev", "lead_ord",
+)
+
 _GRAPH_OPS = (
     Op("last", "lcls", lambda e: (e["cls"], e["lead"])),
     Op("delay", "prev", lambda e: e["lcls"]),
@@ -255,6 +268,7 @@ def _graph_feats_scan(cls, pict, incb, is_lead, n):
         },
         _GRAPH_OPS,
         n,
+        outputs=_GRAPH_FEATS,
     )
 
 
@@ -383,8 +397,9 @@ def _word_feats_scan(cls, keep, is_lead, newline, ri, basemask, n):
         {"cls": cls, "keep": keep, "lead": is_lead, "nl": newline, "ri": ri, "basemask": basemask},
         _WORD_OPS_FWD,
         n,
+        outputs=_WORD_FEATS,
     )
-    bwd = fused_scan({"cls": cls, "keep": keep}, _WORD_OPS_BWD, n, reverse=True)
+    bwd = fused_scan({"cls": cls, "keep": keep}, _WORD_OPS_BWD, n, reverse=True, outputs=("next_eff",))
     feats["next_eff"] = bwd["next_eff"]
     return feats
 
@@ -547,7 +562,9 @@ _SENT_OPS_BWD = (
 
 
 def _sent_feats_scan(cls, keep, is_lead, ign, parasep, n):
-    feats = fused_scan({"cls": cls, "keep": keep, "lead": is_lead, "ign": ign, "ps": parasep}, _SENT_OPS_FWD, n)
+    feats = fused_scan(
+        {"cls": cls, "keep": keep, "lead": is_lead, "ign": ign, "ps": parasep}, _SENT_OPS_FWD, n, outputs=_SENT_FEATS
+    )
     feats["eff"] = torch.where(ign & (feats["pk"] > 0) & (feats["hk"] > 0), _S["Other"], feats["effraw"])
     return feats
 
@@ -572,7 +589,9 @@ def sentence_boundaries(
         | parasep | (eff == S["ATerm"]) | (eff == S["STerm"])
     )
     if use_scan:
-        next_stop_cls = fused_scan({"eff": eff, "stop": stopper & is_lead}, _SENT_OPS_BWD, n, reverse=True)["next_stop_cls"]
+        next_stop_cls = fused_scan(
+            {"eff": eff, "stop": stopper & is_lead}, _SENT_OPS_BWD, n, reverse=True, outputs=("next_stop_cls",)
+        )["next_stop_cls"]
     else:
         next_stop_cls = _next_value(eff, stopper & is_lead, S["Other"])
     env = {"cls": cls, "lead": is_lead, "eff": eff, "next_stop_cls": next_stop_cls}
@@ -709,11 +728,15 @@ _LB_OPS_FWD, _LB_OPS_BWD = _lb_ops()
 
 def _lb_feats_scan(cls, cm, hard, base_mask, is_lead, n):
     L = _L
-    feats = fused_scan({"cls": cls, "cm": cm, "hard": hard, "basemask": base_mask, "lead": is_lead}, _LB_OPS_FWD, n)
+    feats = fused_scan(
+        {"cls": cls, "cm": cm, "hard": hard, "basemask": base_mask, "lead": is_lead}, _LB_OPS_FWD, n, outputs=_LB_FEATS
+    )
     attached = cm & (feats["has_base"] > 0) & (feats["hard_at_base"] == 0)
     feats["attached"] = attached
     feats["eff"] = torch.where(cm, torch.where(attached, feats["base_cls"], L["AL"]), cls)
-    feats["nxt"] = fused_scan({"eff": feats["eff"], "lead": is_lead}, _LB_OPS_BWD, n, reverse=True)["nxt"]
+    feats["nxt"] = fused_scan(
+        {"eff": feats["eff"], "lead": is_lead}, _LB_OPS_BWD, n, reverse=True, outputs=("nxt",)
+    )["nxt"]
     return feats
 
 

@@ -3,8 +3,10 @@
 The same pairs go through the JAX ``affine_scores(..., interpret=True)`` and
 the XLA ``similarity`` functions, and through the port's staging and
 ``affine_scores`` on the CPU (its plain route, the wavefront that the CUDA
-kernel ``csrc/affine.cu`` is held against on the card). Scores are
-integers: every comparison is exact.
+kernel ``csrc/affine.cu`` is held against on the card). The host side of
+the kernel's launch, the staged rows and the lanes per pair and strip
+height (``group_shape``), is tested here. Scores are integers: every
+comparison is exact.
 """
 
 import jax.numpy as jnp
@@ -75,12 +77,53 @@ def test_uniform_full_batch(local, linear):
 
 
 def test_staging_transposes_the_pairs(mixed):
+    """The staged batch is the pairs' own rows, which the kernel reads as
+    they are: its lanes own strips of a pair's rows. The name dates from the
+    kernel of one thread a pair, which read transposed columns; the check
+    of the staged layout kept it."""
     a, b, _, port = mixed
-    np.testing.assert_array_equal(port.a_cols.numpy(), port.pairs.a.numpy().T)
-    np.testing.assert_array_equal(port.b_cols.numpy(), port.pairs.b.numpy().T)
-    assert port.a_cols.is_contiguous() and port.b_cols.is_contiguous()
+    width = max(len(t) for t in a + b)
+    for tokens, rows in ((a, port.pairs.a), (b, port.pairs.b)):
+        assert rows.dtype == torch.int32 and rows.shape == (len(a), width) and rows.is_contiguous()
+        for i, t in enumerate(tokens):
+            assert rows[i, : len(t)].tolist() == list(t) and not rows[i, len(t):].any()
     assert port.count == len(a) and port.cells() == sum(len(x) * len(y) for x, y in zip(a, b))
     assert port.cells() == port.pairs.dp_cells()
+    assert port.shape() == A.group_shape(max(len(t) for t in a), len(a))
+
+
+@pytest.mark.parametrize(
+    "max_a,pairs,shape",
+    [
+        (100, 4096, (16, 8)),  # the similarities suite: 16 lanes a pair fill the card
+        (256, 65536, (16, 16)),  # many pairs: the narrowest group, widened to hold 256 rows in one pass
+        (1000, 33856, (32, 16)),  # the reference's 1 KB cell: two passes of 512 rows
+        (7, 100000, (8, 8)),
+        (0, 10, (32, 8)),
+        (3000, 40, (32, 16)),
+        (129, 1584, (32, 8)),
+        (129, 12672, (16, 16)),
+    ],
+)
+def test_group_shape(max_a, pairs, shape):
+    """Lanes per pair and strip height: the narrowest group that gives the
+    card WARPS_PER_SM warps an SM, widened while a strip would pass the tallest; the
+    lowest strip that holds a lane's share of the longest a."""
+    group, rows = A.group_shape(max_a, pairs)
+    assert (group, rows) == shape
+    assert group in A.LANE_GROUPS and rows in A.STRIP_ROWS
+    if group * rows < max_a:  # several passes only where even the widest group's tallest strip is too short
+        assert (group, rows) == (A.LANE_GROUPS[-1], A.STRIP_ROWS[-1])
+    narrower = [g for g in A.LANE_GROUPS if g < group]
+    assert all(pairs * g < A.WARPS_PER_SM * A.H100_SMS * 32 or -(-max_a // g) > A.STRIP_ROWS[-1] for g in narrower)
+
+
+@pytest.mark.parametrize("max_a,pairs,sms,shape", [(100, 6000, 132, (16, 8)), (100, 6000, 114, (8, 16)), (100, 4096, 66, (8, 16))])
+def test_group_shape_follows_the_card(max_a, pairs, sms, shape):
+    """A card of fewer SMs fills at a narrower group: 6,000 pairs give an
+    H100 SXM's 132 SMs too few warps at 8 lanes a pair, 114 SMs enough."""
+    assert A.group_shape(max_a, pairs, sms) == shape
+    assert A.group_shape(max_a, pairs) == A.group_shape(max_a, pairs, A.H100_SMS)
 
 
 def test_cuda_wrapper_refuses_cpu_batches(mixed):

@@ -1,12 +1,15 @@
 """The port's fused scan programs and elementwise rule evaluator against the
 JAX Pallas kernels in interpret mode.
 
-On the CPU, ``fused_scan`` runs the port's programs through the plain group
-executor (``scanline.scan_group_plain``), which the CUDA kernel
-``csrc/scanline.cu`` is held against on the card; ``elementwise_map`` runs
-the port's ``_lb_rules``, which ``csrc/lbrules.cu`` writes out in CUDA. The
-streams cross the JAX kernel's 32,768-position tiles and the port kernel's
-2,048-position segments. Results are integers: equality is exact.
+On the CPU, ``fused_scan`` runs the port's programs through the plain
+executor (``scanline.run_program`` with the builds as lambdas); the CUDA
+kernel ``csrc/scanline.cu`` runs the same programs lowered to its IR
+(``scanline_ir.lower``), which ``scanline_ir.run_lowered`` interprets here
+tile by tile as the kernel does. Every JAX comparison holds both to the JAX
+kernel; ``elementwise_map`` runs the port's ``_lb_rules``, which
+``csrc/lbrules.cu`` writes out in CUDA. The streams cross the JAX kernel's
+32,768-position tiles and the port kernel's tiles of 2,048, 4,096 and
+8,192 positions. Results are integers: equality is exact.
 """
 
 import re
@@ -21,20 +24,30 @@ from stringwars_tpu.ops import scanline as JL
 from stringwars_tpu.ops import segment as JS
 from stringwars_tpu_torch.ops import scanline as PL
 from stringwars_tpu_torch.ops import scanline_cuda as PC
+from stringwars_tpu_torch.ops import scanline_ir as IR
 from stringwars_tpu_torch.ops import segment as PS
 from stringwars_tpu_torch.unicode import tables
 
 N = 2 * 32768 + 3 * 2048 + 5  # crosses both tiles
 
 
+def _lowered(streams: dict, port_ops, n, reverse, tiles=(None, 2048)) -> list[dict]:
+    """The program lowered for the streams' dtypes, interpreted at the
+    kernel's own tile and at the smallest one."""
+    inputs = {k: torch.from_numpy(v) for k, v in streams.items()}
+    low = IR.lower(port_ops, {k: t.dtype for k, t in inputs.items()})
+    return [IR.run_lowered(low, inputs, n, reverse, tile=tile) for tile in tiles]
+
+
 def _run_both(streams: dict, jax_ops, port_ops, n, reverse=False):
     want = JL.fused_scan({k: jnp.asarray(v) for k, v in streams.items()}, jax_ops, n, reverse=reverse, interpret=True)
     got = PL.fused_scan({k: torch.from_numpy(v) for k, v in streams.items()}, port_ops, n, reverse=reverse)
-    assert sorted(got) == sorted(want)
-    for name in want:
-        assert got[name].dtype == torch.int32 and got[name].shape == (n,)
-        mism = np.flatnonzero(got[name].numpy() != np.asarray(want[name]))
-        assert mism.size == 0, f"{name}: first mismatches at {mism[:10]}"
+    for result in [got] + _lowered(streams, port_ops, n, reverse):
+        assert sorted(result) == sorted(want)
+        for name in want:
+            assert result[name].dtype == torch.int32 and result[name].shape == (n,)
+            mism = np.flatnonzero(result[name].numpy() != np.asarray(want[name]))
+            assert mism.size == 0, f"{name}: first mismatches at {mism[:10]}"
     return got
 
 
@@ -205,7 +218,7 @@ def test_program_groups():
     with pytest.raises(KeyError):
         PL.fused_scan({"x": lead}, PS._WS_OPS, 10)
     with pytest.raises(ValueError):
-        PC.fused_scan_group([(PS._WS_OPS[0], lead, lead)], 10, False)  # a CPU tensor never reaches the kernel
+        PC.fused_scan_kernel({"tok": lead, "lead": lead}, PS._WS_OPS, 10, False)  # a CPU tensor never reaches the kernel
 
 
 def test_builds_run_in_the_profiler_range():
@@ -264,3 +277,214 @@ def test_lb_rules_kernel_enums_match_python():
 def test_elementwise_map_on_a_card_needs_a_registered_kernel():
     assert PL._KERNELS[PS._lb_rules] is PC.lb_rules
     assert PS._graph_rules not in PL._KERNELS
+
+
+# ---------------------------------------------------------------------------
+# The lowering to the scan kernel's IR
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_lowered_program_other_direction_equals_jax(name, text_streams):
+    """Every program of ``ops/segment`` the other way round: the plain
+    executor and the lowered program against the JAX kernel."""
+    jax_ops, port_ops, reverse = PROGRAMS[name]
+    _run_both(_program_inputs(name, text_streams), jax_ops, port_ops, N, not reverse)
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_lowered_program_at_every_tile(name, text_streams):
+    """The lowered program at each tile the kernel takes, over lengths at
+    the tiles' seams, both ways, against the plain executor."""
+    _, port_ops, _ = PROGRAMS[name]
+    streams = _program_inputs(name, text_streams)
+    for n in (1, 2047, 2049, 8193, 3 * 8192 + 77):
+        cut = {k: v[:n] for k, v in streams.items()}
+        for reverse in (False, True):
+            want = PL.fused_scan_plain({k: torch.from_numpy(v) for k, v in cut.items()}, port_ops, n, reverse=reverse)
+            for got in _lowered(cut, port_ops, n, reverse, tiles=(2048, 4096, 8192)):
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (n, reverse, key)
+
+
+def _typed_streams(n: int) -> dict:
+    rng = np.random.default_rng(9)
+    return {
+        "u": torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8)),
+        "i8": torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8)),
+        "i16": torch.from_numpy(rng.integers(-30000, 30000, n).astype(np.int16)),
+        "b": torch.from_numpy(rng.random(n) < 0.3),
+        "v": torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)),
+    }
+
+
+TYPED_BUILDS = {
+    # constants cast to the stream's dtype, as torch compares and wraps
+    "u8-compare-negative": lambda e: (e["u"] == -9) | (e["u"] < 3),
+    "u8-wraps": lambda e: e["u"] + 300,
+    "i8-wraps": lambda e: e["i8"] * 3 - 1,
+    "i8-invert": lambda e: ~e["i8"],
+    "i16-mul": lambda e: e["i16"] * e["i16"],
+    "bool-add-or": lambda e: e["b"] + e["b"],
+    "bool-mul": lambda e: e["b"] * (e["u"] > 100),
+    "bool-int-promote": lambda e: e["b"] + 1,
+    "mixed-promote": lambda e: e["u"] - e["i8"],
+    "i32-wraps": lambda e: e["v"] * 7 + e["v"],
+    "where-scalars": lambda e: torch.where(e["b"], 5, -3),
+    "where-nested": lambda e: torch.where(~e["b"], torch.where(e["u"] >= 128, e["i8"], e["u"]), 1000),
+    "and-or-invert": lambda e: ~((e["u"] & 12) | (e["i8"] != 0)),
+    "reflected": lambda e: 7 - e["u"] + (3 * e["i8"]) + (1 & e["u"]) + (2 | e["i8"]),
+}
+
+
+@pytest.mark.parametrize("build", sorted(TYPED_BUILDS))
+@pytest.mark.parametrize("kind", ["sum", "max", "delay", "last2"])
+def test_lowered_builds_keep_torch_dtypes(build, kind):
+    """Builds over uint8, int8, int16, bool and int32 streams: the IR wraps,
+    promotes and compares as torch does on the same tensors."""
+    n = 3 * 2048 + 11
+    inputs = _typed_streams(n)
+    fn = TYPED_BUILDS[build]
+    ops = (
+        PL.Op("id", "x", fn),
+        PL.Op(kind, "o", (lambda e: (e["x"], e["b"])) if kind == "last2" else (lambda e: e["x"] * 1), init=-5),
+        PL.Op("sum", "raw", fn),
+    )
+    low = IR.lower(ops, {k: t.dtype for k, t in inputs.items()})
+    for reverse in (False, True):
+        want = PL.fused_scan_plain(inputs, ops, n, reverse=reverse)
+        got = IR.run_lowered(low, inputs, n, reverse, tile=2048)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (build, kind, reverse, key)
+
+
+BAD_BUILDS = {
+    "method": (lambda e: e["v"].to(torch.int64), ".to"),
+    "torch-function": (lambda e: torch.cumsum(e["v"], 0), "torch.cumsum"),
+    "floor-division": (lambda e: e["v"] // 2, "//"),
+    "truth-value": (lambda e: e["v"] if e["f"] else e["f"], "truth value"),
+    "float-constant": (lambda e: e["v"] * 1.5, "1.5"),
+    "outside-tensor": (lambda e: e["v"] + torch.ones(3, dtype=torch.int32), "outside its env"),
+    "int-condition": (lambda e: torch.where(e["v"], 1, 0), "torch.where"),
+    "bool-subtract": (lambda e: e["f"] - e["f"], "sub"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_BUILDS))
+def test_lowering_rejects_what_the_kernel_cannot_run(case):
+    """A build with another operation raises at lowering, naming the op and
+    the operation."""
+    fn, what = BAD_BUILDS[case]
+    ops = (PL.Op("sum", "ok", lambda e: e["v"]), PL.Op("max", "bad_op", fn))
+    with pytest.raises(IR.LoweringError, match=r"(?s)'bad_op'.*" + re.escape(what)):
+        IR.lower(ops, {"v": torch.int32, "f": torch.bool})
+
+
+def test_lowering_reads_only_present_streams_and_known_kinds():
+    with pytest.raises(KeyError):
+        IR.lower(PS._WS_OPS, {"tok": torch.bool})
+    with pytest.raises(ValueError, match="unknown scan kind"):
+        IR.lower((PL.Op("min", "m", lambda e: e["v"]),), {"v": torch.int32})
+    with pytest.raises(IR.LoweringError, match="float"):
+        IR.lower((PL.Op("sum", "s", lambda e: e["v"]),), {"v": torch.float32})
+
+
+def test_outputs_names_what_the_call_returns():
+    """``outputs`` filters the result and leaves it unchanged; the lowered
+    program then writes only those streams."""
+    rng = np.random.default_rng(4)
+    n = 5000
+    inputs = {"f": torch.from_numpy(rng.random(n) < 0.2), "v": torch.from_numpy(rng.integers(0, 50, n).astype(np.int32))}
+    ops = (
+        PL.Op("sum", "s", lambda e: e["f"]),
+        PL.Op("last2", "lv", lambda e: (e["s"] * 2 + e["v"], e["f"]), init=-5),
+        PL.Op("delay", "d", lambda e: e["lv2"], init=-5),
+    )
+    whole = PL.fused_scan(inputs, ops, n, reverse=True)
+    for outputs in (("d",), ("lv2", "s"), ("s", "lv", "lv2", "d")):
+        for fn in (PL.fused_scan, PL.fused_scan_plain):
+            got = fn(inputs, ops, n, reverse=True, outputs=outputs)
+            assert sorted(got) == sorted(outputs)
+            for key in outputs:
+                assert torch.equal(got[key], whole[key])
+        low = IR.lower(ops, {k: t.dtype for k, t in inputs.items()}, outputs)
+        assert sorted(low.outputs) == sorted(outputs)
+        assert int((low.scans[:, 8:10] >= 0).sum()) == len(outputs)
+        got = IR.run_lowered(low, inputs, n, True, tile=2048)
+        assert all(torch.equal(got[key], whole[key]) for key in outputs)
+    with pytest.raises(KeyError):
+        PL.fused_scan(inputs, ops, n, outputs=("nope",))
+    with pytest.raises(KeyError):
+        IR.lower(ops, {k: t.dtype for k, t in inputs.items()}, ("nope",))
+
+
+def test_segment_callers_name_outputs_their_programs_make():
+    for feats, ops in ((PS._GRAPH_FEATS, PS._GRAPH_OPS), (PS._WORD_FEATS, PS._WORD_OPS_FWD),
+                       (PS._SENT_FEATS, PS._SENT_OPS_FWD), (PS._LB_FEATS, PS._LB_OPS_FWD)):
+        made = {name for op in ops for name in op.outs}
+        assert set(feats) <= made and len(set(feats)) == len(feats)
+
+
+def test_lowering_stages_steps_and_slots():
+    """Ops are scanned by stage, at most eight a step; a helper a build calls
+    twice is computed once; a slot is reused once its stream is dead."""
+    dtypes = {k: torch.int32 for k in ("cls", "incb")}
+    dtypes.update({k: torch.bool for k in ("lead", "ri", "pict", "nonext", "ctl", "lnk", "nel")})
+    low = IR.lower(PS._GRAPH_OPS, dtypes)
+    scan_steps = low.steps[low.steps[:, 0] == IR.STEP_SCAN]
+    assert len(low.scans) == sum(op.kind != "id" for op in PS._GRAPH_OPS)
+    assert len(scan_steps) == 5 and scan_steps[:, 2].max() <= IR.MAX_STAGE_OPS
+    assert sorted(low.inputs) == sorted(dtypes) and len(set(low.inputs)) == len(low.inputs)
+    assert low.slots < len(low.inputs) + len(low.scans)
+    assert low.outputs == tuple(name for op in PS._GRAPH_OPS for name in op.outs)
+    sent = IR.lower(PS._SENT_OPS_FWD, {"cls": torch.int32, "keep": torch.bool, "lead": torch.bool, "ign": torch.bool,
+                                       "ps": torch.bool})
+    wheres = sent.steps[(sent.steps[:, 0] == IR.STEP_EW) & (sent.steps[:, 1] == IR.OPCODES["where"])]
+    assert len(wheres) == 1  # _sent_eff_env, built by three ops, evaluated once
+    lb = IR.lower(PS._LB_OPS_FWD, {"cls": torch.int32, "cm": torch.bool, "hard": torch.bool, "basemask": torch.bool,
+                                   "lead": torch.bool})
+    assert "effv" not in lb.outputs  # an id stream is never an output
+
+
+def test_tile_follows_the_slots():
+    """The most positions a thread whose slots leave room for two blocks an
+    SM: single-op programs take 8,192-position tiles, the graphemes program
+    (bool streams in byte slots, its delays written in place) 2,048, and
+    1,024 with every stream an int32."""
+    one = IR.lower((PL.Op("sum", "s", lambda e: e["v"]),), {"v": torch.int32})
+    two = IR.lower((PL.Op("last2", "l", lambda e: (e["v"], e["f"])),), {"v": torch.int32, "f": torch.bool})
+    flags = ("lead", "ri", "pict", "nonext", "ctl", "lnk", "nel")
+    graph = IR.lower(PS._GRAPH_OPS, {"cls": torch.int32, "incb": torch.int32, **{k: torch.bool for k in flags}},
+                     PS._GRAPH_FEATS)
+    wide = IR.lower(PS._GRAPH_OPS, {k: torch.int32 for k in ("cls", "incb") + flags})
+    assert (one.items, one.tile, two.items, graph.items, wide.items) == (32, 8192, 32, 8, 4)
+    assert (one.slots, one.byte_slots, two.slots, two.byte_slots) == (1, 0, 2, 1)  # outputs in place of the values
+    assert graph.byte_slots == len(flags) and wide.byte_slots < graph.byte_slots
+    for low in (one, two, graph, wide):
+        assert low.shared == IR.shared_limits(*IR.H100_SHARED)
+        assert low.shared_bytes(low.items) <= low.shared[0]
+        bigger = [i for i in IR.ITEMS if i > low.items]
+        assert all(low.shared_bytes(i) > low.shared[0] for i in bigger)
+
+
+@pytest.mark.parametrize("card,items", [((233472, 232448), 8), ((167936, 166912), 4), ((102400, 101376), 4)])
+def test_tile_follows_the_card(card, items):
+    """The tile follows the card's shared memory (an H100's, an A100's, a
+    card of 100 KB an SM): the graphemes program keeps two blocks an SM
+    where it can, else takes the most that fit one block, and its
+    interpreted result is the same at every tile."""
+    flags = ("lead", "ri", "pict", "nonext", "ctl", "lnk", "nel")
+    dtypes = {"cls": torch.int32, "incb": torch.int32, **{k: torch.bool for k in flags}}
+    low = IR.lower(PS._GRAPH_OPS, dtypes, PS._GRAPH_FEATS, shared=card)
+    target, limit = low.shared
+    assert low.items == items and low.shared_bytes(low.items) <= limit
+    assert low.shared_bytes(low.items) <= target or all(low.shared_bytes(i) > target for i in IR.ITEMS)
+    rng = np.random.default_rng(7)
+    n = 3 * low.tile + 5
+    inputs = {"cls": torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)),
+              "incb": torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)),
+              **{k: torch.from_numpy(rng.random(n) < 0.3) for k in flags}}
+    want = PL.fused_scan_plain(inputs, PS._GRAPH_OPS, n, outputs=PS._GRAPH_FEATS)
+    got = IR.run_lowered(low, inputs, n)
+    assert set(got) == set(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
