@@ -135,6 +135,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -430,6 +431,328 @@ def bpe_operations(slots: int, pairs: int, merges: int) -> int:
     return 8 * slots + pairs * (3 + 3 * math.ceil(math.log2(merges + 1)))
 
 
+# -- find and fingerprints: kernel checks and the rows at the main path's shapes
+
+FP_NDIMS = (4, 8, 64, 256, 512)  # each split of the fingerprint kernel's cell loop: 1 to 32 groups of four dims a width
+WORST_NEEDLES = 64  # the find worst case: needles a * k for k = 1..64
+
+
+def check_find(dev, errors: dict, n: int = 64 << 20) -> tuple[int, tuple]:
+    """The substring kernel against the plain version on the card over n
+    bytes of lowercase: batches of planted needles of 8 and 16 B (64 each), 600
+    and 2,000 B (longer than the staged halo), 1 to 4 B, 1 to 4 B mixed with
+    longer ones, duplicates, needles that share a head (and prefixes of one
+    another), one needle, needles with NUL bytes (b"a" and b"a\\0": one key
+    word, two key lengths; b"\\0" alone: the one-key instance), and 512 and
+    1,100 needles cut from the haystack (1,100: more than one block's 1,024
+    counters); each at n and n - 3, both forms, and the first needle as a
+    batch built directly from device rows.
+    Then the worst case (``find_worst_case``), held to its closed form.
+    Returns (needle scans checked, the worst case)."""
+    from stringwars_tpu_torch.ops import find as F
+    from stringwars_tpu_torch.ops import find_cuda as FC
+    from stringwars_tpu_torch.suites import find as find_suite
+
+    rng = np.random.default_rng(1)
+    hay = lowercase(n, 1, dev)
+    hay[1000:1064] = ord("a")  # a run: overlapping matches of a*m
+    for p in rng.integers(0, n - 4, 8):  # NUL bytes, for needles of one key word and different lengths
+        hay[p : p + 4] = torch.tensor(list(b"a\0\0b"), dtype=torch.uint8, device=dev)
+
+    def planted(m: int, count: int) -> list[bytes]:
+        needles = [bytes(rng.integers(97, 123, m, dtype=np.uint8)) for _ in range(count)]
+        for i, nd in enumerate(needles):
+            spots = list(rng.integers(0, n - m, 3)) + ([0] if i == 0 else []) + ([n - 3 - m] if i == 1 else [])
+            for p in spots:
+                hay[p : p + m] = torch.frombuffer(bytearray(nd), dtype=torch.uint8).to(dev)
+        return needles
+
+    head = planted(12, 1)[0]
+    dup = planted(9, 2)
+    sets = {
+        "8B": planted(8, 64),
+        "16B": planted(16, 64),
+        "long": planted(600, 1) + planted(2000, 1),
+        "short": [b"e", b"th", b"abc", b"aaaa"],
+        "mixed": [b"q", b"zz", b"xyz", b"wxyz"] + [planted(m, 1)[0] for m in (5, 9, 13, 29, 100, 1100)] + [b"aa", b"e"],
+        "duplicates": [dup[0], dup[0], dup[1], b"e", b"e", dup[1], dup[0]],
+        "shared-heads": [head, head[:4] + b"zzzz", head[:6], head[:4], head + b"q", head[:5], head[:1], head[:2], head[:3]],
+        "one": planted(8, 1),
+        "nul": [b"a", b"a\0", b"\0", b"\0\0b"],
+        "nul-one": [b"\0"],
+    }
+    host = hay.cpu().numpy()
+    for size, longest in ((512, 16), (1100, 32)):
+        starts = rng.integers(0, n - longest, size)
+        sets[str(size)] = [host[p : p + m].tobytes() for p, m in zip(starts, rng.integers(1, longest + 1, size))]
+    checked = 0
+    for needles in sets.values():
+        batch = F.NeedleBatch.from_needles([F.pack_needle(t, find_suite._needle_cap(t)) for t in needles], dev)
+        for extent in (n, n - 3):
+            counts = FC.find_count_batch(hay, batch, extent)
+            errors["find_count"] = max(errors["find_count"], max_err(counts, F.find_count_batch_plain(hay, batch, extent)))
+            got = FC.rfind_count_batch(hay, batch, extent)
+            want = F.rfind_count_batch_plain(hay, batch, extent)
+            errors["rfind_count"] = max(errors["rfind_count"], max_err(got[0], want[0]), max_err(got[1], want[1]))
+            checked += batch.size
+        single = F.NeedleBatch(batch.images[:1], batch.lengths[:1], batch.host_lengths[:1])
+        errors["find_count"] = max(errors["find_count"], max_err(FC.find_count_batch(hay, single), F.find_count_batch_plain(hay, single)))
+    del hay
+    worst = find_worst_case(n, dev)
+    worst_hay, worst_batch = worst[:2]
+    for extent in (n, n - 3):
+        want = [torch.from_numpy(x) for x in find_worst_case_counts(worst_hay[:extent].cpu().numpy())]
+        got = FC.rfind_count_batch(worst_hay, worst_batch, extent)
+        errors["rfind_count"] = max(errors["rfind_count"], max_err(got[0].cpu(), want[0]), max_err(got[1].cpu(), want[1]))
+        got = FC.find_count_batch(worst_hay, worst_batch, extent)
+        errors["find_count"] = max(errors["find_count"], max_err(got.cpu(), want[0]))
+        checked += 2 * WORST_NEEDLES
+    return checked, worst
+
+
+def find_worst_case_counts(hay: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Counts and last starts of a * k (k = 1..64) in a haystack of runs of
+    ``a`` between other bytes, in closed form: a run of r bytes holds
+    max(r - k + 1, 0) matches, the last at its end less k."""
+    is_a = np.concatenate([[False], hay == ord("a"), [False]])
+    edges = np.flatnonzero(is_a[1:] != is_a[:-1])
+    begin, run = edges[0::2], edges[1::2] - edges[0::2]
+    counts = np.zeros(WORST_NEEDLES, np.int64)
+    lasts = np.full(WORST_NEEDLES, -1, np.int64)
+    for k in range(1, WORST_NEEDLES + 1):
+        fits = np.flatnonzero(run >= k)
+        counts[k - 1] = int((run[fits] - k + 1).sum())
+        if fits.size:
+            lasts[k - 1] = begin[fits[-1]] + run[fits[-1]] - k
+    return counts, lasts
+
+
+def find_worst_case(n: int, dev) -> tuple:
+    """The substring kernel's worst case: a haystack of runs of ``a`` (1 to
+    255 B, one ``b`` after each) and the 64 needles a * k, k = 1..64, whose
+    heads pass the filters nearly everywhere: every window is a candidate
+    for every needle that fits in its run. (haystack, batch, counts, lasts),
+    the last two in closed form."""
+    from stringwars_tpu_torch.ops import find as F
+
+    runs = np.random.default_rng(12).integers(1, 256, n // 64)
+    host = np.full(int((runs + 1).sum()), ord("a"), np.uint8)
+    host[np.cumsum(runs + 1) - 1] = ord("b")
+    host = host[:n]
+    batch = F.NeedleBatch.from_needles([F.pack_needle(b"a" * k) for k in range(1, WORST_NEEDLES + 1)], dev)
+    return (torch.from_numpy(host).to(dev), batch, *find_worst_case_counts(host))
+
+
+def fingerprint_batches(dev) -> list:
+    """The fingerprint kernel's check batches: 256 random documents of 1 to
+    4,095 B with the empty one and short ones, in rows of 4,096 B and of
+    their own width; periodic documents (b"ab" * 600, b"z" * 1,280, a
+    repeated line), whose counts run to hundreds; documents of 0 to 40 B of
+    a-c around each gram width, in rows of 4 and of 64 B."""
+    from stringwars_tpu_torch import tape as T
+
+    rng = np.random.default_rng(11)
+    docs = [bytes(rng.integers(32, 127, int(k), dtype=np.uint8)) for k in rng.integers(1, 4096, 256)]
+    docs += [b"", b"x", b"abcd", b"z" * 33]
+    periodic = [b"ab" * 600, b"z" * 1280, (b"the same line again\n" * 64)[:1280], b"abc" * 400, b"ab" * 3, b"z" * 40]
+    around = [bytes(rng.integers(97, 100, k, dtype=np.uint8)) for k in range(41)]
+    return [
+        T.PaddedTokens.from_tape(T.Tape.from_tokens(docs), max_width=4096).to(dev),
+        T.PaddedTokens.from_tape(T.Tape.from_tokens(docs[-40:]), align=4).to(dev),
+        T.PaddedTokens.from_tape(T.Tape.from_tokens(periodic), align=4).to(dev),
+        T.PaddedTokens.from_tape(T.Tape.from_tokens(around), align=4).to(dev),
+        T.PaddedTokens.from_tape(T.Tape.from_tokens(around), align=64).to(dev),
+    ]
+
+
+def campaign_fingerprint_tokens(dev):
+    """16,384 documents of 1,017 random bytes in rows of 1,024
+    (tools/tpu_campaign.py:459-475)."""
+    from stringwars_tpu_torch import tape as T
+
+    data = random_bytes(16384 * 1024, 7, dev).view(16384, 1024)
+    return T.PaddedTokens(data, torch.full((16384,), 1024 - 7, dtype=torch.int32, device=dev), 1024)
+
+
+def check_fingerprint(dev, errors: dict) -> int:
+    """Hashes and counts of the fingerprint kernel against the plain version
+    on the card: every batch of ``fingerprint_batches`` at each ndim of
+    ``FP_NDIMS``, with counts and without, and the 16 MB row's shape at ndim
+    512 both ways. Returns the batches checked."""
+    from stringwars_tpu_torch.ops import fingerprint as FP
+
+    checked = 0
+    for padded in fingerprint_batches(dev) + [campaign_fingerprint_tokens(dev)]:
+        for ndim in FP_NDIMS if padded.count < 16384 else (512,):
+            for counts in (True, False):
+                got_h, got_c = FP.fingerprint_cuda(padded, ndim, counts)
+                want_h, want_c = FP.fingerprint_plain(padded, ndim, with_counts=counts)
+                err = max(max_err(got_h, want_h), max_err(got_c, want_c) if counts else 0)
+                errors["fingerprint"] = max(errors["fingerprint"], err)
+                checked += 1
+    return checked
+
+
+def fingerprint_cells(tokens, ndim: int) -> int:
+    """(position, dim) cells of a fingerprint call: for each document and
+    width, its valid positions times the width's ndim / 4 dims."""
+    from stringwars_tpu_torch.ops import fingerprint as FP
+
+    lengths = tokens.lengths.cpu().numpy().astype(np.int64).clip(0, tokens.width)
+    positions = sum(np.minimum(np.maximum(lengths - w, 0) + 1, tokens.width).sum() for w in FP.WINDOW_WIDTHS)
+    return int(positions) * (ndim // 4)
+
+
+def traced_call(name: str, call, launches, key: str, kernel: str, bound: tuple | None = None) -> None:
+    """One line for a suite's call: timed back to back (CUDA events), its
+    launches of ``key`` a call, its device ms a call in that kernel and in
+    the other torch ops (``torch.profiler`` over 20 calls; the kernel's share
+    is its traced mean a launch times its launches a call), and device busy,
+    the device time over the call's."""
+    call_ms = time_ms(call)
+    before = launches()[key]
+    call()
+    torch.cuda.synchronize()
+    per_call = launches()[key] - before
+    split = device_breakdown(call, {key: kernel}, calls=20, launches={key: per_call})
+    if split is None:
+        detail = f"not measured (no profiler trace in {TRACES} saw {kernel})"
+    else:
+        detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; device busy {split['total'] / call_ms:.2f}"
+    bound_text = f"; bound {bound[0]:.4f} ms ({bound[1]})" if bound else ""
+    phase("row", f"{name}: {call_ms:.4f} ms back to back, {per_call} launches; device ms per call: {detail}{bound_text}")
+
+
+def find_fingerprint_rows(row, dev, flat: torch.Tensor, worst: tuple, find_tape, fp_tokens, launches) -> None:
+    """The substring and fingerprint rows. Substring: 64 needles of 8 and 16
+    B over ``flat`` (128 MB of lowercase; bound: one read of the haystack
+    and one operation a window, what counting a batch needs, whatever its
+    size), the rfind of one needle, the one-key instance beside the
+    one-filter bitmap for that needle and for the backward row's first
+    needle (``one_key_fork``), the worst case (timed, its own line),
+    and the find suite's forward and backward calls traced. Fingerprints:
+    ``tools/tpu_campaign.py``'s 16 MB shape without and with counts, the
+    fingerprints suite's own batch with counts at each ndim (profiler
+    device time; bound: a multiply-add and a min a cell, 9 operations a
+    byte for the grams), and the suite's calls traced."""
+    from stringwars_tpu_torch.ops import find as F
+    from stringwars_tpu_torch.ops import find_cuda as FC
+    from stringwars_tpu_torch.ops import fingerprint as FP
+    from stringwars_tpu_torch.suites import find as find_suite
+    from stringwars_tpu_torch.suites import fingerprints as fp_suite
+
+    needle_rng = np.random.default_rng(3)
+    nf = flat.numel()
+    for m, cap in ((8, 4), (16, 8)):
+        packed = [F.pack_needle(bytes(needle_rng.integers(97, 123, m, dtype=np.uint8)), cap) for _ in range(64)]
+        batch = F.NeedleBatch.from_needles(packed, dev)
+        row(f"find-cycle64-{m}B-128MB", lambda: FC.find_count_batch(flat, batch), lambda: F.find_count_batch_plain(flat, batch),
+            64 * nf, bound_ms(nf, nf), "find_count" if m == 8 else None)
+    single = F.NeedleBatch.from_needles([F.pack_needle(flat[4096:4104].cpu().numpy().tobytes(), 4)], dev)
+    row("rfind-8B-128MB", lambda: FC.rfind_count_batch(flat, single), lambda: F.rfind_count_batch_plain(flat, single), nf,
+        bound_ms(nf, nf), "rfind_count")
+    one_key_fork("rfind-8B-128MB", flat, single, dev)
+    first = find_suite.suite_needles(find_tape)[0][0]
+    n = find_tape.total_bytes
+    one_key_fork(f"find-suite-backward-needle-{n // 10**6}MB (the first of the cycle, {len(first)} B)", find_tape.data[:n],
+                 F.NeedleBatch.from_needles([F.pack_needle(first, find_suite._needle_cap(first))], dev), dev)
+    worst_hay, worst_batch, want_counts, _ = worst
+    worst_ms = time_ms(lambda: FC.find_count_batch(worst_hay, worst_batch))
+    matches = int(want_counts.sum())
+    phase("row", f"find-worst-64-a-runs-64MB (the needles a * 1..64 over {worst_hay.numel():,} B of runs of a; "
+                 f"{matches:,} matches, each verified byte by byte): kernel {worst_ms:.4f} ms "
+                 f"({worst_hay.numel() / worst_ms / 1e6:.1f} GB/s, {matches / worst_ms / 1e6:.1f} G matches/s); "
+                 f"not a target")
+    forward, _ = find_suite.forward_routine(find_tape)
+    traced_call(f"find-suite-forward-{n // 10**6}MB (the find suite's forward call over {n:,} B)", forward, launches,
+                "find_count", "find_kernel", bound_ms(n, n))
+    backward, _ = find_suite.backward_routine(find_tape)
+    for _ in range(find_suite.CYCLE):  # each needle's filter table is staged at its first call, as in the suite's warm-up
+        backward()
+    traced_call(f"find-suite-backward-{n // 10**6}MB (the find suite's backward call, one needle)", backward, launches,
+                "rfind_count", "find_kernel", bound_ms(n, n))
+
+    campaign = campaign_fingerprint_tokens(dev)
+    cells = fingerprint_cells(campaign, 512)
+    moved = 16384 * (1024 - 7 + 4) + 4 * 16384 * 512
+    for counts, key in ((False, "fingerprint"), (True, None)):
+        row(f"fingerprint-512d-16MB{'-counts' if counts else ''} ({cells:,} cells)",
+            lambda: FP.fingerprint_cuda(campaign, 512, counts)[: 1 + counts],
+            lambda: FP.fingerprint_plain(campaign, 512, with_counts=counts)[: 1 + counts],
+            campaign.data.numel(), bound_ms(moved + (4 * 16384 * 512 if counts else 0), 2 * cells + 9 * campaign.data.numel()),
+            key, plain_samples=1)
+    del campaign
+    text = int(fp_tokens.lengths.sum())
+    for ndim in fp_suite.ndim_scales():
+        cells = fingerprint_cells(fp_tokens, ndim)
+        row(f"fingerprint-suite-{fp_tokens.count}docs-ndim{ndim} ({text:,} B in rows of {fp_tokens.width}, {cells:,} cells)",
+            lambda: FP.fingerprint_cuda(fp_tokens, ndim, True), lambda: FP.fingerprint_plain(fp_tokens, ndim, with_counts=True),
+            text, bound_ms(text + 4 * fp_tokens.count + 8 * fp_tokens.count * ndim, 2 * cells + 9 * text),
+            plain_samples=1, profiled="fingerprint_kernel")
+        traced_call(f"fingerprint ndim {ndim} call (the suite's)", lambda: FP.fingerprint(fp_tokens, ndim=ndim), launches,
+                    "fingerprint", "fingerprint_kernel")
+
+
+def one_key_fork(name: str, hay: torch.Tensor, batch, dev) -> None:
+    """The substring kernel's one-key instance (filters 0: the head compared
+    with the needle's key) beside its one-filter bitmap probe on the same
+    table, for a batch of one needle: both equal to the plain version, each
+    by its device time a launch (profiler), on one line."""
+    from stringwars_tpu_torch.ops import find as F
+    from stringwars_tpu_torch.ops import find_cuda as FC
+
+    table = batch.filters(dev)
+    if table.filters != 0:
+        raise AssertionError(f"{name}: one needle took {table.filters} filters, not the one-key instance")
+    bitmap = F.NeedleBatch(batch.images, batch.lengths, batch.host_lengths, batch.host_images)
+    bitmap.staged[dev] = dataclasses.replace(table, filters=1)  # the same table through the bitmap probe
+    want = F.rfind_count_batch_plain(hay, batch)
+    times = []
+    for form in (batch, bitmap):
+        got = FC.rfind_count_batch(hay, form)
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        if err:
+            raise AssertionError(f"{name}: the kernel with {form.filters(dev).filters} filters differs by {err}")
+        times.append(device_ms(lambda: FC.rfind_count_batch(hay, form), "find_kernel"))
+    text = ", ".join("not measured" if t is None else f"{t:.4f}" for t in times)
+    phase("row", f"{name}: one key, one-filter bitmap: {text} ms a launch (device), equal")
+
+
+def make_row(timings: dict):
+    """``row``: a kernel timed beside its plain version on the card (equal
+    first), with its bound and, where given, one PyTorch call's time; the
+    times of a row with ``key`` go into ``timings`` for the kernels line."""
+
+    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None, profiled=None,
+            per_call=False, note=""):
+        got, want = kernel(), plain()
+        err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
+        if err:
+            raise AssertionError(f"{name}: kernel and plain differ by {err}")
+        ms = time_ms(kernel)
+        calls_text = note
+        if profiled:  # the kernel's device time; the back-to-back calls beside it
+            traced = device_ms(kernel, profiled, per_call=per_call)
+            if traced is None:
+                calls_text += f", no profiler trace in {TRACES} saw {profiled}: ms is the CUDA-event time of calls back to back"
+            else:
+                calls_text += f", calls back to back {ms:.4f} ms"
+                ms = traced
+        plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
+        library_ms = time_ms(library) if library else None
+        bound_value, bound_by = bound
+        if key:
+            timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_value, "bound_by": bound_by, "library_ms": library_ms}
+        lib_text = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+        phase(
+            "row",
+            f"{name}: kernel {ms:.4f} ms ({rate(ms, work_bytes, cells)}), plain {plain_ms:.4f} ms, "
+            f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}{calls_text}, equal",
+        )
+
+    return row
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -534,37 +857,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     names = list(launches())
     errors = {name: 0 for name in names}
     before = launches()
+    checked, worst = check_find(dev, errors)
     rng = np.random.default_rng(1)
     n = 64 << 20
-    hay = lowercase(n, 1, dev)
-    hay[1000:1064] = ord("a")  # a run: overlapping matches of a*m
-
-    def planted(m: int, count: int) -> list[bytes]:
-        needles = [bytes(rng.integers(97, 123, m, dtype=np.uint8)) for _ in range(count)]
-        for i, nd in enumerate(needles):
-            spots = list(rng.integers(0, n - m, 3)) + ([0] if i == 0 else []) + ([n - 3 - m] if i == 1 else [])
-            for p in spots:
-                hay[p : p + m] = torch.frombuffer(bytearray(nd), dtype=torch.uint8).to(dev)
-        return needles
-
-    sets = {
-        "8B": planted(8, 64),
-        "16B": planted(16, 64),
-        "long": planted(600, 1) + planted(2000, 1),
-        "short": [b"e", b"th", b"abc", b"aaaa"],
-    }
-    checked = 0
-    for needles in sets.values():
-        batch = F.NeedleBatch.from_needles([F.pack_needle(t, find_suite._needle_cap(t)) for t in needles], dev)
-        for extent in (n, n - 3):
-            counts = FC.find_count_batch(hay, batch, extent)
-            errors["find_count"] = max(errors["find_count"], max_err(counts, F.find_count_batch_plain(hay, batch, extent)))
-            got = FC.rfind_count_batch(hay, batch, extent)
-            want = F.rfind_count_batch_plain(hay, batch, extent)
-            errors["rfind_count"] = max(errors["rfind_count"], max_err(got[0], want[0]), max_err(got[1], want[1]))
-            checked += batch.size
-        single = F.NeedleBatch(batch.images[:1], batch.lengths[:1], batch.host_lengths[:1])
-        errors["find_count"] = max(errors["find_count"], max_err(FC.find_count_batch(hay, single), F.find_count_batch_plain(hay, single)))
     bytes_hay = random_bytes(n + 16, 2, dev)
     for charset in find_suite.BYTESETS.values():
         table = F.pack_byteset(charset, dev)
@@ -579,7 +874,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         errors["bytesum"] = max(errors["bytesum"], max_err(B.bytesum_cuda(data), B.bytesum_plain(data)))
     if int(B.bytesum_cuda(ones).item()) != 255 * ones.numel():
         raise AssertionError("bytesum of 256 MB of 0xFF is not 255 * n")
-    del hay, bytes_hay, ones
+    del bytes_hay, ones
 
     # Hashes: tokens of 0..130 B (16-byte rows and 4-byte rows), and one
     # token set spread over every bucket of the hash suite.
@@ -603,19 +898,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         errors["xxh64_tree"] = max(errors["xxh64_tree"], max_err(HC.tree_level(tree_buf, extent), H.tree_level_plain(tree_buf, extent)))
     del tree_buf
 
-    # Fingerprints: documents of 1..4096 B with counts at ndim 64, and the
-    # 16 MB row's shape without counts at ndim 512.
-    docs = [bytes(rng.integers(32, 127, int(k), dtype=np.uint8)) for k in rng.integers(1, 4096, 256)]
-    docs += [b"", b"x", b"abcd", b"z" * 33]
-    for padded in (T.PaddedTokens.from_tape(T.Tape.from_tokens(docs), max_width=4096).to(dev),
-                   T.PaddedTokens.from_tape(T.Tape.from_tokens(docs[-40:]), align=4).to(dev)):
-        got_h, got_c = FP.fingerprint_cuda(padded, 64, True)
-        want_h, want_c = FP.fingerprint_plain(padded, 64, with_counts=True)
-        errors["fingerprint"] = max(errors["fingerprint"], max_err(got_h, want_h), max_err(got_c, want_c))
-    fp_data = random_bytes(16384 * 1024, 7, dev).view(16384, 1024)
-    fp_tokens = T.PaddedTokens(fp_data, torch.full((16384,), 1024 - 7, dtype=torch.int32, device=dev), 1024)
-    got_h, _ = FP.fingerprint_cuda(fp_tokens, 512, False)
-    errors["fingerprint"] = max(errors["fingerprint"], max_err(got_h, FP.fingerprint_plain(fp_tokens, 512, with_counts=False)[0]))
+    fp_checked = check_fingerprint(dev, errors)
 
     lut = torch.from_numpy(M.invert_case_lut()).to(dev)
     for view in (big[: 64 << 20], big[3 : (64 << 20) + 8], big[15:1000], big[:7]):
@@ -1081,8 +1364,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
     phase(
         "kernels",
-        f"equal to plain on the card ({checked} needle scans, 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
-        f"{len(seed_sets)} seed sets, 5 tree levels, 3 fingerprint batches, 4 LUT views, 4 DP batches of "
+        f"equal to plain on the card ({checked} needle scans (the worst case's {WORST_NEEDLES} needles a * k "
+        f"held to its closed form), 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
+        f"{len(seed_sets)} seed sets, 5 tree levels, {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
+        f"none), 4 LUT views, 4 DP batches of "
         f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; alignment batches at the edges of "
@@ -1239,6 +1524,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             if not np.array_equal(ctx.staged["min_hashes"][scales[0]][i], want):
                 raise AssertionError(f"min-hashes of document {i} differ from the numpy spec replay")
         quality = {d: tuple(round(q, 4) for q in ctx.staged["quality"][d]) for d in scales}
+        fp_keep["tokens"] = tokens
         phase(
             "main path",
             f"fingerprints suite: {tokens.count} documents of width {tokens.width} on {tokens.device}; first "
@@ -1563,7 +1849,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             started,
         )
 
-    suite_tape: list = []  # the find suite's tape, for the multi-pattern path
+    suite_tape: list = []  # the find suite's tape, for the multi-pattern path and the rows phase
+    fp_keep: dict = {}  # the fingerprints suite's batch, for the rows phase
     norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
     tok_keep: dict = {}  # the tokenization suite's BPE batch and decoded text, for the rows phase
     sim_keep: dict = {}  # the similarities suite's pairs, for the rows phase
@@ -1571,7 +1858,6 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
-    del suite_tape
     path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum", "sha256"], hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
@@ -1585,55 +1871,11 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     started = time.perf_counter()
     timings: dict[str, dict] = {}
 
-    def row(name, kernel, plain, work_bytes, bound, key=None, library=None, plain_samples=SAMPLES, cells=None, profiled=None,
-            per_call=False, note=""):
-        got, want = kernel(), plain()
-        err = max(max_err(a, b) for a, b in zip(got, want)) if isinstance(got, tuple) else max_err(got, want)
-        if err:
-            raise AssertionError(f"{name}: kernel and plain differ by {err}")
-        ms = time_ms(kernel)
-        calls_text = note
-        if profiled:  # the kernel's device time; the back-to-back calls beside it
-            traced = device_ms(kernel, profiled, per_call=per_call)
-            if traced is None:
-                calls_text += f", no profiler trace in {TRACES} saw {profiled}: ms is the CUDA-event time of calls back to back"
-            else:
-                calls_text += f", calls back to back {ms:.4f} ms"
-                ms = traced
-        plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
-        library_ms = time_ms(library) if library else None
-        bound_value, bound_by = bound
-        if key:
-            timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_value, "bound_by": bound_by, "library_ms": library_ms}
-        lib_text = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-        phase(
-            "row",
-            f"{name}: kernel {ms:.4f} ms ({rate(ms, work_bytes, cells)}), plain {plain_ms:.4f} ms, "
-            f"bound {bound_value:.4f} ms ({bound_by}; kernel at {100 * bound_value / ms:.1f}%){lib_text}{calls_text}, equal",
-        )
+    row = make_row(timings)
 
     flat = lowercase(128 << 20, 0, dev)
-    needle_rng = np.random.default_rng(3)
-    for m, cap in ((8, 4), (16, 8)):
-        packed = [F.pack_needle(bytes(needle_rng.integers(97, 123, m, dtype=np.uint8)), cap) for _ in range(64)]
-        batch = F.NeedleBatch.from_needles(packed, dev)
-        row(
-            f"find-cycle64-{m}B-128MB",
-            lambda: FC.find_count_batch(flat, batch),
-            lambda: F.find_count_batch_plain(flat, batch),
-            64 * flat.numel(),
-            bound_ms(flat.numel(), 64 * flat.numel()),  # one compare per (needle, window)
-            "find_count" if m == 8 else None,
-        )
-    single = F.NeedleBatch.from_needles([F.pack_needle(flat[4096:4104].cpu().numpy().tobytes(), 4)], dev)
-    row(
-        "rfind-8B-128MB",
-        lambda: FC.rfind_count_batch(flat, single),
-        lambda: F.rfind_count_batch_plain(flat, single),
-        flat.numel(),
-        bound_ms(flat.numel(), flat.numel()),
-        "rfind_count",
-    )
+    find_fingerprint_rows(row, dev, flat, worst, suite_tape.pop(), fp_keep.pop("tokens"), launches)
+    del worst
     set_hay = random_bytes(128 << 20, 4, dev)
     table = F.pack_byteset(find_suite.BYTESETS["html"], dev)
     row(
@@ -1709,20 +1951,6 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "xxh64_tree",
         plain_samples=1,
     )
-    # 16384 documents of 1017 bytes in rows of 1024, ndim 512, no counts
-    # (tools/tpu_campaign.py:459-475): 8.4 G (position, dim) cells of a
-    # multiply-add and a min, plus ~9 operations per byte for the grams.
-    cells = 16384 * (512 // 4) * sum(1024 - 7 - w + 1 for w in FP.WINDOW_WIDTHS)
-    row(
-        "fingerprint-512d-16MB",
-        lambda: FP.fingerprint_cuda(fp_tokens, 512, False)[0],
-        lambda: FP.fingerprint_plain(fp_tokens, 512, with_counts=False)[0],
-        fp_data.numel(),
-        bound_ms(16384 * (1024 - 7 + 4) + 4 * 16384 * 512, 2 * cells + 9 * fp_data.numel()),
-        "fingerprint",
-        plain_samples=1,
-    )
-    del fp_data, fp_tokens
     row(
         "lut-translate-128MB",
         lambda: M.lut_translate_cuda(flat, lut),
@@ -1973,10 +2201,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lambda: FC.cp_window_count(hay, hay.numel(), needle), lambda: F.cp_window_count_plain(hay, hay.numel(), needle),
         4 * hay.numel(), bound_ms(4 * hay.numel()), "cp_window", profiled="cp_window_kernel")
     # Where each normalization row's call and the BPE row's call spend their
-    # time: the call timed back to back (CUDA events; the find and BPE calls
-    # end in a count's .item()), beside its device time per call in its
-    # kernel and in the other torch ops (torch.profiler over 20 calls);
-    # device busy = device time over the call's.
+    # time (``traced_call``; the find and BPE calls end in a count's .item()).
     a_rows, b_rows = norm_keep["compare_rows"]
     for name, call, kernel in (
         ("utf8_fold", lambda: EX.fold_tokens_fused(frows, norm_keep["max_cp"]), ("expand", "expand_kernel")),
@@ -1985,18 +2210,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         ("bpe_encode", lambda: int(BPE.bpe_encode_fused(bpe["data"], bpe["lengths"], bpe_table)[1].sum().item()),
          ("bpe", "bpe_kernel")),
     ):
-        call_ms = time_ms(call)
-        reset(*counters)
-        call()
-        torch.cuda.synchronize()
-        per_call = launches()  # one CUDA launch per call of each of these wrappers
-        split = device_breakdown(call, dict([kernel]), calls=20, launches=per_call)
-        if split is None:
-            detail = f"not measured (no profiler trace in {TRACES} saw {kernel[1]})"
-        else:
-            detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; device busy {split['total'] / call_ms:.2f}"
-        phase("row", f"{name} call (the suite's): {call_ms:.4f} ms back to back, {per_call[kernel[0]]} launches; "
-                     f"device ms per call: {detail}")
+        traced_call(f"{name} call (the suite's)", call, launches, *kernel)
     norm_keep.clear()
     tok_keep.clear()
     del frows, hay, needle, a_rows, b_rows, bpe

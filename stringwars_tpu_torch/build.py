@@ -38,12 +38,12 @@ _P, _N = ctypes.c_void_p, ctypes.c_int64
 # C entry point -> argument types; every one returns a cudaError_t as int.
 SIGNATURES = {
     "sw_bytesum": (_P, _N, _P, _P),
-    "sw_find_count": (_P, _N, _P, _N, _P, _N, _P, _P, _P),
+    "sw_find_count": (_P, _N, _P, _N, _N, _P, _N, _N, _N, _P, _P, _P),
     "sw_byteset_count": (_P, _N, _P, _P, _P),
     "sw_xxh64": (_P, _N, _N, _P, _P, _N, _P, _P),
     "sw_xxh64_tree": (_P, _N, _N, _N, _P, _P),
     "sw_xxh32": (_P, _N, _N, _P, _P, _N, ctypes.c_int, _P, _P),
-    "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _N, _P, _P, _P),
+    "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _P, _N, _P, _P, _P),
     "sw_lut_translate": (_P, _N, _P, _P, _P),
     "sw_myers": (_P, _N, _P, _P, _P, _N, _P, _P, _P),
     "sw_align": (_P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P),

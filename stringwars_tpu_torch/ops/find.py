@@ -8,7 +8,8 @@ all-matches substring scans (forward find and backward rfind loops,
 - ``find_count``: the number of window starts ``p <= n - m`` with
   ``hay[p:p+m] == needle``; overlapping matches count.
 - ``rfind_count``: that count and the LAST such ``p`` (-1 when none).
-- ``find_count_batch``: one count per needle of a ``NeedleBatch``.
+- ``find_count_batch``: one count per needle of a ``NeedleBatch``
+  (``find_counts``: the same as a tensor on the device, unwaited).
 - ``byteset_count``: how many bytes of ``hay[:n]`` belong to a set
   (``byteset_counts``: several sets, one device sync).
 - ``cp_window_count``: the ``find_count`` of an int32 needle in an int32
@@ -23,6 +24,12 @@ Needles are staged as in the JAX package (``pack_needle``: four
 offset-shifted little-endian u32 images with byte masks, the same bytes), so
 a needle packed there converts one to one (``PackedNeedle.from_numpy``). The
 kernels read the offset-0 image, which holds the needle's bytes.
+
+The count kernel scans a batch in one pass: each window's head is probed in
+filter tables built here on the host from the batch's needles
+(``FilterTable``, staged once per batch and device), and only the needles
+whose head it matches are verified. ``filtered_count_plain`` walks the same
+tables window by window on the host, for the tests.
 """
 
 from __future__ import annotations
@@ -35,6 +42,14 @@ import torch
 
 # Needle capacity buckets, in u32 words (16 B / 64 B / 256 B needles).
 NEEDLE_WORD_BUCKETS = (4, 16, 64)
+
+# The count kernel's filter tables (csrc/find.cu, K2).
+FILTER_CHUNK = 1024  # needles one block counts in shared memory; larger batches take more blocks a tile
+KEY_MUL = 0x9E3779B1  # slot of a head key: (key * KEY_MUL mod 2^32) >> shift
+SLOT_BITS = (10, 15)  # a filter's slots: 2^10 to 2^15, 32 for each distinct key
+PREFIX = 16  # needle bytes kept beside the pairs, compared as words
+RECORD = 10 + 4 * 4  # int32s of a chunk's record: 10, then 4 for each of up to four filters
+LAST_PAIR = 0x8000  # flags the last (key, needle) pair of a slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +119,21 @@ class NeedleBatch:
     images: torch.Tensor  # uint8[B, S]
     lengths: torch.Tensor  # int64[B]
     host_lengths: tuple[int, ...]
+    host_images: torch.Tensor | None = None  # the images on the host, where the batch was built there
+    # FilterTable by device, staged at the first count on that device.
+    staged: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def size(self) -> int:
         return len(self.host_lengths)
+
+    def filters(self, device) -> "FilterTable":
+        """The batch's filter tables on ``device``, built once."""
+        got = self.staged.get(device)
+        if got is None:
+            images = self.host_images if self.host_images is not None else self.images.cpu()
+            got = self.staged[device] = FilterTable.build(images.numpy(), self.host_lengths, device)
+        return got
 
     @classmethod
     def from_needles(cls, needles: Sequence[PackedNeedle], device=None) -> "NeedleBatch":
@@ -123,7 +149,181 @@ class NeedleBatch:
             images=images.to(device),
             lengths=torch.tensor(lengths, dtype=torch.int64, device=device),
             host_lengths=lengths,
+            host_images=images,
         )
+
+    def row(self, i: int) -> "NeedleBatch":
+        """Needle ``i`` alone, as a batch of one (a view of this batch's rows)."""
+        host = self.host_images[i : i + 1] if self.host_images is not None else None
+        return NeedleBatch(self.images[i : i + 1], self.lengths[i : i + 1], self.host_lengths[i : i + 1], host)
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterTable:
+    """The count kernel's probe tables for a batch, one int32 array.
+
+    The batch is cut into chunks of ``FILTER_CHUNK`` needles (one block of
+    the kernel counts one chunk over one tile). A needle's key is its first
+    ``L = min(4, m)`` bytes as a little-endian word; each chunk has one
+    filter for each ``L`` present, of 2^bits slots, slot ``(key * KEY_MUL
+    mod 2^32) >> (32 - bits)``: a bitmap of the slots its keys take (the
+    block's shared memory holds the chunk's bitmaps) and a map of uint16s,
+    0 for a free slot, else 1 + the index of the slot's first (key, needle)
+    pair. The array holds a record of ``RECORD`` int32s for each chunk
+    (first needle, end, longest needle, filters, bitmaps at, bitmap words,
+    pairs at, prefixes at, lengths at, its first needle's key (the one key
+    where ``filters`` is 0); then for each filter: L, shift, bitmap offset
+    (in the chunk's bitmap words), map at), then each chunk's data, every
+    part at an index of the array aligned to 16 bytes:
+
+    - the bitmaps of its filters (uint32 words), one after another;
+    - the maps (uint16);
+    - the pairs, two uint32s each: the key, and the needle's index in the
+      chunk with ``LAST_PAIR`` set on a slot's last pair;
+    - the first ``PREFIX`` bytes of each needle (zero past its length);
+    - each needle's length (int32).
+    """
+
+    table: torch.Tensor  # int32, on the device of the count
+    chunks: int
+    filters: int  # the most filters of a chunk; 0: one chunk of one filter, its needles of one key
+    bitmap_words: int  # the largest chunk's bitmaps
+
+    @staticmethod
+    def build(images: np.ndarray, lengths: Sequence[int], device=None) -> "FilterTable":
+        """The tables of needles ``images[i, :lengths[i]]``, on ``device``."""
+        lengths = np.asarray(lengths, np.int64)
+        count = lengths.size
+        prefix = np.zeros((count, PREFIX), np.uint8)
+        prefix[:, : min(PREFIX, images.shape[1])] = images[:, :PREFIX]
+        prefix[np.arange(PREFIX)[None, :] >= lengths[:, None]] = 0
+        key_len = np.minimum(lengths, 4)
+        keys = prefix[:, :4].copy().view("<u4")[:, 0] & key_mask(key_len)
+        chunks = -(-count // FILTER_CHUNK)
+        records = np.zeros((chunks, RECORD), np.int64)
+        parts: list[np.ndarray] = []
+        at = -(-chunks * RECORD // 4) * 4  # where the next part begins
+
+        def place(words: np.ndarray) -> int:
+            nonlocal at
+            words = np.concatenate([words.astype(np.uint32), np.zeros(-words.size % 4, np.uint32)])
+            parts.append(words)
+            at += words.size
+            return at - words.size
+
+        parts.append(np.zeros(at - chunks * RECORD, np.uint32))
+        for c in range(chunks):
+            lo, hi = c * FILTER_CHUNK, min(count, (c + 1) * FILTER_CHUNK)
+            filters = []  # (L, bits, needles in slot order, their slots)
+            for L in (1, 2, 3, 4):
+                idx = lo + np.flatnonzero(key_len[lo:hi] == L)
+                if idx.size:
+                    bits = int(np.clip(np.ceil(np.log2(32 * np.unique(keys[idx]).size)), *SLOT_BITS))
+                    slots = slot_of(keys[idx], 32 - bits)
+                    order = np.argsort(slots, kind="stable")
+                    filters.append((L, bits, idx[order], slots[order]))
+            bitmaps, maps, pair_rows, offset, pairs_so_far = [], [], [], 0, 0
+            for f, (L, bits, idx, slots) in enumerate(filters):
+                bitmap = np.zeros((1 << bits) // 32, np.uint32)
+                np.bitwise_or.at(bitmap, slots >> 5, np.uint32(1) << (slots & 31).astype(np.uint32))
+                first = np.flatnonzero(np.r_[True, slots[1:] != slots[:-1]])
+                slot_map = np.zeros(1 << bits, np.uint16)
+                slot_map[slots[first]] = 1 + pairs_so_far + first
+                tags = (idx - lo).astype(np.uint32)
+                tags[np.r_[first[1:] - 1, slots.size - 1]] |= LAST_PAIR
+                pair_rows.append(np.stack([keys[idx], tags], 1))
+                records[c, 10 + 4 * f : 13 + 4 * f] = (L, 32 - bits, offset)
+                bitmaps.append(bitmap)
+                maps.append(slot_map)
+                offset += bitmap.size
+                pairs_so_far += idx.size
+            records[c, :6] = (lo, hi, lengths[lo:hi].max(), len(filters), place(np.concatenate(bitmaps)), offset)
+            for f, slot_map in enumerate(maps):
+                records[c, 13 + 4 * f] = place(slot_map.view(np.uint32))
+            records[c, 6] = place(np.concatenate(pair_rows).reshape(-1))
+            records[c, 7] = place(prefix[lo:hi].view(np.uint32).reshape(-1))
+            records[c, 8] = place(lengths[lo:hi])
+            records[c, 9] = keys[lo]
+        flat = np.concatenate([records.reshape(-1).astype(np.uint32), *parts])
+        table = torch.from_numpy(flat.view(np.int32))
+        one_key = chunks == 1 and int(records[0, 3]) == 1 and np.unique(keys).size == 1
+        return FilterTable(table=table.to(device), chunks=chunks, filters=0 if one_key else int(records[:, 3].max()),
+                           bitmap_words=int(records[:, 5].max()))
+
+    def chunk(self, c: int) -> dict:
+        """Chunk ``c``'s record and parts, as arrays on the host: ``lo``,
+        ``hi``, ``longest``, ``key`` (its first needle's key); ``filters``, a
+        list of (L, shift, bitmap, map); ``pairs`` uint32[n, 2], ``prefix``
+        uint8[n, PREFIX], ``lengths``."""
+        table = self.table.cpu().numpy().view(np.uint32)
+        r = table[c * RECORD : (c + 1) * RECORD].astype(np.int64)
+        lo, hi, longest, count = r[0], r[1], r[2], r[1] - r[0]
+        filters = []
+        for f in range(r[3]):
+            L, shift, offset, map_at = r[10 + 4 * f : 14 + 4 * f]
+            slots = 1 << (32 - shift)
+            bitmap = table[r[4] + offset : r[4] + offset + slots // 32]
+            filters.append((int(L), int(shift), bitmap, table[map_at : map_at + slots // 2].view(np.uint16)))
+        return {
+            "lo": int(lo), "hi": int(hi), "longest": int(longest), "key": int(r[9]), "filters": filters,
+            "pairs": table[r[6] : r[6] + 2 * count].reshape(-1, 2),
+            "prefix": table[r[7] : r[7] + 4 * count].view(np.uint8).reshape(-1, PREFIX),
+            "lengths": table[r[8] : r[8] + count].astype(np.int64),
+        }
+
+
+def key_mask(key_len) -> np.ndarray:
+    """uint32 masks of the first ``key_len`` (1..4) bytes of a little-endian word."""
+    return ((np.int64(1) << (8 * np.asarray(key_len, np.int64))) - 1).astype(np.uint32)
+
+
+def slot_of(keys: np.ndarray, shift: int) -> np.ndarray:
+    """Filter slots of uint32 keys: ``(key * KEY_MUL mod 2^32) >> shift``."""
+    return ((np.asarray(keys, np.uint64) * np.uint64(KEY_MUL)) & np.uint64(0xFFFFFFFF)) >> np.uint64(shift)
+
+
+def filtered_count_plain(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """(counts, lasts), int64[B] on the host: the count kernel's walk of the
+    batch's ``FilterTable``, window by window (vectorized over the windows):
+    each window's head probes every filter of every chunk (with ``filters``
+    0, as the kernel's one-key instance does, only the first filter, by
+    comparing the head with the chunk's key); a set bit leads through the
+    map to the slot's (key, needle) pairs up to the one flagged last; a pair
+    whose key equals the head and whose needle fits before ``n`` is verified
+    past the head, against the needle's prefix and then its bytes."""
+    n = _extent(hay, n)
+    tables = batch.filters(torch.device("cpu"))
+    images = (batch.host_images if batch.host_images is not None else batch.images.cpu()).numpy()
+    padded = np.zeros(n + 4, np.uint8)
+    padded[:n] = hay[:n].cpu().numpy()
+    heads = sum(padded[b : b + n].astype(np.uint32) << np.uint32(8 * b) for b in range(4))
+    counts = np.zeros(batch.size, np.int64)
+    lasts = np.full(batch.size, -1, np.int64)
+    for c in range(tables.chunks):
+        chunk = tables.chunk(c)
+        lo, pairs, prefix, lengths = chunk["lo"], chunk["pairs"], chunk["prefix"], chunk["lengths"]
+        for L, shift, bitmap, slot_map in chunk["filters"][: 1 if tables.filters == 0 else None]:
+            key = heads & key_mask(L)
+            slot = slot_of(key, shift).astype(np.int64)
+            if tables.filters == 0:
+                window = np.flatnonzero(key == chunk["key"])
+            else:
+                window = np.flatnonzero((bitmap[slot >> 5] >> (slot & 31).astype(np.uint32)) & 1)
+            entry = slot_map[slot[window]].astype(np.int64) - 1
+            while window.size:  # one pair of each candidate slot a round, up to the last
+                tag = pairs[entry, 1]
+                needle = (tag & ~np.uint32(LAST_PAIR)).astype(np.int64)
+                m = lengths[needle]
+                ok = (pairs[entry, 0] == key[window]) & (window <= n - m)
+                for b in range(L, int(m[ok].max(initial=L))):
+                    live = ok & (b < m)
+                    want = prefix[needle[live], b] if b < PREFIX else images[lo + needle[live], b]
+                    ok[live] &= padded[window[live] + b] == want
+                counts += np.bincount(lo + needle[ok], minlength=batch.size)
+                np.maximum.at(lasts, lo + needle[ok], window[ok])
+                more = (tag & LAST_PAIR) == 0
+                window, entry = window[more], entry[more] + 1
+    return counts, lasts
 
 
 def _extent(hay: torch.Tensor, n: int | None) -> int:
@@ -227,13 +427,19 @@ def _on_card(hay: torch.Tensor) -> bool:
     raise ValueError(f"find runs on a CUDA or CPU tensor, not {hay.device}")
 
 
-def find_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> list[int]:
-    """Per-needle all-matches counts over ``hay[:n]``, one scan for the batch."""
+def find_counts(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> torch.Tensor:
+    """int64[B] on ``hay``'s device: per-needle all-matches counts over
+    ``hay[:n]``, one scan for the batch, without waiting for it."""
     if _on_card(hay):
         from stringwars_tpu_torch.ops import find_cuda
 
-        return find_cuda.find_count_batch(hay, batch, n).tolist()
-    return find_count_batch_plain(hay, batch, n).tolist()
+        return find_cuda.find_count_batch(hay, batch, n)
+    return find_count_batch_plain(hay, batch, n)
+
+
+def find_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> list[int]:
+    """Per-needle all-matches counts over ``hay[:n]``, one scan for the batch."""
+    return find_counts(hay, batch, n).tolist()
 
 
 def rfind_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> list[tuple[int, int]]:

@@ -35,14 +35,15 @@ def _launch(hay: torch.Tensor, batch: NeedleBatch, n: int | None, with_last: boo
     build.require_cuda_bytes(hay, "find", aligned=True)
     n = _extent(hay, n)
     _check_batch(hay, batch)
+    filters = batch.filters(hay.device)
     counts = torch.zeros(batch.size, dtype=torch.int64, device=hay.device)
     lasts = torch.full((batch.size,), -1, dtype=torch.int64, device=hay.device) if with_last else None
     lib = build.library()
     name = "rfind_count" if with_last else "find_count"
     with torch.cuda.device(hay.device):
         code = lib.sw_find_count(
-            hay.data_ptr(), n, batch.images.data_ptr(), batch.images.shape[1],
-            batch.lengths.data_ptr(), batch.size, counts.data_ptr(),
+            hay.data_ptr(), n, batch.images.data_ptr(), batch.images.shape[1], batch.size, filters.table.data_ptr(),
+            filters.chunks, filters.filters, filters.bitmap_words, counts.data_ptr(),
             lasts.data_ptr() if with_last else None, build.stream_of(hay),
         )
     build.check(code, name)

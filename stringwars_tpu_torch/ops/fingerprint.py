@@ -15,6 +15,12 @@ Outputs: ``min_hashes uint32[B, ndim]``, ``min_counts int32[B, ndim]`` or
 None. A CUDA tensor goes to the kernel ``csrc/fingerprint.cu``
 (``fingerprint_cuda``); a CPU tensor to ``fingerprint_plain``, which
 computes in int64 (torch's uint32 has almost no CPU arithmetic).
+
+The kernel keeps only the min of each dim and recovers the count from the
+argmin: ``a_d`` is odd, so the gram that reaches the min ``m`` is
+``a_d^-1 * (m - b_d)`` (``dim_inverses``), and the count is that gram's
+multiplicity among the valid positions. ``fingerprint_argmin_plain``
+computes the counts that way on the CPU, for the tests.
 """
 
 from __future__ import annotations
@@ -30,7 +36,6 @@ from stringwars_tpu_torch.tape import PaddedTokens
 WINDOW_WIDTHS = (5, 9, 17, 33)
 _BASE = 0x01000193  # FNV prime, odd
 _M32 = 0xFFFFFFFF
-SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
 _DIM_CHUNK = 16  # dims per step of the plain version: bounds its [B, W, dims] temporaries
 
 # Launches of csrc/fingerprint.cu since process start (or the last reset).
@@ -53,6 +58,20 @@ def dim_coefficients(ndim: int, seed: int = 0x5EED) -> tuple[np.ndarray, np.ndar
     a = _splitmix32(idx * np.uint32(2) + np.uint32(seed)) | np.uint32(1)
     b = _splitmix32(idx * np.uint32(2) + np.uint32(1) + np.uint32(seed))
     return a, b
+
+
+def dim_inverses(a: np.ndarray) -> np.ndarray:
+    """The inverses of the odd ``a`` mod 2^32, by Newton's iteration
+    ``x <- x * (2 - a * x)``: ``x = a`` is right in the low 3 bits (an odd
+    square is 1 mod 8) and each step doubles them."""
+    a = np.asarray(a, np.uint32)
+    if a.size and not np.all(a & np.uint32(1)):
+        raise ValueError("only an odd coefficient has an inverse mod 2^32")
+    x = a.copy()
+    with np.errstate(over="ignore"):
+        for _ in range(4):  # 3 -> 6 -> 12 -> 24 -> 48 bits
+            x = (x * (np.uint32(2) - a * x)).astype(np.uint32)
+    return x
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -134,21 +153,51 @@ def fingerprint_plain(
     return min_hashes, min_counts
 
 
+def fingerprint_argmin_plain(tokens: PaddedTokens, ndim: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's method on the CPU: per dim only the min ``m`` of
+    ``a * g + b`` over the valid positions, then the count of valid positions
+    whose gram is ``a^-1 * (m - b)``. Equal to ``fingerprint_plain``."""
+    _check_ndim(ndim, WINDOW_WIDTHS)
+    per_width = ndim // len(WINDOW_WIDTHS)
+    batch, width = tokens.data.shape
+    grams = gram_hashes_plain(tokens.data.cpu())
+    lengths = tokens.lengths.cpu().to(torch.int64)[:, None]
+    a_np, b_np = dim_coefficients(ndim)
+    inv = torch.from_numpy(dim_inverses(a_np).astype(np.int64))
+    a, b = torch.from_numpy(a_np.astype(np.int64)), torch.from_numpy(b_np.astype(np.int64))
+    mins = torch.zeros((batch, ndim), dtype=torch.int64)
+    counts = torch.zeros((batch, ndim), dtype=torch.int64)
+    pos = torch.arange(width)[None, :]
+    for wi, w in enumerate(WINDOW_WIDTHS):
+        valid = pos <= (lengths - w).clamp(min=0)
+        g = grams[w]
+        for d in range(wi * per_width, (wi + 1) * per_width):
+            vals = torch.where(valid, (g * a[d] + b[d]) & _M32, 1 << 32)
+            m = vals.amin(1)
+            argmin_gram = (inv[d] * (m - b[d])) & _M32
+            mins[:, d] = m
+            counts[:, d] = (valid & (g == argmin_gram[:, None])).sum(1)
+    return _mix32(mins).to(torch.uint32), counts.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _coefficients_on(ndim: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def _coefficients_on(ndim: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(a, b, a^-1 mod 2^32), uint32[ndim] each on ``device``."""
     a, b = dim_coefficients(ndim)
-    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    return tuple(torch.from_numpy(x).to(device) for x in (a, b, dim_inverses(a)))
 
 
 def fingerprint_cuda(
     tokens: PaddedTokens, ndim: int = 256, with_counts: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """MinHash of every row by the CUDA kernel (widths 5, 9, 17, 33), on the
-    device. Launches asynchronously on the current stream."""
+    device. Launches asynchronously on the current stream. Rows too wide for
+    a block's shared memory on the card raise ``build.KernelLaunchError``
+    (the kernel sizes its shared memory and refuses the launch)."""
     data, lengths = tokens.data, tokens.lengths
     build.require_cuda_bytes(data, "fingerprint")
     _check_ndim(ndim, WINDOW_WIDTHS)
@@ -156,19 +205,16 @@ def fingerprint_cuda(
         raise ValueError(f"fingerprint: expected a [count, width] matrix with width % 4 == 0, got {tuple(data.shape)}")
     if lengths.dtype != torch.int32 or lengths.shape != (tokens.count,) or lengths.device != data.device:
         raise ValueError(f"fingerprint: lengths must be int32[{tokens.count}] on {data.device}")
-    smem = 25 * tokens.width
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fingerprint: rows of {tokens.width} B need {smem} B of shared memory, over {SMEM_LIMIT}")
     hashes = torch.empty((tokens.count, ndim), dtype=torch.uint32, device=data.device)
     counts = torch.empty((tokens.count, ndim), dtype=torch.int32, device=data.device) if with_counts else None
     if tokens.count == 0 or ndim == 0:
         return hashes, counts
-    a, b = _coefficients_on(ndim, data.device)
+    a, b, inv = _coefficients_on(ndim, data.device)
     lengths = lengths.contiguous()
     lib = build.library()
     with torch.cuda.device(data.device):
         code = lib.sw_fingerprint(
-            data.data_ptr(), tokens.count, tokens.width, lengths.data_ptr(), a.data_ptr(), b.data_ptr(), ndim,
+            data.data_ptr(), tokens.count, tokens.width, lengths.data_ptr(), a.data_ptr(), b.data_ptr(), inv.data_ptr(), ndim,
             hashes.data_ptr(), counts.data_ptr() if with_counts else None, build.stream_of(data),
         )
     build.check(code, "fingerprint")

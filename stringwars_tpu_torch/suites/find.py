@@ -86,8 +86,9 @@ def suite_needles(tape: Tape) -> tuple[list[bytes], list[bytes], list[bytes]]:
 
 def forward_routine(tape: Tape):
     """(routine, results): each call scans the next batch of every capacity
-    bucket (and the long needles) over the whole tape on its device;
-    ``results`` maps each scanned needle to its count."""
+    bucket (and the long needles) over the whole tape on its device, one
+    launch a batch and one read-back of all their counts; ``results`` maps
+    each scanned needle to its count."""
     _, panel, long = suite_needles(tape)
     by_cap: dict[int, list[bytes]] = {}
     for t in panel:
@@ -108,11 +109,10 @@ def forward_routine(tape: Tape):
 
     def routine() -> WorkUnits:
         k = next(calls)
-        scanned = 0
-        for groups in buckets:
-            needles, batch = groups[k % len(groups)]
-            results.update(zip(needles, F.find_count_batch(hay, batch, n)))
-            scanned += batch.size
+        staged = [groups[k % len(groups)] for groups in buckets]
+        counts = torch.cat([F.find_counts(hay, batch, n) for _, batch in staged]).tolist()  # one device sync
+        results.update(zip((t for needles, _ in staged for t in needles), counts))
+        scanned = len(counts)
         return WorkUnits(elements=scanned, bytes=scanned * n)
 
     return routine, results
@@ -123,10 +123,7 @@ def backward_routine(tape: Tape):
     of the cycle; ``results`` maps each needle to its (count, last offset)."""
     cycle, _, _ = suite_needles(tape)
     staged = F.NeedleBatch.from_needles([F.pack_needle(t, _needle_cap(t)) for t in cycle], tape.device)
-    singles = [
-        (t, F.NeedleBatch(staged.images[i : i + 1], staged.lengths[i : i + 1], (len(t),)))
-        for i, t in enumerate(cycle)
-    ]
+    singles = [(t, staged.row(i)) for i, t in enumerate(cycle)]
     hay, n = tape.data, tape.total_bytes
     order = itertools.cycle(singles)
     results: dict[bytes, tuple[int, int]] = {}

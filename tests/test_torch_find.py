@@ -118,6 +118,151 @@ def test_rfind_matches_pallas_interpret(hay, staged, cap, m):
             assert F.find_count(hay_t, _port(packed), n) == JP.find_count_pallas(staged, packed, interpret=True)
 
 
+def _filter_batches(hay: bytes) -> dict[str, list[bytes]]:
+    """The count kernel's batches, needles cut from ``hay`` (a match each)
+    or not in it: 1 to 4 B mixed with longer ones, duplicates, needles that
+    share a head or are prefixes of one another, and 1, 16, 64 and 1,100
+    needles (1,100: more than one block's counters, two chunks)."""
+    rng = np.random.default_rng(5)
+
+    def cut(m: int) -> bytes:
+        p = int(rng.integers(0, len(hay) - m))
+        return hay[p : p + m]
+
+    x, y, head = cut(8), cut(12), cut(12)
+    return {
+        "short-and-long": [b"a", b"ab", b"cab", b"abca", cut(5), cut(9), cut(13), cut(29), b"c", cut(2), b"d"],
+        "duplicates": [x, x, y, b"a", b"a", y, x],
+        "shared-heads": [head, head[:4] + b"dddd", head[:6], head[:4], head + b"d", head[:5], head[:1], head[:2], head[:3]],
+        "one": [cut(8)],
+        "16": [cut(int(m)) for m in rng.integers(1, 14, 16)],
+        "64": [cut(8) for _ in range(64)],
+        "1100": [cut(int(m)) for m in rng.integers(1, 14, 1100)],
+    }
+
+
+@pytest.mark.parametrize("name", ["short-and-long", "duplicates", "shared-heads", "one", "16", "64", "1100"])
+def test_filter_walk_matches_plain_and_pallas(hay, staged, name):
+    """The filter tables, walked window by window as the kernel probes them
+    (``filtered_count_plain``), count what ``find_count_batch_plain`` and the
+    Pallas kernel count, and find the last match the plain rfind finds."""
+    n = staged.n
+    needles = _filter_batches(hay[:n].tobytes())[name]
+    cap = max(4 if len(t) <= 13 else 8 for t in needles)
+    packed = [JF.pack_needle(t, cap) for t in needles]
+    batch = F.NeedleBatch.from_needles([_port(p) for p in packed])
+    hay_t = torch.from_numpy(hay)
+    counts, lasts = F.filtered_count_plain(hay_t, batch, n)
+    want = np.asarray(JP.find_count_cycle(staged, JP.NeedleBatch(staged, packed), interpret=True))
+    np.testing.assert_array_equal(counts, want)
+    for extent in (n, n - 3):
+        counts, lasts = F.filtered_count_plain(hay_t, batch, extent)
+        want_counts, want_lasts = F.rfind_count_batch_plain(hay_t, batch, extent)
+        np.testing.assert_array_equal(counts, want_counts.numpy())
+        np.testing.assert_array_equal(lasts, want_lasts.numpy())
+
+
+_NUL_BATCHES = {  # needles, and the filters the kernel is built for on their table
+    "one word, three lengths": ([b"a", b"a\0", b"\0", b"\0\0b"], 3),
+    "a and a-nul": ([b"a", b"a\0"], 2),
+    "nul and two nuls": ([b"\0", b"\0\0"], 2),
+    "one nul": ([b"\0"], 0),
+    "one key, two lengths past it": ([b"a\0\0\0\0", b"a\0\0\0"], 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NUL_BATCHES))
+def test_filter_walk_of_needles_with_nul_bytes(name):
+    """Needles whose keys are equal as words but of different lengths
+    (b"a" and b"a\\0") take one filter each, so the kernel's one-key
+    instance (``filters`` 0) is kept for a batch of one key length and one
+    key; the walk, which takes that instance where the kernel does, counts
+    what a byte-by-byte search counts."""
+    needles, want_filters = _NUL_BATCHES[name]
+    rng = np.random.default_rng(9)
+    hay = np.frombuffer(b"\0ab", np.uint8)[rng.integers(0, 3, 20_003)]
+    hay[rng.integers(0, hay.size - 5, 40)] = 0  # runs of NULs
+    batch = F.NeedleBatch.from_needles([F.pack_needle(t) for t in needles])
+    assert batch.filters(torch.device("cpu")).filters == want_filters
+    hay_t = torch.from_numpy(hay.copy())
+    for extent in (hay.size, hay.size - 3):
+        counts, lasts = F.filtered_count_plain(hay_t, batch, extent)
+        want_counts, want_lasts = F.rfind_count_batch_plain(hay_t, batch, extent)
+        np.testing.assert_array_equal(counts, want_counts.numpy())
+        np.testing.assert_array_equal(lasts, want_lasts.numpy())
+        brute = [_brute(hay[:extent].tobytes(), t) for t in needles]
+        assert counts.tolist() == [len(x) for x in brute] and min(counts) > 0
+
+
+def test_filter_walk_of_needles_past_the_halo(hay):
+    """Needles longer than the kernel's 1 KiB staged halo: the walk reads
+    them past it, as the kernel reads them from global memory."""
+    b = hay.tobytes()
+    needles = [b[5000:6100], b[N - 2000 :], b"a" * 600, b"a" * 700, b"a" * 701, b"d" * 1500, b[:1030]]
+    batch = F.NeedleBatch.from_needles([F.pack_needle(t) for t in needles])
+    hay_t = torch.from_numpy(hay)
+    for extent in (N, N - 1):
+        counts, lasts = F.filtered_count_plain(hay_t, batch, extent)
+        want_counts, want_lasts = F.rfind_count_batch_plain(hay_t, batch, extent)
+        np.testing.assert_array_equal(counts, want_counts.numpy())
+        np.testing.assert_array_equal(lasts, want_lasts.numpy())
+        brute = [_brute(b[:extent], t) for t in needles]
+        assert counts.tolist() == [len(x) for x in brute] and lasts.tolist() == [x[-1] if x else -1 for x in brute]
+
+
+def test_filter_table_layout():
+    """Two chunks for 1,100 needles; one filter a key length present, of 32
+    slots a distinct key (2^10 to 2^15); the bitmap holds exactly the slots
+    of its keys, and a slot's map entry leads to the pairs of exactly the
+    needles whose key takes it, the last one flagged; each needle's first
+    16 bytes and its length beside them."""
+    rng = np.random.default_rng(8)
+    needles = [bytes(rng.integers(97, 100, int(m), dtype=np.uint8)) for m in rng.integers(1, 21, 1100)]
+    batch = F.NeedleBatch.from_needles([F.pack_needle(t) for t in needles])
+    tables = batch.filters(torch.device("cpu"))
+    assert tables.chunks == 2 and tables.filters == 4
+    seen = []
+    for c in range(2):
+        chunk = tables.chunk(c)
+        lo, hi = chunk["lo"], chunk["hi"]
+        assert (lo, hi) == (1024 * c, min(1100, 1024 * (c + 1))) and chunk["longest"] == max(map(len, needles[lo:hi]))
+        assert chunk["lengths"].tolist() == [len(t) for t in needles[lo:hi]]
+        assert [row.tobytes() for row in chunk["prefix"]] == [t[:16].ljust(16, b"\0") for t in needles[lo:hi]]
+        key_lengths = sorted({min(4, len(t)) for t in needles[lo:hi]})
+        assert [L for L, *_ in chunk["filters"]] == key_lengths
+        for L, shift, bitmap, slot_map in chunk["filters"]:
+            mine = [i for i in range(lo, hi) if min(4, len(needles[i])) == L]
+            keys = np.array([int.from_bytes(needles[i][:L], "little") for i in mine], np.uint32)
+            bits = 32 - shift
+            assert bits == max(10, min(15, int(np.ceil(np.log2(32 * len(set(keys.tolist())))))))
+            slots = F.slot_of(keys, shift).tolist()
+            bits_set = {w * 32 + b for w in range(bitmap.size) for b in range(32) if bitmap[w] >> b & 1}
+            assert bits_set == set(np.flatnonzero(slot_map).tolist()) == set(slots)
+            for slot in set(slots):
+                entry, got = int(slot_map[slot]) - 1, []
+                while True:
+                    key, tag = (int(x) for x in chunk["pairs"][entry])
+                    got.append(lo + (tag & ~F.LAST_PAIR))
+                    assert key == int.from_bytes(needles[got[-1]][:L], "little")
+                    if tag & F.LAST_PAIR:
+                        break
+                    entry += 1
+                assert sorted(got) == sorted(i for i, k in zip(mine, slots) if k == slot)
+            seen += mine
+    assert sorted(seen) == list(range(1100))
+
+
+def test_batches_built_from_device_rows_build_the_same_filters():
+    """A batch built directly from another's rows (as the backward row and
+    ``chip_smoke.py`` do) reads its needles back for its tables."""
+    batch = F.NeedleBatch.from_needles([F.pack_needle(t) for t in (b"abc", b"hello", b"x")])
+    direct = F.NeedleBatch(batch.images[1:2], batch.lengths[1:2], batch.host_lengths[1:2])
+    cpu = torch.device("cpu")
+    for single in (direct, batch.row(1), F.NeedleBatch.from_needles([F.pack_needle(b"hello")])):
+        assert torch.equal(single.filters(cpu).table, batch.row(1).filters(cpu).table)
+    assert batch.row(1).host_images is not None and direct.host_images is None
+
+
 _SETS = {
     "tabs": b"\n\r\x0b\x0c",
     "html": b"</>&'\"=[]",

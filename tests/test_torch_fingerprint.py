@@ -81,6 +81,51 @@ def test_fingerprint_matches_the_spec_replay():
         np.testing.assert_array_equal(want_c, jax_c)
 
 
+def _periodic_docs() -> list[bytes]:
+    """Documents whose grams repeat (counts far above 1), and documents of
+    0 to 40 B of a-c, shorter and longer than each width (5, 9, 17, 33)."""
+    rng = np.random.default_rng(4)
+    periodic = [b"ab" * 600, b"z" * 1280, (b"the same line again\n" * 64)[:1280], b"abc" * 400, b"ab" * 3, b"z" * 40]
+    return periodic + [bytes(rng.integers(97, 100, k, dtype=np.uint8)) for k in range(41)]
+
+
+@pytest.mark.parametrize("ndim", [4, 8, 64, 256])
+def test_counts_from_the_argmin_match_plain_and_jax(ndim):
+    """The kernel's count method (only the min a dim, then the multiplicity
+    of the gram a^-1 * (m - b) among the valid positions) equals the count
+    of positions that reach the min, here and in the JAX package."""
+    ref, port = _both(_periodic_docs(), align=4)
+    got_h, got_c = F.fingerprint_argmin_plain(port, ndim)
+    want_h, want_c = F.fingerprint_plain(port, ndim)
+    np.testing.assert_array_equal(got_h.numpy(), want_h.numpy())
+    np.testing.assert_array_equal(got_c.numpy(), want_c.numpy())
+    jax_h, jax_c = JF.fingerprint_xla(ref, ndim=ndim, with_counts=True)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(jax_h))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(jax_c))
+    assert int(got_c.max()) > 600  # b"z" * 1280: 1276 positions share each gram
+
+
+def test_counts_from_the_argmin_match_the_pallas_kernel():
+    docs = [t or b"\x00" for t in _periodic_docs()]
+    ref, port = _both(docs, align=64)
+    want_h, want_c = JF.fingerprint(ref, ndim=16, with_counts=True, interpret=True)
+    got_h, got_c = F.fingerprint_argmin_plain(port, 16)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+
+
+def test_dim_inverses():
+    """a * a^-1 = 1 (mod 2^32) for every coefficient the kernel takes, and
+    for odd numbers at the edges; an even number has no inverse."""
+    for ndim in (4, 64, 512, 4096):
+        a, _ = F.dim_coefficients(ndim)
+        assert np.all((a.astype(np.uint64) * F.dim_inverses(a) & 0xFFFFFFFF) == 1)
+    edges = np.array([1, 3, 0xFFFFFFFF, 0x80000001, 0x9E3779B9], np.uint32)
+    assert np.all((edges.astype(np.uint64) * F.dim_inverses(edges) & 0xFFFFFFFF) == 1)
+    with pytest.raises(ValueError):
+        F.dim_inverses(np.array([2], np.uint32))
+
+
 def test_dim_coefficients_and_ndim_check():
     for ndim in (4, 64, 512):
         for got, want in zip(F.dim_coefficients(ndim), JF.dim_coefficients(ndim)):
