@@ -40,8 +40,13 @@ prints no result:
    once clamped, s = 2^128 - 1) over 0xFF blocks, and the RFC vector, also
    against ``poly1305_ref``; SHA-256 at the boundary lengths with junk past
    them at every bucket width of the hash suite (a token over 4,096 B
-   among them) and over the hash layouts, also against ``hashlib``; the
-   Threefry fill against the pinned ``jax.random.bits`` words);
+   among them), at every length 0..130 in rows of 4, 16, 64, 128 and 4,160
+   B, 16-byte aligned and at a 4-byte offset, and over the hash layouts,
+   also against ``hashlib``; the tree level at base offsets 0..15 around
+   the 16-byte units, its slices and chunks; find, rfind, Shift-And and
+   Aho-Corasick on views at offsets 1..15 of a 64 MB tape (the wrappers'
+   aligning copy timed at 64 MB); the Threefry fill against the pinned
+   ``jax.random.bits`` words);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -114,8 +119,12 @@ prints no result:
    bound from the alive slots and looked-up pairs that the plain version
    counts; and ``chacha20-xor-128MB``, ``poly1305-128MB``,
    ``aead-seal-128MB`` (the encryption suite's corpus call),
-   ``sha256-words-128MB`` (the hash suite's buckets) and
-   ``fill_random-128MB``.
+   ``sha256-words-128MB`` (the hash suite's buckets, with the kernel's SASS
+   split by pipe and the ALU pipe's ceiling) and ``fill_random-128MB``; the
+   tree level also at a byte offset of 1, the class map's and ``lut_map``'s
+   rows beside ``table[idx]`` where it computes the same function; and the
+   similarities, encryption and hash suites' calls traced as the suites
+   make them (``traced_call``: device ms by kernel, busy share, bound).
    The earlier suites run at a quarter second of warm-up and one second a
    row. A profiler trace that
    misses a kernel is taken again, up to three times; where all three miss
@@ -324,6 +333,82 @@ def myers_instructions(batch) -> int:
 # sm_90's DPX forms, by (gap model, local) (csrc/affine.cu lists them):
 # global affine 8, local affine 9, global linear 5, local linear 6.
 ALIGN_OPS = {("affine", False): 8, ("affine", True): 9, ("linear", False): 5, ("linear", True): 6}
+
+
+# SASS opcodes by the pipe that issues them on Hopper: the integer ALU
+# (64 lanes an SM) and the FMA pipe, which also takes IMAD in all its forms.
+ALU_OPCODES = {"IADD3", "LOP3", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL", "PRMT", "IABS", "IMNMX", "VIMNMX",
+               "VIMNMX3", "BMSK", "PLOP3", "MOV", "FLO", "BREV", "POPC", "IADD", "LOP"}
+FMA_OPCODES = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"}
+
+
+def sass_pipes(kernel: str) -> dict | None:
+    """Static SASS instruction counts of the built library's CUDA kernel
+    whose name contains ``kernel`` (``cuobjdump -sass``), split by pipe:
+    ``body`` is its largest basic block (the unrolled loop body); ``text``
+    gives it and the whole function's. None without ``cuobjdump``."""
+    import re
+    import shutil
+
+    from stringwars_tpu_torch import build
+
+    tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    dump = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True, text=True, timeout=300).stdout
+    blocks, current, inside = [], [], False
+    instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            current = []
+            if inside:
+                blocks.append(current)
+            continue
+        if not inside:
+            continue
+        if re.match(r"\s*\.L_x_\d+:", line):
+            current = []
+            blocks.append(current)
+            continue
+        hit = instruction.search(line)
+        if hit:
+            current.append(hit.group(1))
+            if hit.group(1) in ("BRA", "EXIT", "RET", "BRX", "JMP", "CALL"):
+                current = []
+                blocks.append(current)
+    if not any(blocks):
+        return None
+
+    def split(ops: list[str]) -> dict:
+        alu = sum(op in ALU_OPCODES for op in ops)
+        fma = sum(op in FMA_OPCODES for op in ops)
+        top = sorted({op: ops.count(op) for op in set(ops)}.items(), key=lambda kv: -kv[1])[:8]
+        return {"total": len(ops), "alu": alu, "fma": fma, "other": len(ops) - alu - fma, "top": top}
+
+    body, whole = split(max(blocks, key=len)), split([op for block in blocks for op in block])
+    text = (f"{kernel} body (largest basic block) {body['total']} instructions: ALU {body['alu']}, FMA {body['fma']}, "
+            f"other {body['other']} ({', '.join(f'{op} {n}' for op, n in body['top'])}); whole function "
+            f"{whole['total']}: ALU {whole['alu']}, FMA {whole['fma']}")
+    return {"body": body, "text": text}
+
+
+def table_index(idx: torch.Tensor, table: torch.Tensor):
+    """The one PyTorch call that computes a table map, ``table[idx]`` with
+    the int32 indices (the table widened to int32 once, outside the timed
+    call), and "" where every index lies inside the table and the call
+    equals the kernel; else None and why: the kernels clamp an index past
+    the table's ends (F6), which no single call does."""
+    from stringwars_tpu_torch.ops import lut as LU
+
+    lo, hi = int(idx.min()), int(idx.max())
+    if lo < 0 or hi >= table.numel():
+        return None, (f"; library: none (indices {lo}..{hi} reach past the {table.numel():,}-entry table, which the "
+                      f"kernel clamps and table[idx] does not)")
+    wide = table.to(torch.int32)
+    if not torch.equal(wide[idx], LU.class_map_cuda(idx, table)):
+        raise AssertionError("table[idx] differs from the class map kernel on indices inside the table")
+    return (lambda: wide[idx]), "; library: table[idx], int32 indices and table"
 
 
 def lowercase(n: int, seed: int, dev) -> torch.Tensor:
@@ -543,6 +628,89 @@ def find_worst_case(n: int, dev) -> tuple:
     return (torch.from_numpy(host).to(dev), batch, *find_worst_case_counts(host))
 
 
+def check_unaligned(dev, errors: dict, n: int = 64 << 20) -> int:
+    """The haystack scans at every misaligned offset: views ``hay[k:]``, k =
+    1..15, of 64 MB over the letters a-d (dense matches) through find, rfind
+    (counts and last offsets, relative to the view), Shift-And and
+    Aho-Corasick, each equal to the plain version (the CPU path) on the same
+    bytes; then the cost of the wrapper's aligning copy at that size, on a
+    line of its own. Returns the number of views checked."""
+    from stringwars_tpu_torch import build
+    from stringwars_tpu_torch.ops import ahocorasick as AC
+    from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC
+    from stringwars_tpu_torch.ops import find as F
+    from stringwars_tpu_torch.ops import find_cuda as FC
+    from stringwars_tpu_torch.ops import shiftand as SA
+    from stringwars_tpu_torch.ops import shiftand_cuda as SAC
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    hay = torch.randint(97, 101, (n + 16,), dtype=torch.uint8, device=dev, generator=g)
+    patterns = [b"a", b"abc", b"dcba", b"abcdab", b"bbbbbbbb", b"cadbcadb"]
+    batch = F.NeedleBatch.from_needles([F.pack_needle(p) for p in patterns], dev)
+    auto, sa = AC.Automaton(patterns), SA.ShiftAndSet(patterns)
+    checked = 0
+    for k in range(1, 16):
+        view = hay[k:]
+        extent = n + 16 - k - (k % 3)  # some views end before their last byte
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError(f"the view at offset {k} is aligned")
+        want_counts = F.find_count_batch_plain(view, batch, extent)
+        got_counts = FC.find_count_batch(view, batch, extent)
+        got_r, want_r = FC.rfind_count_batch(view, batch, extent), F.rfind_count_batch_plain(view, batch, extent)
+        errors["find_count"] = max(errors["find_count"], max_err(got_counts, want_counts))
+        errors["rfind_count"] = max(errors["rfind_count"], max_err(got_r[0], want_r[0]), max_err(got_r[1], want_r[1]))
+        want = AC.ac_count_plain(auto, view, extent)
+        errors["ac_dfa"] = max(errors["ac_dfa"], max_err(ACC.ac_count(auto, view, extent), want))
+        errors["shiftand"] = max(errors["shiftand"], max_err(SAC.shiftand_count(sa, view, extent), want))
+        if int(want.item()) == 0 or int(want_r[1].min().item()) < 0:
+            raise AssertionError(f"the unaligned view at offset {k} holds no match of some pattern")
+        checked += 1
+    view = hay[1 : n + 1]
+    copy_ms = time_ms(lambda: build.aligned_bytes(view, n))
+    phase("row", f"aligned-copy-64MB (the wrapper's copy of an unaligned {n:,}-byte haystack view): {copy_ms:.4f} ms "
+                 f"({2 * n / copy_ms / 1e6:.1f} GB/s read and written); an aligned view is passed as it is")
+    return checked
+
+
+def tree_extents() -> list[int]:
+    """Tree-level extents at the edges of the 16-byte units, the stripes,
+    the kernel's shared-memory slices, the chunks, and around 8 MB."""
+    from stringwars_tpu_torch.ops.hash import TREE_CHUNK
+    from stringwars_tpu_torch.ops.hash_cuda import TREE_SLICE as piece
+
+    edges = (16, 32, piece, 3 * piece, TREE_CHUNK, TREE_CHUNK + piece, 2 * TREE_CHUNK + 3 * piece, 8 << 20)
+    return sorted({e + d for e in edges for d in (-1, 0, 1)} | {0, 1, 15})
+
+
+def tree_levels_plain(cases: list) -> list[torch.Tensor]:
+    """``tree_level_plain`` of each (data, n) case, by one pass of the plain
+    XXH64 over all their chunks: the plain version's time is its 2,048
+    stripe steps, whatever the number of rows."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import hash as H
+
+    parts = [H._chunks_of(data, n) for data, n in cases]
+    joined = T.PaddedTokens(torch.cat([p.data for p in parts]), torch.cat([p.lengths for p in parts]), H.TREE_CHUNK)
+    return list(torch.split(H.xxh64_plain(joined, [0])[0], [p.count for p in parts]))
+
+
+def sha_rows(width: int, rng, dev):
+    """(tokens, aligned, shifted): a token of every length 0..min(130, width)
+    and one of the full width, 0xAB junk past each, as rows of ``width``
+    bytes, 16-byte aligned and at a 4-byte offset."""
+    from stringwars_tpu_torch import tape as T
+
+    tokens = [rng.integers(0, 256, k, dtype=np.uint8).tobytes() for k in list(range(min(130, width) + 1)) + [width]]
+    rows = np.full((len(tokens), width), 0xAB, np.uint8)
+    for i, t in enumerate(tokens):
+        rows[i, : len(t)] = np.frombuffer(t, np.uint8)
+    lens = torch.tensor([len(t) for t in tokens], dtype=torch.int32, device=dev)
+    aligned = torch.from_numpy(rows).to(dev)
+    shifted = torch.empty(rows.size + 16, dtype=torch.uint8, device=dev)[4 : 4 + rows.size].view(rows.shape)
+    shifted.copy_(aligned)
+    return tokens, T.PaddedTokens(aligned, lens, width), T.PaddedTokens(shifted, lens, width)
+
+
 def fingerprint_batches(dev) -> list:
     """The fingerprint kernel's check batches: 256 random documents of 1 to
     4,095 B with the empty one and short ones, in rows of 4,096 B and of
@@ -603,24 +771,35 @@ def fingerprint_cells(tokens, ndim: int) -> int:
     return int(positions) * (ndim // 4)
 
 
-def traced_call(name: str, call, launches, key: str, kernel: str, bound: tuple | None = None) -> None:
-    """One line for a suite's call: timed back to back (CUDA events), its
-    launches of ``key`` a call, its device ms a call in that kernel and in
-    the other torch ops (``torch.profiler`` over 20 calls; the kernel's share
-    is its traced mean a launch times its launches a call), and device busy,
-    the device time over the call's."""
+# CUDA launches a wrapper launch makes, where more than one (the MAC's runs
+# and fold): device_breakdown scales a kernel's traced mean by these.
+CUDA_LAUNCHES = {"poly1305": 2}
+
+
+def traced_call(name: str, call, launches, kernels: dict[str, str], bound: tuple | None = None) -> None:
+    """One line for a suite's call: timed back to back (CUDA events), the
+    launches a call of each kernel (launch counter -> substring of its CUDA
+    name), its device ms a call in each kernel and in the other torch ops
+    (``torch.profiler`` over 20 calls; a kernel's share is its traced mean a
+    launch times its launches a call) and a launch, device busy (the device
+    time over the call's), and the call's bound."""
     call_ms = time_ms(call)
-    before = launches()[key]
+    before = launches()
     call()
     torch.cuda.synchronize()
-    per_call = launches()[key] - before
-    split = device_breakdown(call, {key: kernel}, calls=20, launches={key: per_call})
+    per_call = {key: launches()[key] - before[key] for key in kernels}
+    split = device_breakdown(call, kernels, calls=20,
+                             launches={key: per_call[key] * CUDA_LAUNCHES.get(key, 1) for key in kernels})
     if split is None:
-        detail = f"not measured (no profiler trace in {TRACES} saw {kernel})"
+        detail = f"not measured (no profiler trace in {TRACES} saw {sorted(kernels.values())})"
     else:
-        detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; device busy {split['total'] / call_ms:.2f}"
+        detail = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        detail += "".join(f"; {k} {split[k] / per_call[k]:.4f} a launch" for k in kernels if per_call[k])
+        detail += f"; device busy {split['total'] / call_ms:.2f}"
     bound_text = f"; bound {bound[0]:.4f} ms ({bound[1]})" if bound else ""
-    phase("row", f"{name}: {call_ms:.4f} ms back to back, {per_call} launches; device ms per call: {detail}{bound_text}")
+    launches_text = ", ".join(f"{k} {v}" for k, v in per_call.items())
+    phase("row", f"{name}: {call_ms:.4f} ms back to back, launches a call {launches_text}; device ms per call: {detail}"
+                 f"{bound_text}")
 
 
 def find_fingerprint_rows(row, dev, flat: torch.Tensor, worst: tuple, find_tape, fp_tokens, launches) -> None:
@@ -665,12 +844,12 @@ def find_fingerprint_rows(row, dev, flat: torch.Tensor, worst: tuple, find_tape,
                  f"not a target")
     forward, _ = find_suite.forward_routine(find_tape)
     traced_call(f"find-suite-forward-{n // 10**6}MB (the find suite's forward call over {n:,} B)", forward, launches,
-                "find_count", "find_kernel", bound_ms(n, n))
+                {"find_count": "find_kernel"}, bound_ms(n, n))
     backward, _ = find_suite.backward_routine(find_tape)
     for _ in range(find_suite.CYCLE):  # each needle's filter table is staged at its first call, as in the suite's warm-up
         backward()
     traced_call(f"find-suite-backward-{n // 10**6}MB (the find suite's backward call, one needle)", backward, launches,
-                "rfind_count", "find_kernel", bound_ms(n, n))
+                {"rfind_count": "find_kernel"}, bound_ms(n, n))
 
     campaign = campaign_fingerprint_tokens(dev)
     cells = fingerprint_cells(campaign, 512)
@@ -690,7 +869,7 @@ def find_fingerprint_rows(row, dev, flat: torch.Tensor, worst: tuple, find_tape,
             text, bound_ms(text + 4 * fp_tokens.count + 8 * fp_tokens.count * ndim, 2 * cells + 9 * text),
             plain_samples=1, profiled="fingerprint_kernel")
         traced_call(f"fingerprint ndim {ndim} call (the suite's)", lambda: FP.fingerprint(fp_tokens, ndim=ndim), launches,
-                    "fingerprint", "fingerprint_kernel")
+                    {"fingerprint": "fingerprint_kernel"})
 
 
 def one_key_fork(name: str, hay: torch.Tensor, batch, dev) -> None:
@@ -893,10 +1072,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     empty32 = int(HC.xxh32(empty, [0]).to(torch.int64).item())
     if (empty64, empty32) != (0xEF46DB3751D8E999, 0x02CC5D05):
         raise AssertionError(f"XXH64('') = {empty64:#x}, XXH32('') = {empty32:#x}")
+    # The tree level: five extents of a 128 MB buffer, then every base
+    # offset 0..15 of an 8 MB one at extents around the 16-byte units, the
+    # pipeline's slices and the chunks.
     tree_buf = random_bytes((128 << 20) + 3, 6, dev)
     for extent in (0, 1, H.TREE_CHUNK, H.TREE_CHUNK + 1, tree_buf.numel()):
         errors["xxh64_tree"] = max(errors["xxh64_tree"], max_err(HC.tree_level(tree_buf, extent), H.tree_level_plain(tree_buf, extent)))
     del tree_buf
+    tree_buf = random_bytes((8 << 20) + 64, 7, dev)
+    tree_cases = [(tree_buf[offset:], extent) for offset in range(16) for extent in tree_extents()]
+    for (view, extent), want in zip(tree_cases, tree_levels_plain(tree_cases)):
+        errors["xxh64_tree"] = max(errors["xxh64_tree"], max_err(HC.tree_level(view, extent), want))
+    tree_levels = 5 + len(tree_cases)
+    del tree_buf, tree_cases
 
     fp_checked = check_fingerprint(dev, errors)
 
@@ -964,6 +1152,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         if got != [want, want]:
             raise AssertionError(f"small case {case}: {patterns} over {len(text)} B: kernels {got}, brute force {want}")
         mp_oracle += 1
+    unaligned_checked = check_unaligned(dev, errors)
 
     # Edit distances and alignment scores: pattern lengths across the word
     # edges against texts of 0..1100 B (empty sides included) in three
@@ -1341,6 +1530,21 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         sha_sets.append((tokens, T.PaddedTokens.from_numpy(rows, [len(t) for t in tokens], device=dev)))
     sha_sets.append((sweep, layouts[0]))
     sha_sets.append((sweep, layouts[1]))
+    # Every length 0..min(130, width) with junk past it, in rows of 4, 16,
+    # 64, 128 and 4,160 B, 16-byte aligned and at a 4-byte offset (the
+    # rows' 4-byte path): both layouts against one plain pass and hashlib.
+    for width in (4, 16, 64, 128, 4160):
+        tokens, aligned, shifted = sha_rows(width, rng, dev)
+        want = SHA.sha256_plain(aligned)
+        for padded in (aligned, shifted):
+            got = SHA.sha256_cuda(padded)
+            errors["sha256"] = max(errors["sha256"], max_err(got, want))
+            for i, digest in enumerate(SHA.digest_bytes(got)):
+                if digest.tobytes() != hashlib.sha256(tokens[i]).digest():
+                    raise AssertionError(f"SHA-256 of a {len(tokens[i])}-byte token in rows of {width} "
+                                         f"(data at {padded.data.data_ptr() % 16} mod 16) differs from hashlib")
+                sha_oracle += 1
+            sha_checks += 1
     for tokens, padded in sha_sets:
         got = SHA.sha256_cuda(padded)
         errors["sha256"] = max(errors["sha256"], max_err(got, SHA.sha256_plain(padded)))
@@ -1366,14 +1570,15 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "kernels",
         f"equal to plain on the card ({checked} needle scans (the worst case's {WORST_NEEDLES} needles a * k "
         f"held to its closed form), 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
-        f"{len(seed_sets)} seed sets, 5 tree levels, {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
+        f"{len(seed_sets)} seed sets, {tree_levels} tree levels (base offsets 0..15), {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
         f"none), 4 LUT views, 4 DP batches of "
         f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; alignment batches at the edges of "
         f"the kernel's lane groups and strips, (pairs, longest a, (lanes, rows)): {align_shapes}; "
         f"{mp_oracle} small multi-pattern cases "
-        f"equal brute force; class maps over 8 segmentation tables, pruned and whole, and two "
+        f"equal brute force; find, rfind, Shift-And and Aho-Corasick on {unaligned_checked} unaligned 64 MB views "
+        f"(offsets 1..15) equal the plain version; class maps over 8 segmentation tables, pruned and whole, and two "
         f"int32 tables; {scan_checks} fused scans of the kinds {SCAN_KINDS} up to {scan_n:,} positions, "
         f"{program_checks} of the 8 segmentation programs on random streams of 1 to {4 << 20:,} positions; the UAX#14 "
         f"rules over {lb_n:,} random positions covering every pair of classes; {expand_checks} expand-and-compact "
@@ -1497,7 +1702,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 raise AssertionError(f"SHA-256 of token {i} differs from hashlib")
         for counter in counters:
             counter.update({k: suite_launches[k] for k in counter})
-        hash_keep["buckets"] = ctx.staged
+        hash_keep.update(buckets=ctx.staged, tape=ctx.tape)
         phase(
             "main path",
             f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
@@ -1603,6 +1808,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors[kernel] = max(errors[kernel], err)
             if err:
                 raise AssertionError(f"{key}: the suite's scores differ from the plain version by {err}")
+        sim_keep["myers"] = {"uniform": by_bytes, "uniform-utf8": by_cps}
         phase(
             "main path",
             f"similarities suite: {batch.a.shape[0]:,} pairs of width {batch.width} ({batch.dp_cells():,} cells) on "
@@ -1839,7 +2045,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             raise AssertionError("a tampered tag opened")
         for counter in counters:
             counter.update({k: suite_launches[k] for k in counter})
-        enc_keep.update(corpus=corpus, sealed=staged["sealed"]["chacha20poly1305"])
+        enc_keep.update(corpus=corpus, sealed=staged["sealed"]["chacha20poly1305"], sample=sample)
         phase(
             "main path",
             f"encryption suite: {corpus.numel():,} B of synthetic:long-lines on {corpus.device}; both corpus seals "
@@ -1951,6 +2157,16 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "xxh64_tree",
         plain_samples=1,
     )
+    odd = flat[1:]  # the kernel's unaligned instance: each word two shared loads and a funnel shift
+    row(
+        "tree-hash64-level0-128MB-offset1",
+        lambda: HC.tree_level(odd, odd.numel()),
+        lambda: H.tree_level_plain(odd, odd.numel()),
+        odd.numel(),
+        bound_ms(odd.numel(), 9 * odd.numel() / 8),
+        plain_samples=1,
+    )
+    del odd
     row(
         "lut-translate-128MB",
         lambda: M.lut_translate_cuda(flat, lut),
@@ -2029,6 +2245,18 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     align_row(f"sw-affine-suite-{suite_pairs.count}x100B", suite_pairs, -5, -1, True)
     align_row(f"nw-linear-suite-{suite_pairs.count}x100B", suite_pairs, -2, -2, False, "linear")
     align_row(f"sw-linear-suite-{suite_pairs.count}x100B", suite_pairs, -2, -2, True)
+    # Rule 2's step 0: the similarities suite's calls as the suite makes
+    # them, traced (device ms a launch beside the bound at this shape).
+    for group, mb in sim_keep.pop("myers").items():
+        in_bytes = mb.planes.numel() * 8 + mb.text.numel() * 4 + 12 * mb.count
+        traced_call(f"levenshtein call (the similarities suite's {group}/swtorch::levenshtein, {mb.count:,} pairs, "
+                    f"nbits {mb.nbits})", lambda mb=mb: MY.myers_distances(mb), launches, {"myers": "myers_kernel"},
+                    bound_ms(in_bytes, myers_instructions(mb)))
+    in_bytes = (suite_pairs.pairs.a.numel() + suite_pairs.pairs.b.numel()) * 4 + 12 * suite_pairs.count
+    for group, go, ge in (("affine", -5, -1), ("linear", -2, -2)):
+        traced_call(f"{group} needleman_wunsch call (the similarities suite's {group}/swtorch::needleman_wunsch)",
+                    lambda go=go, ge=ge: AF.affine_scores(suite_pairs, sim_suite.MATCH, sim_suite.MISMATCH, go, ge, local=False),
+                    launches, {group: "align_kernel"}, bound_ms(in_bytes, ALIGN_OPS[(group, False)] * suite_pairs.cells()))
     del suite_pairs
 
     # The reference's own H100 cell (BASELINE.md:52,55-57): 1 KB ACGT reads
@@ -2107,9 +2335,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     n_cp = cps.numel()
     for label, max_cp, key in (("pruned", mcp, "class_map"), ("whole", None, None)):
         table = SEG._class_table("grapheme_break_table", max_cp, dev)
+        library, why = table_index(cps, table)
         row(f"class_map-128MB ({label}: {table.numel():,}-entry {table.dtype} table)",
             lambda table=table: LU.class_map_cuda(cps, table), lambda table=table: LU.class_map_plain(cps, table),
-            4 * n_cp, bound_ms(8 * n_cp), key, profiled="class_map_kernel")
+            4 * n_cp, bound_ms(8 * n_cp), key, profiled="class_map_kernel", library=library, note=why)
     cls = SEG._lead_cls(cps, lead, "grapheme_break_table", mcp)
     streams = {"v": cls, "f": lead}
     for scan_kind in SCAN_KINDS:
@@ -2185,9 +2414,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     row(f"range_map-fold-128MB ({stream.numel():,} codepoints, {simple.count} rules, {simple_table.numel():,}-entry int32 table)",
         lambda: LU.range_map_cuda(stream, simple_table, True), lambda: R.range_map_plain(stream, simple),
         4 * stream.numel(), bound_ms(8 * stream.numel()), "range_map", plain_samples=1, profiled="range_map_kernel")
+    library, why = table_index(stream, simple_table)
     row(f"lut_map-int32-128MB (the same codepoints and {simple_table.numel():,}-entry int32 table, no add)",
         lambda: LU.class_map_cuda(stream, simple_table), lambda: LU.class_map_plain(stream, simple_table),
-        4 * stream.numel(), bound_ms(8 * stream.numel()), profiled="class_map_kernel")
+        4 * stream.numel(), bound_ms(8 * stream.numel()), profiled="class_map_kernel", library=library, note=why)
     del decoded, stream, text
     frows, fmax_exp = norm_keep["rows"], norm_keep["max_exp"]
     ftables = EX.fold_tables(norm_keep["max_cp"])
@@ -2204,13 +2434,13 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     # time (``traced_call``; the find and BPE calls end in a count's .item()).
     a_rows, b_rows = norm_keep["compare_rows"]
     for name, call, kernel in (
-        ("utf8_fold", lambda: EX.fold_tokens_fused(frows, norm_keep["max_cp"]), ("expand", "expand_kernel")),
-        ("uncased_eq", lambda: CF.uncased_equal_batch(a_rows, b_rows), ("range_map", "range_map_kernel")),
-        ("uncased_find", lambda: int(F.cp_window_count(hay, hay.numel(), needle).item()), ("cp_window", "cp_window_kernel")),
+        ("utf8_fold", lambda: EX.fold_tokens_fused(frows, norm_keep["max_cp"]), {"expand": "expand_kernel"}),
+        ("uncased_eq", lambda: CF.uncased_equal_batch(a_rows, b_rows), {"range_map": "range_map_kernel"}),
+        ("uncased_find", lambda: int(F.cp_window_count(hay, hay.numel(), needle).item()), {"cp_window": "cp_window_kernel"}),
         ("bpe_encode", lambda: int(BPE.bpe_encode_fused(bpe["data"], bpe["lengths"], bpe_table)[1].sum().item()),
-         ("bpe", "bpe_kernel")),
+         {"bpe": "bpe_kernel"}),
     ):
-        traced_call(f"{name} call (the suite's)", call, launches, *kernel)
+        traced_call(f"{name} call (the suite's)", call, launches, kernel)
     norm_keep.clear()
     tok_keep.clear()
     del frows, hay, needle, a_rows, b_rows, bpe
@@ -2242,14 +2472,53 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lambda: tag_tensor(CC.aead_encrypt(key, seal_nonce, corpus)),
         lambda: tag_tensor(CC.aead_encrypt_plain(key, seal_nonce, corpus)), n_enc,
         bound_ms(2 * n_enc, 993 * (blocks64 + 1) + 70 * (blocks16 + 1)), plain_samples=1)
+    # Rule 2's step 0: the encryption suite's keygen calls (a key and a
+    # nonce, or a key alone, made on the card and read back) and one
+    # per-token call (64 seals), as the suite makes them, traced. Bounds:
+    # Threefry 73 operations a word; a seal 993 a keystream block (its
+    # blocks and the one-time key's) and 70 a MAC block (the text's and the
+    # lengths'), or twice its bytes.
+    keygen_seed = [0]
+
+    def keygen(n: int) -> None:
+        keygen_seed[0] += 1
+        M.fill_random(keygen_seed[0], n, dev).cpu()
+
+    for label, n_key in (("chacha20poly1305", 44), ("fill_random", 32)):
+        traced_call(f"keygen call (the encryption suite's keygen/swtorch::{label}, {n_key} B read back)",
+                    lambda n_key=n_key: keygen(n_key), launches, {"threefry": "threefry_kernel"},
+                    bound_ms(n_key, 73 * -(-n_key // 4)))
+    tokens = [torch.tensor(list(t), dtype=torch.uint8, device=dev) for t in enc_keep["sample"]]
+    seal_ops = sum(993 * (-(-t.numel() // 64) + 1) + 70 * (-(-t.numel() // 16) + 1) for t in tokens)
+    traced_call(f"seal call (the encryption suite's encryption/swtorch::chacha20poly1305: {len(tokens)} tokens of "
+                f"{sum(t.numel() for t in tokens):,} B, a seal each)",
+                lambda: [CC.aead_encrypt(key, enc_suite.counter_nonce(i), t) for i, t in enumerate(tokens)], launches,
+                {"chacha20_xor": "chacha_xor_kernel", "poly1305": "poly_"},
+                bound_ms(2 * sum(t.numel() for t in tokens), seal_ops))
     enc_keep.clear()
-    del corpus, key_dev
-    buckets = hash_keep.pop("buckets")
+    del corpus, key_dev, tokens
+    buckets, tape = hash_keep.pop("buckets"), hash_keep.pop("tape")
     sha_blocks = sum(int(((p.lengths.to(torch.int64) + 9 + 63) // 64).sum()) for p in buckets.buckets)
+    sha_bound = bound_ms(buckets.token_bytes + 36 * buckets.tokens, 1384 * sha_blocks)
+    pipes = sass_pipes("sha256_kernel")
+    if pipes is None:
+        sass_text = "; SASS pipe split not measured (no cuobjdump)"
+    else:
+        alu_ceiling = sha_blocks * pipes["body"]["alu"] / (132 * 64 * 1.98e9) * 1e3
+        sass_text = (f"; SASS {pipes['text']}; ALU-pipe ceiling {alu_ceiling:.4f} ms (the body's ALU instructions a block "
+                     f"at 64 a clock an SM, 132 SMs, 1.98 GHz)")
     row(f"sha256-words-128MB ({buckets.tokens:,} tokens in {len(buckets.buckets)} buckets, {sha_blocks:,} blocks)",
         lambda: tuple(SHA.sha256_cuda(p) for p in buckets.buckets), lambda: tuple(SHA.sha256_plain(p) for p in buckets.buckets),
-        buckets.token_bytes, bound_ms(buckets.token_bytes + 36 * buckets.tokens, 1384 * sha_blocks), "sha256", plain_samples=1)
-    del buckets
+        buckets.token_bytes, sha_bound, "sha256", plain_samples=1, note=sass_text)
+    # Rule 2's step 0: the hash suite's stateful call (both tree levels
+    # and the digest's .item()) and its checksum call over every bucket.
+    n_tree = tape.total_bytes
+    traced_call(f"tree_hash64 call (the hash suite's stateful/swtorch::tree_hash64 over {n_tree:,} B)",
+                lambda: H.tree_hash64(tape.data, n_tree), launches, {"xxh64_tree": "xxh64_tree_kernel"},
+                bound_ms(n_tree, 9 * n_tree / 8))
+    traced_call(f"sha256 call (the hash suite's checksum/swtorch::sha256 over its {len(buckets.buckets)} buckets)",
+                lambda: [SHA.sha256(p) for p in buckets.buckets], launches, {"sha256": "sha256_kernel"}, sha_bound)
+    del buckets, tape
     fill_words = 32 << 20
     row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),
         lambda: M.threefry_bits_plain(1, fill_words, dev), 4 * fill_words, bound_ms(4 * fill_words, 73 * fill_words), "threefry",

@@ -162,7 +162,7 @@ def stream_of(tensor: torch.Tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
-def require_cuda_bytes(tensor: torch.Tensor, what: str, *, aligned: bool = False) -> None:
+def require_cuda_bytes(tensor: torch.Tensor, what: str) -> None:
     """The checks every kernel wrapper makes on a byte-tensor argument."""
     if not isinstance(tensor, torch.Tensor) or tensor.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got {getattr(tensor, 'device', type(tensor))}")
@@ -170,5 +170,15 @@ def require_cuda_bytes(tensor: torch.Tensor, what: str, *, aligned: bool = False
         raise ValueError(f"{what}: expected uint8, got {tensor.dtype}")
     if not tensor.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
-    if aligned and tensor.data_ptr() % 16:
-        raise ValueError(f"{what}: expected a 16-byte aligned tensor")
+
+
+def aligned_bytes(tensor: torch.Tensor, n: int) -> torch.Tensor:
+    """``tensor`` itself when its first byte is 16-byte aligned (or ``n`` is
+    0); otherwise a copy of ``tensor[:n]`` into a fresh buffer, which the
+    allocator aligns. The haystack scans (find, Shift-And, Aho-Corasick)
+    read their input as 16-byte vectors from its first byte: a view at any
+    other offset costs one copy of its ``n`` bytes, and an aligned one
+    nothing."""
+    if n == 0 or tensor.data_ptr() % 16 == 0:
+        return tensor
+    return tensor[:n].clone()

@@ -209,59 +209,240 @@ xxh64_kernel(const uint8_t* __restrict__ data, int64_t rows, int64_t stride, con
   for (int j = 0; j < K; ++j) out[j * rows + row] = finish64(acc[j], seeds.v[j], tok.len, t);
 }
 
-// The tree level: XXH64 (seed 0) of each `chunk`-byte piece of n flat bytes.
-// A 64 KiB chunk is 2048 stripes of serial work, and 128 MB holds only 2048
-// chunks, so one thread per chunk leaves the card latency-bound. Here four
-// threads share a chunk, one per XXH64 lane (the lanes are independent until
-// the merge), each loading its 8 bytes of eight stripes ahead; the lanes
-// meet by warp shuffles and the first thread finishes the hash.
-template <bool kAligned8>
-__global__ void __launch_bounds__(kThreads)
-xxh64_tree_kernel(const uint8_t* __restrict__ data, int64_t chunks, int64_t chunk, int64_t n,
-                  uint64_t* __restrict__ out) {
-  const int64_t thread = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t row = thread >> 2;
-  const int lane = static_cast<int>(thread & 3);
-  const bool live = row < chunks;  // dead threads still join the shuffles
-  const int64_t start = live ? row * chunk : 0;
-  const int64_t len = live ? (n - start < chunk ? n - start : chunk) : 0;  // the last chunk short
-  const uint8_t* chunk_p = data + start;
-  const int64_t stripes = len >> 5;
+// -- the tree level -----------------------------------------------------------
+//
+// XXH64 (seed 0) of each `chunk`-byte piece of n flat bytes (tree_hash64's
+// levels). A 64 KiB chunk is 2,048 stripes of serial work, and 128 MB holds
+// only 2,048 chunks: four threads share a chunk, one per XXH64 lane (the
+// lanes are independent until the merge), and the lanes meet by warp
+// shuffles. What held the earlier form of this kernel (each lane eight
+// 8-byte loads ahead) at 18% of its byte bound was the bytes in flight: 8,192 threads
+// keep 512 KiB moving, where HBM at 3.35 TB/s and about 0.7 us of loaded
+// latency asks for over 2 MB. So the bytes come through shared memory by
+// bulk asynchronous copies (cp.async.bulk, the TMA's 1-D form):
+//
+// - A block is one warp and takes up to kTreeChunks = 4 consecutive chunks
+//   (fewer when the buffer has fewer chunks than SMs): 512 blocks at 128
+//   MB, 433 at the hash suite's 113 MB, four resident an SM.
+// - Each block has a ring of kTreeStages = 2 stages; stage k % 2 holds
+//   slice k (kTreeSlice = 6 KiB) of each of its chunks. One thread issues
+//   a slice's copies (one a chunk) on the stage's mbarrier with their byte
+//   count; the lanes wait on it, run the slice's 192 rounds from shared
+//   memory, meet at the block barrier, and the thread refills the stage
+//   with slice k + 2. One slice a chunk is in flight while the lanes hash
+//   the other: 6 KiB a chunk, about 12 MB on the card at 128 MB.
+// - Chosen on an H100 among variants of this kernel (PERF.md): the
+//   larger the slice the faster, up to the 6 KiB that two stages of four
+//   chunks allow at four blocks an SM; an L2 prefetch ahead of the copies
+//   made it slower; blocks of 2-8 chunks beat one block an SM of 16, whose
+//   single issuing thread and barrier tie all its chunks together, and
+//   blocks of one chunk; a range test on every word for the head and tail
+//   bytes cost more than patching the two slices that hold them.
+// - A chunk's slot is kTreePitch = 6 KiB + 32 B: the 16 bytes of head room
+//   a misaligned slice needs, and a stagger of 32 B a chunk, so the four
+//   chunks of a warp read four different 32-byte bank groups.
+// - Bulk copies take 16-byte aligned addresses and sizes: a slice is
+//   copied as the whole 16-byte units that cover it, clipped to the units
+//   that lie inside [data, data + n). The at most 15 bytes at the buffer's
+//   head and tail outside them are written into their slots from global
+//   memory by one thread (patch_slice), in the two slices that hold them;
+//   each chunk's tail past its last whole stripe is read by load_tail.
+//   Nothing past n is read. Chunks whose offset is not a multiple of 8
+//   read each word as two aligned 8-byte shared loads and a funnel shift
+//   (kAligned8 false: the tree-hash64-level0-128MB-offset1 row); the
+//   aligned instance reads one word a load, faster on the aligned buffers
+//   the suites pass than the funnel form with a zero shift.
+// - What is left is the lanes' chains: 2,048 dependent rounds a 64 KiB
+//   chunk, about 28 cycles each (29 us at 1.98 GHz), under the 40 us that
+//   one read of 128 MB takes.
+constexpr int kTreeStages = 2;
+constexpr int kTreeSlice = 6144;             // bytes of each chunk a stage holds (hash_cuda.TREE_SLICE)
+constexpr int kTreePitch = kTreeSlice + 32;  // a chunk's slot in a stage
+constexpr int kTreeChunks = 4;               // chunks a block, at most
 
-  uint64_t acc = lane == 0 ? kP64_1 + kP64_2 : lane == 1 ? kP64_2 : lane == 2 ? 0 : 0 - kP64_1;
-  const uint8_t* p = chunk_p + 8 * lane;
-  constexpr int kAhead = 8;
-  int64_t s = 0;
-  for (; s + kAhead <= stripes; s += kAhead) {
-    uint64_t w[kAhead];
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const uint8_t* q = p + 32 * (s + i);
-      if (kAligned8) {
-        w[i] = __ldg(reinterpret_cast<const unsigned long long*>(q));
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(shared_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_address(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(shared_address(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   shared_address(dst)),
+               "l"(src), "r"(bytes), "r"(shared_address(bar))
+               : "memory");
+}
+
+// 8 bytes at shared address p, r = p % 8: one load where the chunks are
+// 8-byte aligned (kAligned8), else two aligned loads and a funnel shift.
+template <bool kAligned8>
+__device__ __forceinline__ uint64_t load8_shared(const uint8_t* p, int r) {
+  if (kAligned8) return *reinterpret_cast<const uint64_t*>(p);
+  const uint64_t* a = reinterpret_cast<const uint64_t*>(p - r);
+  return r ? (a[0] >> (8 * r)) | (a[1] << (64 - 8 * r)) : a[0];
+}
+
+struct TreeGrid {
+  const uint8_t* data;
+  int64_t chunks, chunk, n;
+  int per_block;
+
+  __device__ __forceinline__ int64_t length(int64_t row) const {
+    const int64_t start = row * chunk;
+    return n - start < chunk ? n - start : chunk;
+  }
+  // Bytes of the chunk's whole stripes.
+  __device__ __forceinline__ int64_t body(int64_t row) const { return length(row) & ~int64_t{31}; }
+};
+
+// Slice k of chunk `row`: its bytes [lo, hi), the 16-byte unit that its
+// slot's first byte stands for, and the part [from, to) of the whole units
+// inside [data, data + n) that covers it (to <= from: none).
+struct TreeSlice {
+  uintptr_t lo, hi, unit, from, to;
+};
+
+__device__ __forceinline__ TreeSlice tree_slice(const TreeGrid& g, int64_t row, int k) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(g.data);
+  const int64_t at = static_cast<int64_t>(k) * kTreeSlice, body = g.body(row);
+  TreeSlice s;
+  s.lo = base + row * g.chunk + at;
+  s.hi = base + row * g.chunk + (at + kTreeSlice < body ? at + kTreeSlice : body);
+  s.unit = s.lo & ~uintptr_t{15};
+  const uintptr_t inside_lo = (base + 15) & ~uintptr_t{15}, inside_hi = (base + g.n) & ~uintptr_t{15};
+  const uintptr_t up = (s.hi + 15) & ~uintptr_t{15};
+  s.from = s.unit > inside_lo ? s.unit : inside_lo;
+  s.to = up < inside_hi ? up : inside_hi;
+  return s;
+}
+
+// Slice k of each chunk of the block into stage k % kTreeStages, on the
+// stage's barrier, as bulk copies of whole 16-byte units. One thread.
+__device__ __forceinline__ void issue_slice(const TreeGrid& g, int64_t first, int k, uint8_t* ring, uint64_t* full) {
+  const int stage = k % kTreeStages;
+  uint32_t total = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int c = 0; c < g.per_block && first + c < g.chunks; ++c) {
+      const TreeSlice s = tree_slice(g, first + c, k);
+      if (s.lo >= s.hi || s.to <= s.from) continue;
+      if (pass == 0) {
+        total += static_cast<uint32_t>(s.to - s.from);
       } else {
-        w[i] = 0;
-#pragma unroll
-        for (int b = 0; b < 8; ++b) w[i] |= uint64_t(q[b]) << (8 * b);
+        uint8_t* slot = ring + (static_cast<int64_t>(stage) * g.per_block + c) * kTreePitch;
+        bulk_copy(slot + (s.from - s.unit), reinterpret_cast<const void*>(s.from), static_cast<uint32_t>(s.to - s.from),
+                  &full[stage]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) acc = round64(acc, w[i]);
+    if (pass == 0) barrier_expect(&full[stage], total);
   }
-  for (; s < stripes; ++s) {
-    const uint8_t* q = p + 32 * s;
-    uint64_t w = 0;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) w |= uint64_t(q[b]) << (8 * b);
-    acc = round64(acc, w);
+}
+
+// The bytes of slice k that no bulk copy covers (at most 15 at the buffer's
+// head and 15 at its tail), written into the stage's slots from global
+// memory byte by byte. One thread; a block barrier follows.
+__device__ __forceinline__ void patch_slice(const TreeGrid& g, int64_t first, int k, uint8_t* ring) {
+  const int stage = k % kTreeStages;
+  for (int c = 0; c < g.per_block && first + c < g.chunks; ++c) {
+    const TreeSlice s = tree_slice(g, first + c, k);
+    uint8_t* slot = ring + (static_cast<int64_t>(stage) * g.per_block + c) * kTreePitch;
+    for (uintptr_t b = s.lo; b < s.hi; ++b) {
+      if (b >= s.from && b < s.to) {  // skip the copied units
+        b = s.to - 1;
+        continue;
+      }
+      slot[b - s.unit] = *reinterpret_cast<const uint8_t*>(b);
+    }
   }
+}
+
+template <bool kAligned8>
+__global__ void __launch_bounds__(32)
+xxh64_tree_kernel(TreeGrid g, uint64_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t ring[];  // [kTreeStages][per_block][kTreePitch]
+  __shared__ uint64_t full[kTreeStages];
+  const int local = static_cast<int>(threadIdx.x >> 2);
+  const int lane = static_cast<int>(threadIdx.x & 3);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * g.per_block;
+  const int64_t row = first + local;
+  const bool live = local < g.per_block && row < g.chunks;  // dead threads still join the barriers and shuffles
+  const uintptr_t base = reinterpret_cast<uintptr_t>(g.data);
+  const int64_t len = live ? g.length(row) : 0;
+  const int64_t body = len & ~int64_t{31};
+  const int slices = static_cast<int>((g.body(first) + kTreeSlice - 1) / kTreeSlice);  // the block's first chunk is its longest
+  // The slices with bytes outside the whole 16-byte units of [data, data +
+  // n): the buffer's first, when data is not 16-byte aligned, and the one
+  // that holds the buffer's last whole stripe (of its last chunk, or of the
+  // one before when the last has none), when it ends past the last unit.
+  const bool head = blockIdx.x == 0 && (base & 15) != 0;
+  const int64_t tail_row = g.body(g.chunks - 1) > 0 || g.chunks == 1 ? g.chunks - 1 : g.chunks - 2;
+  const bool tail_here = tail_row >= first && tail_row < first + g.per_block &&
+                         base + tail_row * g.chunk + g.body(tail_row) > ((base + g.n) & ~uintptr_t{15});
+  const int tail_slice = static_cast<int>((g.body(tail_row) - 1) / kTreeSlice);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTreeStages; ++i) barrier_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < slices && k < kTreeStages; ++k) issue_slice(g, first, k, ring, full);
+  }
+
+  uint64_t acc = lane == 0 ? kP64_1 + kP64_2 : lane == 1 ? kP64_2 : lane == 2 ? 0 : 0 - kP64_1;
+  const int head_offset = static_cast<int>((base + (live ? row : 0) * g.chunk) & 15);  // the chunk's first byte in its slots
+  const int r = head_offset & 7;  // its words' offset in the slots' 8-byte words
+  for (int k = 0; k < slices; ++k) {
+    const int stage = k % kTreeStages;
+    barrier_wait(&full[stage], static_cast<uint32_t>((k / kTreeStages) & 1));
+    if ((head && k == 0) || (tail_here && k == tail_slice)) {  // block-uniform, at most twice in a launch
+      if (threadIdx.x == 0) patch_slice(g, first, k, ring);
+      __syncthreads();
+    }
+    const int64_t at = static_cast<int64_t>(k) * kTreeSlice;
+    const int rounds = at < body ? static_cast<int>((body - at < kTreeSlice ? body - at : kTreeSlice) >> 5) : 0;
+    const uint8_t* slot = ring + (static_cast<int64_t>(stage) * g.per_block + local) * kTreePitch + head_offset + 8 * lane;
+    int s = 0;
+    for (; s + 8 <= rounds; s += 8) {
+      uint64_t w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[i] = load8_shared<kAligned8>(slot + 32 * (s + i), r);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = round64(acc, w[i]);
+    }
+    for (; s < rounds; ++s) acc = round64(acc, load8_shared<kAligned8>(slot + 32 * s, r));
+    __syncthreads();  // every lane is done with the stage
+    if (threadIdx.x == 0 && k + kTreeStages < slices) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue_slice(g, first, k + kTreeStages, ring, full);
+    }
+  }
+
   uint64_t accs[4];
-  const unsigned base = threadIdx.x & ~3u & 31u;
+  const unsigned quad = threadIdx.x & ~3u & 31u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) accs[i] = __shfl_sync(0xffffffffu, acc, base + i);
+  for (int i = 0; i < 4; ++i) accs[i] = __shfl_sync(0xffffffffu, acc, quad + i);
   if (!live || lane != 0) return;
   uint32_t t[8];
-  load_tail<false>(chunk_p + 32 * stripes, static_cast<int>(len & 31), len - 32 * stripes, t);  // never past n
+  load_tail<false>(g.data + row * g.chunk + body, static_cast<int>(len & 31), len - body, t);  // never past n
   out[row] = finish64(accs, 0, len, t);
 }
 
@@ -442,16 +623,32 @@ extern "C" int sw_xxh64(const void* data, int64_t rows, int64_t stride, const vo
 }
 
 // The tree level: XXH64 (seed 0) of each `chunk`-byte piece of n flat bytes,
-// [i*chunk, min((i+1)*chunk, n)), into out[chunks]; never reads past n.
+// [i*chunk, min((i+1)*chunk, n)), into out[chunks]; any base address and
+// extent, never reads past n.
 extern "C" int sw_xxh64_tree(const void* data, int64_t chunks, int64_t chunk, int64_t n, void* out, void* stream) {
-  const auto* bytes = static_cast<const uint8_t*>(data);
-  auto* digests = static_cast<uint64_t*>(out);
+  if (chunks <= 0 || chunk <= 0 || n < 0 || chunks != (n > 0 ? (n + chunk - 1) / chunk : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 132, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int64_t share = (chunks + sms - 1) / sms;  // chunks a block, for a block an SM
+  const int64_t fit = optin / (swt::kTreeStages * swt::kTreePitch);  // chunks whose ring fits a block's shared memory
+  const int64_t most = fit < swt::kTreeChunks ? fit : swt::kTreeChunks;
+  if (most < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = static_cast<int>(share < most ? share : most);
+  const swt::TreeGrid g{static_cast<const uint8_t*>(data), chunks, chunk, n, per_block};
+  const int blocks = static_cast<int>((chunks + per_block - 1) / per_block);
+  const int threads = 32;  // four lanes a chunk, in one warp
+  const size_t smem = static_cast<size_t>(swt::kTreeStages) * per_block * swt::kTreePitch;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int blocks = static_cast<int>((4 * chunks + swt::kThreads - 1) / swt::kThreads);
+  auto* digests = static_cast<uint64_t*>(out);
   if ((reinterpret_cast<uintptr_t>(data) & 7) == 0 && (chunk & 7) == 0) {
-    swt::xxh64_tree_kernel<true><<<blocks, swt::kThreads, 0, s>>>(bytes, chunks, chunk, n, digests);
+    cudaFuncSetAttribute(swt::xxh64_tree_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    swt::xxh64_tree_kernel<true><<<blocks, threads, smem, s>>>(g, digests);
   } else {
-    swt::xxh64_tree_kernel<false><<<blocks, swt::kThreads, 0, s>>>(bytes, chunks, chunk, n, digests);
+    cudaFuncSetAttribute(swt::xxh64_tree_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    swt::xxh64_tree_kernel<false><<<blocks, threads, smem, s>>>(g, digests);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,9 +51,12 @@ def check_chunk(chunk: int, what: str) -> int:
 def ac_count(automaton: Automaton, hay: torch.Tensor, n: int | None = None, *, chunk: int | None = None) -> torch.Tensor:
     """int64[1] on the device: occurrences of all patterns in ``hay[:n]``.
     ``chunk`` (see ``check_chunk``) defaults to ``kernel_chunk``; a caller
-    may name a short one to hold many chunk seams against the plain version."""
-    build.require_cuda_bytes(hay, "ac_count", aligned=True)
+    may name a short one to hold many chunk seams against the plain version.
+    A haystack that does not start 16-byte aligned is copied once
+    (``build.aligned_bytes``): the DFA's state runs from its first byte."""
+    build.require_cuda_bytes(hay, "ac_count")
     n = _extent(hay, n)
+    hay = build.aligned_bytes(hay, n)
     chunk = kernel_chunk(automaton.max_len) if chunk is None else check_chunk(chunk, "ac_count")
     regime = regime_of(automaton)
     if automaton.states >= 1 << 23:

@@ -32,8 +32,9 @@ def _check_batch(hay: torch.Tensor, batch: NeedleBatch) -> None:
 
 
 def _launch(hay: torch.Tensor, batch: NeedleBatch, n: int | None, with_last: bool):
-    build.require_cuda_bytes(hay, "find", aligned=True)
+    build.require_cuda_bytes(hay, "find")
     n = _extent(hay, n)
+    hay = build.aligned_bytes(hay, n)
     _check_batch(hay, batch)
     filters = batch.filters(hay.device)
     counts = torch.zeros(batch.size, dtype=torch.int64, device=hay.device)
@@ -52,13 +53,17 @@ def _launch(hay: torch.Tensor, batch: NeedleBatch, n: int | None, with_last: boo
 
 
 def find_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> torch.Tensor:
-    """int64[B] on the device: all-matches count of each needle in ``hay[:n]``."""
+    """int64[B] on the device: all-matches count of each needle in ``hay[:n]``.
+    A haystack that does not start 16-byte aligned is copied once
+    (``build.aligned_bytes``); the counts are the view's."""
     return _launch(hay, batch, n, with_last=False)[0]
 
 
 def rfind_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None):
     """(counts, lasts), int64[B] each on the device: counts and the last
-    match start of each needle in ``hay[:n]`` (-1 when none)."""
+    match start of each needle in ``hay[:n]`` (-1 when none), relative to
+    the view; an unaligned haystack is copied once, as ``find_count_batch``
+    says."""
     return _launch(hay, batch, n, with_last=True)
 
 

@@ -21,6 +21,10 @@ from stringwars_tpu_torch.tape import PaddedTokens
 # Launches of each kernel entry point since process start (or the last reset).
 LAUNCHES = {"xxh64": 0, "xxh64_tree": 0, "swh64": 0, "xxh32": 0}
 
+# Bytes of each chunk that one stage of the tree level's shared-memory ring
+# holds (csrc/hash.cu kTreeSlice): the checks cross its edges.
+TREE_SLICE = 6144
+
 
 def _check_tokens(tokens: PaddedTokens, what: str) -> None:
     build.require_cuda_bytes(tokens.data, what)

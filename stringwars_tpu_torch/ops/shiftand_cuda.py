@@ -23,9 +23,12 @@ LAUNCHES = {"shiftand": 0}
 def shiftand_count(sa: ShiftAndSet, hay: torch.Tensor, n: int | None = None, *, chunk: int | None = None) -> torch.Tensor:
     """int64[1] on the device: occurrences of all patterns in ``hay[:n]``.
     ``chunk`` (see ``ahocorasick_cuda.check_chunk``) defaults to the
-    wrapper's own choice."""
-    build.require_cuda_bytes(hay, "shiftand_count", aligned=True)
+    wrapper's own choice. A haystack that does not start 16-byte aligned is
+    copied once (``build.aligned_bytes``): the state runs from its first
+    byte."""
+    build.require_cuda_bytes(hay, "shiftand_count")
     n = _extent(hay, n)
+    hay = build.aligned_bytes(hay, n)
     chunk = kernel_chunk(sa.max_len) if chunk is None else check_chunk(chunk, "shiftand_count")
     out = torch.zeros(1, dtype=torch.int64, device=hay.device)
     if n == 0:

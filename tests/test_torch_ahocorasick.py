@@ -83,6 +83,19 @@ def test_plain_count_matches_jax_xla_host_and_brute(name):
     assert port.count_host(hay) == jax_auto.count_host(hay) == want
 
 
+@pytest.mark.parametrize("k", range(1, 16))
+def test_unaligned_views_match_jax(k):
+    """A view ``hay[k:]`` (not 16-byte aligned: the CUDA wrapper copies it
+    once) counts as the JAX function counts the same bytes."""
+    patterns = SETS["classic"]
+    hay = _hay(patterns, 4_200, seed=k)
+    n = 4_099
+    view = torch.from_numpy(hay.copy())[k:]
+    want = int(JA.ac_count(JA.Automaton(patterns), hay[k : k + n]))
+    assert want == brute_count(hay[k : k + n].tobytes(), patterns) > 0
+    assert A.ac_count(A.Automaton(patterns), view, n) == want
+
+
 def test_from_numpy_takes_the_jax_tables():
     patterns = SETS["random4"]
     jax_auto = JA.Automaton(patterns)

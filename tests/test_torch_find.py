@@ -88,6 +88,40 @@ def test_find_count_batch_and_short_extent_match_jax(hay):
         assert [c for c, _ in F.rfind_count_batch(hay_t, batch, n)] == want, n
 
 
+@pytest.mark.parametrize("k", range(1, 16))
+def test_unaligned_views_match_jax(hay, k):
+    """A view ``hay[k:]`` (not 16-byte aligned: the CUDA wrappers copy it
+    once) counts, and finds the last match, relative to the view, as the
+    JAX functions do on the same bytes."""
+    n = 4099
+    sub = hay[k : k + n]
+    needles = [nd for m in (1, 3, 8) for nd in (sub[:m].tobytes(), sub[n - m :].tobytes(), b"a" * m, b"d" * m)]
+    packed = [JF.pack_needle(nd, 4) for nd in needles]
+    batch = F.NeedleBatch.from_needles([_port(p) for p in packed])
+    view = torch.from_numpy(hay)[k:]
+    want = [(int(c), int(last)) for c, last in (JF.rfind_count(sub, p) for p in packed)]
+    assert F.find_count_batch(view, batch, n) == [int(JF.find_count(sub, p)) for p in packed] == [c for c, _ in want]
+    assert F.rfind_count_batch(view, batch, n) == want
+    assert want[0] == (len(_brute(sub.tobytes(), needles[0])), _brute(sub.tobytes(), needles[0])[-1])
+
+
+def test_aligned_bytes_copies_only_a_misaligned_view():
+    """The CUDA wrappers' guard: a view off a 16-byte boundary becomes a
+    fresh aligned copy of its first n bytes; an aligned one (or n = 0) is
+    passed as it is."""
+    base = torch.arange(1024, dtype=torch.int64).to(torch.uint8)
+    assert base.data_ptr() % 16 == 0
+    assert build.aligned_bytes(base, base.numel()) is base
+    view = base[16:]
+    assert build.aligned_bytes(view, 100) is view
+    for k in range(1, 16):
+        view = base[k:]
+        got = build.aligned_bytes(view, 100)
+        assert view.data_ptr() % 16 and got.data_ptr() % 16 == 0
+        assert torch.equal(got, view[:100]) and got.numel() == 100
+        assert build.aligned_bytes(view, 0) is view
+
+
 @pytest.fixture(scope="module")
 def staged(hay):
     return JP.StagedHaystack(hay[: 256 << 10])

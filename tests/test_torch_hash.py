@@ -148,6 +148,29 @@ def test_tree_hash64_matches_jax(n):
         assert got == xxhash.xxh64_intdigest(data.tobytes())
 
 
+# Extents at the edges of the 16-byte units, of a chunk and of the
+# kernel's shared-memory slices (hash_cuda.TREE_SLICE).
+TREE_SMALL = [0, 1, 15, 16, 17]
+TREE_LARGE = [H.TREE_CHUNK + d for d in (-1, 0, 1)] + [H.TREE_CHUNK + hash_cuda.TREE_SLICE + d for d in (-1, 0, 1)]
+
+
+@pytest.fixture(scope="module")
+def tree_buffer():
+    return np.random.default_rng(16).integers(0, 256, H.TREE_CHUNK + hash_cuda.TREE_SLICE + 32, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_tree_hash64_at_base_offsets_matches_jax(tree_buffer, offset):
+    """Views at every offset within a 16-byte unit (the CUDA kernel copies
+    the whole units and reads the rest with plain loads) hash as the JAX
+    tree_hash64 hashes the same bytes: the short extents at every offset,
+    and the extents around a chunk and a slice past it, one an offset (a
+    chunk's plain hash is the slow part on the CPU), each at 2-3 offsets."""
+    view = torch.from_numpy(tree_buffer)[offset:]
+    for n in TREE_SMALL + [TREE_LARGE[offset % len(TREE_LARGE)]]:
+        assert H.tree_hash64(view, n) == JH.tree_hash64(tree_buffer[offset : offset + n]), n
+
+
 def test_tree_level_reads_only_n_bytes():
     data = torch.from_numpy(np.random.default_rng(1).integers(0, 256, 3 * H.TREE_CHUNK, dtype=np.uint8))
     n = 2 * H.TREE_CHUNK + 5

@@ -48,6 +48,14 @@ def test_boundary_lengths_with_junk(width):
     _check(_tokens([n for n in BOUNDARY if n <= width] + [width], seed=width), width)
 
 
+# Every length 0..130 that fits, with junk past it: one to three blocks,
+# and the rows the kernel reads as one 16-byte vector (widths 16, 64, 128)
+# or as 4-byte words (width 4).
+@pytest.mark.parametrize("width", [4, 16, 64, 128])
+def test_every_length_with_junk(width):
+    _check(_tokens(list(range(min(130, width) + 1)), seed=width + 1), width)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_random_mixed_lengths(seed):
     rng = np.random.default_rng(seed)

@@ -130,6 +130,19 @@ def test_seams(chunk):
         assert JS.shiftand_count(JS.ShiftAndSet([b"needle", b"dle"]), hay, interpret=True) == 6000
 
 
+@pytest.mark.parametrize("k", range(1, 16))
+def test_unaligned_views_match_jax(k):
+    """A view ``hay[k:]`` (not 16-byte aligned: the CUDA wrapper copies it
+    once) counts as the JAX function counts the same bytes."""
+    patterns = SETS["four-words"]
+    hay = np.frombuffer(_planted(patterns, 4_200, seed=k), np.uint8)
+    n = 4_099
+    view = torch.from_numpy(hay.copy())[k:]
+    want = JS.shiftand_count(JS.ShiftAndSet(patterns), hay[k : k + n])
+    assert want == brute_count(patterns, hay[k : k + n].tobytes()) > 0
+    assert S.shiftand_count(S.ShiftAndSet(patterns), view, n) == want
+
+
 def test_two_words_match_jax():
     """tests/test_shiftand.py's seven-word set: two state words."""
     sa = S.ShiftAndSet(SEVEN)
