@@ -32,11 +32,14 @@ prints no result:
    the codepoint-window count at m = 1, 8, 129 and 300; the BPE merge loop
    over 512 and 30,000 merges, the shared-memory and global-memory table
    regimes (the 512-merge table in both), on the JAX tests' cases and at
-   every width 1..32, and 3,000 rows against ``bpe_encode_ref``; the ChaCha20
-   keystream XOR at lengths 0..1 MiB + 13 and the counters 0, 1 and
-   0xFFFFFFF0 (the wrap), at views of offsets 1..15, and the RFC 8439 §2.4.2
-   vector; Poly1305 at lengths 0..300, 65,536 and across its runs, partials
-   and fold, at offsets 1..15, under the adversarial key (r at its largest
+   every width 1..32, and 3,000 rows against ``bpe_encode_ref``, and at the
+   edges of its lane groups and hashed tables (chunks of short rows with one
+   of 32 B, shuffled rows, a table whose build drew its multipliers twice);
+   the ChaCha20 keystream XOR at lengths 0..1 MiB + 13 and the counters 0, 1
+   and 0xFFFFFFF0 (the wrap), at views of offsets 1..15, at the edges of its
+   2 KiB warp tiles and of its persistent ring with wraps inside a tile, and
+   the RFC 8439 §2.4.2 vector; Poly1305 at lengths 0..300, 65,536 and across
+   its runs, partials and fold, at offsets 1..15, under the adversarial key (r at its largest
    once clamped, s = 2^128 - 1) over 0xFF blocks, and the RFC vector, also
    against ``poly1305_ref``; SHA-256 at the boundary lengths with junk past
    them at every bucket width of the hash suite (a token over 4,096 B
@@ -117,7 +120,9 @@ prints no result:
    memory) and ``bpe-512m-4M`` (4,000,000 pretokens of the same corpus, the
    same table), by profiler device time beside the plain version and a
    bound from the alive slots and looked-up pairs that the plain version
-   counts; and ``chacha20-xor-128MB``, ``poly1305-128MB``,
+   counts (the first row with the kernel's SASS split by pipe); and
+   ``chacha20-xor-128MB`` (with the SASS split of the kernel's tile loop and
+   the ALU pipe's ceiling), ``poly1305-128MB``,
    ``aead-seal-128MB`` (the encryption suite's corpus call),
    ``sha256-words-128MB`` (the hash suite's buckets, with the kernel's SASS
    split by pipe and the ALU pipe's ceiling) and ``fill_random-128MB``; the
@@ -145,6 +150,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -342,12 +348,10 @@ ALU_OPCODES = {"IADD3", "LOP3", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL", "PRM
 FMA_OPCODES = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"}
 
 
-def sass_pipes(kernel: str) -> dict | None:
-    """Static SASS instruction counts of the built library's CUDA kernel
-    whose name contains ``kernel`` (``cuobjdump -sass``), split by pipe:
-    ``body`` is its largest basic block (the unrolled loop body); ``text``
-    gives it and the whole function's. None without ``cuobjdump``."""
-    import re
+@functools.lru_cache(maxsize=None)
+def sass_dump(library: str) -> str | None:
+    """``cuobjdump -sass`` of the built library (once a process), None
+    without ``cuobjdump``."""
     import shutil
 
     from stringwars_tpu_torch import build
@@ -355,7 +359,23 @@ def sass_pipes(kernel: str) -> dict | None:
     tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
         return None
-    dump = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True, text=True, timeout=300).stdout
+    return subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
+
+
+def sass_pipes(kernel: str, body_holds: str | None = None, library: str | None = None) -> dict | None:
+    """Static SASS instruction counts of the CUDA kernel whose (mangled) name
+    contains ``kernel`` in ``library`` (the built library by default;
+    ``cuobjdump -sass``), split by pipe: ``body`` is its largest basic block
+    (the unrolled loop body), or its largest that holds the opcode
+    ``body_holds``; ``text`` gives it and the whole function's. None without
+    ``cuobjdump``."""
+    import re
+
+    from stringwars_tpu_torch import build
+
+    dump = sass_dump(library or str(build.library_path()))
+    if dump is None:
+        return None
     blocks, current, inside = [], [], False
     instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
     for line in dump.splitlines():
@@ -386,7 +406,8 @@ def sass_pipes(kernel: str) -> dict | None:
         top = sorted({op: ops.count(op) for op in set(ops)}.items(), key=lambda kv: -kv[1])[:8]
         return {"total": len(ops), "alu": alu, "fma": fma, "other": len(ops) - alu - fma, "top": top}
 
-    body, whole = split(max(blocks, key=len)), split([op for block in blocks for op in block])
+    bodies = [block for block in blocks if body_holds is None or body_holds in block] or blocks
+    body, whole = split(max(bodies, key=len)), split([op for block in blocks for op in block])
     text = (f"{kernel} body (largest basic block) {body['total']} instructions: ALU {body['alu']}, FMA {body['fma']}, "
             f"other {body['other']} ({', '.join(f'{op} {n}' for op, n in body['top'])}); whole function "
             f"{whole['total']}: ALU {whole['alu']}, FMA {whole['fma']}")
@@ -758,6 +779,98 @@ def check_fingerprint(dev, errors: dict) -> int:
                 err = max(max_err(got_h, want_h), max_err(got_c, want_c) if counts else 0)
                 errors["fingerprint"] = max(errors["fingerprint"], err)
                 checked += 1
+    return checked
+
+
+def check_chacha_edges(dev, errors: dict) -> int:
+    """The ChaCha20 kernel's tiles (2 KiB a warp, ``CC.TILE_BYTES``) and its
+    persistent ring against ``chacha20_xor_plain``, exactly: lengths of a
+    tile less one byte, one, one plus one, and two sweeps of the ring (every
+    resident warp's tile, at the most warps an SM holds) plus whole tiles
+    and a partial block; counters whose wrap past 2^32 falls inside the
+    first tile, inside a later tile and at a tile's seam; views at offsets
+    1..16 (the direct path's 4-byte and byte forms, and the tiles at 16) of
+    lengths under and over a tile. Returns the streams checked."""
+    from stringwars_tpu_torch.ops import chacha as CC
+
+    rng = np.random.default_rng(41)
+    key, nonce = rng.integers(0, 256, 32, dtype=np.uint8).tobytes(), rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
+    tile = CC.TILE_BYTES
+    sweep = torch.cuda.get_device_properties(dev).multi_processor_count * 64 * tile  # 64 warps an SM at most
+    buf = random_bytes(2 * sweep + 7 * tile + 128, 42, dev)
+    checked = 0
+
+    def check(view: torch.Tensor, counter: int) -> None:
+        nonlocal checked
+        got = CC.chacha20_xor_cuda(key, nonce, view, counter)
+        errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(got, CC.chacha20_xor_plain(key, nonce, view, counter)))
+        checked += 1
+
+    lengths = (tile - 1, tile, tile + 1, 3 * tile + 64, 2 * sweep + 5 * tile + 37)
+    for n in lengths:
+        for counter in (1, 0xFFFFFFF0, 0xFFFFFFFF - 40, (1 << 32) - 32 * 3):
+            check(buf[:n], counter)
+    for off in range(1, 17):
+        for n in (1000, 5 * tile + 13):
+            check(buf[off : off + n], 7)
+    return checked
+
+
+def crowded_bpe_merges(seed: int = 0, count: int = 5) -> list[tuple[int, int]]:
+    """``count`` byte pairs whose keys all lie in bucket 0 under both
+    multipliers that ``build_hashed(seed=seed)`` draws first: their table's
+    build has to draw again (as ``tests/test_torch_bpe.py`` builds it)."""
+    from stringwars_tpu_torch.ops import bpe as BPE
+
+    mults = [int(m) | 1 for m in np.random.default_rng(seed).integers(0, 1 << 32, 2, dtype=np.uint64)]
+    keys = np.arange(1 << 16, dtype=np.uint32)
+    keys = (keys >> 8) << 16 | (keys & 0xFF)
+    shift = 32 - max(1, (count - 1).bit_length())  # the table's buckets: count at a load of one half
+    crowded = keys[(BPE.bucket_of(keys, mults[0], shift) == 0) & (BPE.bucket_of(keys, mults[1], shift) == 0)][:count]
+    return [(int(k) >> 16, int(k) & 0xFFFF) for k in crowded]
+
+
+def check_bpe_edges(dev, errors: dict) -> int:
+    """The BPE kernel's lane groups and hashed tables against
+    ``bpe_encode_plain``, exactly, in both table regimes: chunks of 8 rows
+    that mix rows of 1..4 B with rows of 32 B (groups of 32 lanes for the
+    whole chunk), a shuffled batch of 1..32 B, rows at every length
+    under each group size's edge (4, 5, 8, 9, 16, 17, 32), batches of 1..9
+    rows (a chunk's tail past the batch), and a table whose build drew a
+    second multiplier pair (five keys crowded into one bucket). Returns the
+    batches checked."""
+    from stringwars_tpu_torch.ops import bpe as BPE
+    from stringwars_tpu_torch.ops import bpe_cuda as BPC
+
+    rng = np.random.default_rng(43)
+
+    def words(alphabet: bytes, lo: int, hi: int, count: int) -> list[bytes]:
+        letters = np.frombuffer(alphabet, np.uint8)
+        return [rng.choice(letters, int(rng.integers(lo, hi + 1))).tobytes() for _ in range(count)]
+
+    mixed = words(b"abcd", 1, 4, 8000)
+    for at in rng.choice(len(mixed), 600, replace=False):
+        mixed[at] = words(b"abcd", 32, 32, 1)[0]
+    shuffled = words(b"abcde", 1, 32, 6000)
+    edges = [w for n in (3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32) for w in words(b"abc", n, n, 300)]
+    merges = BPE.train_merges(mixed + shuffled + edges, 300)
+    crowded = crowded_bpe_merges()
+    crowded_table = BPE.MergeTable.from_merges(crowded)
+    if crowded_table.hashed().attempts < 2:
+        raise AssertionError(f"the crowded BPE table was built at its first multipliers: {crowded_table.hashed()}")
+    letters = bytes(sorted({b for pair in crowded for b in pair}))
+    table = BPE.MergeTable.from_merges(merges)
+    cases = [(mixed, table), (shuffled, table), (edges, table), (words(letters, 0, 32, 4001), crowded_table)]
+    cases += [(words(b"abcd", 0, 32, n), table) for n in range(1, 10)]
+    checked = 0
+    for tokens, tab in cases:
+        rows_np, lens_np = BPE.pack_rows(tokens, 32)
+        rows_t, lens_t = torch.from_numpy(rows_np).to(dev), torch.from_numpy(lens_np).to(dev)
+        want = BPE.bpe_encode_plain(rows_t, lens_t, tab)
+        for global_table in (False, True):
+            got = BPC.bpe_encode(rows_t, lens_t, tab, global_table=global_table)
+            errors["bpe"] = max(errors["bpe"], max_err(got[0], want[0]), max_err(got[1], want[1]))
+            checked += 1
     return checked
 
 
@@ -1453,6 +1566,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 bpe_oracle += 1
     if bpe_regimes != {"shared", "global"}:
         raise AssertionError(f"the BPE checks missed a table regime: {bpe_regimes}")
+    if table_big.hashed().kicks == 0:
+        raise AssertionError("the 30,000-merge table's build moved no entry: its cuckoo kicks are unchecked")
+    bpe_edge_checks = check_bpe_edges(dev, errors)
     del bpe_cases, table512, table_big
     # ChaCha20: lengths 0..1 MiB + 13 at the counters 0, 1 and 0xFFFFFFF0
     # (the counter wraps), views at offsets 1..15 (the 4-byte and byte
@@ -1480,6 +1596,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         got = CC.chacha20_xor_cuda(cc_key, cc_nonce, view, 1)
         errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(got, CC.chacha20_xor_plain(cc_key, cc_nonce, view, 1)))
         cc_checks += 1
+    cc_edge_checks = check_chacha_edges(dev, errors)
     sunscreen = (b"Ladies and Gentlemen of the class of '99: If I could offer you "
                  b"only one tip for the future, sunscreen would be it.")
     rfc_ct = CC.chacha20_xor_cuda(bytes(range(32)), bytes.fromhex("000000000000004a00000000"),
@@ -1585,8 +1702,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"batches (UTF-8 rows of 32 and 64, naughty and random bytes, codepoint rows under 3 tables, max_exp 1..4); "
         f"range maps of {len(fold_rules)} fold rule sets and a fully pruned one; {window_checks} window counts at "
         f"m = 1, 8, 129, 300; {bpe_checks} BPE batches in the table regimes {sorted(bpe_regimes)} (512 and 30,000 "
-        f"merges; the JAX tests' cases, widths 1..32), {bpe_oracle} rows equal bpe_encode_ref; {cc_checks} ChaCha20 "
-        f"streams (counters 0, 1, 0xFFFFFFF0; offsets 1..15) and the RFC 8439 §2.4.2 vector; {poly_checks} Poly1305 "
+        f"merges; the JAX tests' cases, widths 1..32), {bpe_oracle} rows equal bpe_encode_ref, {bpe_edge_checks} at the "
+        f"edges of the lane groups and hashed tables (mixed chunks, shuffled rows, a redrawn table); {cc_checks} ChaCha20 "
+        f"streams (counters 0, 1, 0xFFFFFFF0; offsets 1..15), {cc_edge_checks} at the tiles' and the ring's edges "
+        f"(wraps inside tiles, offsets 1..16), and the RFC 8439 §2.4.2 vector; {poly_checks} Poly1305 "
         f"tags, {poly_oracle} equal poly1305_ref, the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
         f"hashlib; Threefry equal to the pinned jax.random.bits; launches {advanced}",
         started,
@@ -2379,6 +2498,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     staged_4m = time.perf_counter() - started_4m
     del by_length, tok_keep["text"]
     data_4m, lens_4m = torch.from_numpy(rows_4m).to(dev), torch.from_numpy(lens_4m).to(dev)
+    bpe_pipes = sass_pipes("bpe_kernelILb1E")  # the shared-table instance
+    bpe_sass = "; SASS pipe split not measured (no cuobjdump)" if bpe_pipes is None else f"; SASS {bpe_pipes['text']}"
     for label, data_b, lens_b, key, global_table in (
         ("bpe-512m-400k", bpe["data"], bpe["lengths"], "bpe", False),
         ("bpe-512m-400k-global", bpe["data"], bpe["lengths"], None, True),
@@ -2395,7 +2516,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             int(lens_b.sum()), bound_ms(moved, operations), key, plain_samples=1, profiled="bpe_kernel",
             note=f"; {int(rounds.sum()):,} row iterations (mean {float(rounds.float().mean()):.2f}, max {int(rounds.max())}) "
                  f"over {slots:,} alive slots and {pairs:,} pairs looked up: {operations:,} operations, {moved:,} B moved"
-                 + (f"; staged in {staged_4m:.1f} s" if data_b is data_4m else ""))
+                 + (f"; staged in {staged_4m:.1f} s" if data_b is data_4m else "") + (bpe_sass if key else ""))
     del rows_4m, data_4m, lens_4m, data_b, lens_b
 
     # Case folding at the normalization suite's shapes (the same corpus):
@@ -2458,9 +2579,16 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     key, n_enc = enc_suite.KEY, enc_keep["corpus"].numel()
     key_dev = torch.tensor(list(key), dtype=torch.uint8, device=dev)
     blocks64, blocks16 = -(-n_enc // 64), -(-n_enc // 16)
+    cc_pipes = sass_pipes("chacha_xor_kernel", "STS")  # the tile loop: its block stores the keystream to shared memory
+    if cc_pipes is None:
+        cc_sass = "; SASS pipe split not measured (no cuobjdump)"
+    else:
+        cc_ceiling = blocks64 * cc_pipes["body"]["alu"] / (132 * 64 * 1.98e9) * 1e3
+        cc_sass = (f"; SASS {cc_pipes['text']}; ALU-pipe ceiling {cc_ceiling:.4f} ms (the tile loop's ALU instructions, "
+                   f"one block a lane, at 64 a clock an SM, 132 SMs, 1.98 GHz)")
     row(f"chacha20-xor-128MB ({n_enc:,} B)", lambda: CC.chacha20_xor_cuda(key, seal_nonce, corpus),
         lambda: CC.chacha20_xor_plain(key, seal_nonce, corpus), n_enc, bound_ms(2 * n_enc, 993 * blocks64), "chacha20_xor",
-        plain_samples=1)
+        plain_samples=1, note=cc_sass)
     row(f"poly1305-128MB ({n_enc:,} B, raw mode)", lambda: CC.poly1305_cuda(key_dev, corpus),
         lambda: torch.tensor(list(CC.poly1305_plain(key, corpus)), dtype=torch.uint8, device=dev), n_enc,
         bound_ms(n_enc, 70 * blocks16), "poly1305", plain_samples=1)

@@ -55,7 +55,7 @@ SIGNATURES = {
     "sw_cp_window": (_P, _N, _P, _N, _P, _P),
     "sw_fused_scan": (_P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _N, _N, _P),
     "sw_lb_rules": (_P, _N, _P, _P),
-    "sw_bpe": (_P, _N, _N, _P, _P, _N, _N, _P, _P, _P),
+    "sw_bpe": (_P, _N, _N, _P, _P, _N, _N, _N, _N, _P, _P, _P),
     "sw_threefry_bits": (_N, _N, _N, _P, _P),
     "sw_chacha20_xor": (_P, _P, _N, _P, _P, _N, _P),
     "sw_poly1305": (_P, _N, _P, _N, _N, _P, _P, _N, _P, _P),

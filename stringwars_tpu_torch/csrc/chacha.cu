@@ -10,15 +10,39 @@
 // each way: 80 us at 3.35 TB/s) against 993 32-bit instructions a 64-byte
 // block (80 quarter rounds of 12, 16 feed-forward adds, 16 XORs with the
 // data, the counter's add): 2.1 G for 128 MiB, 62 us at 33.4 T/s; the two
-// are close. The design: one thread
-// per 64-byte block, its 16 state words in registers for all 20 rounds
-// (rotations are funnel shifts), the block's data loaded before the rounds
-// as four 16-byte vectors so the loads are in flight while the rounds run.
-// The TPU's word-major [steps, 16, 8, 128] relayout and its 1,024-block
-// granularity are not carried over: the kernel reads the bytes where they
-// lie, at any length and any offset (16-byte vectors where both buffers are
-// 16-byte aligned, 4-byte words where they are 4-byte aligned, else bytes),
-// and the partial last block byte by byte, so the host pads nothing.
+// are close. The TPU's word-major [steps, 16, 8, 128] relayout and its
+// 1,024-block granularity are not carried over: the kernel reads the bytes
+// where they lie, at any length and any offset, so the host pads nothing.
+// The design:
+//
+// - One thread a 64-byte block, its 16 state words in registers for all 20
+//   rounds. Rotations by 16 and 8 are byte permutes (PRMT), by 12 and 7
+//   funnel shifts (SHF). nvcc already issues nearly all the adds as IMADs
+//   on the FMA pipe (tile loop, per block: about 320 IMAD, 330 LOP3, 160
+//   SHF, 160 PRMT and no IADD3 in the rounds; an ALU-pipe ceiling of about
+//   0.083 ms for 128 MiB), so the adds are written as adds: forcing them
+//   onto the FMA pipe by a multiply by a runtime 1 (sha256.cu) spilled
+//   registers here and was slower on an H100 (PERF.md;
+//   tools/hopper_probes.py chacha times both).
+// - Tiles. Where both buffers are 16-byte aligned, a warp takes 2 KiB at a
+//   time, the 32 blocks of its lanes: it loads and stores them as
+//   lane-contiguous 16-byte vectors (a warp instruction moves 512
+//   contiguous bytes), and the keystream goes through 2 KiB of shared
+//   memory a warp from the lane that computed it to the lanes that hold
+//   its data. The 16-byte pieces lie there under an XOR swizzle (ks_slot),
+//   so that both the lanes writing their blocks' four pieces and the lanes
+//   reading the tile's contiguous pieces meet no bank conflict. The earlier
+//   form loaded and stored each block's four vectors from its own thread,
+//   so a warp instruction touched 32 sectors at a 64-byte stride.
+// - The grid is persistent (the blocks that are resident at once) and each
+//   warp walks its tiles with the next tile's 2 KiB loaded into registers
+//   while the rounds of this one run. On an H100 the kernel then takes
+//   about the time of the same loads and stores without the rounds.
+// - The bytes past the last whole tile, unaligned views and short messages
+//   (the AEAD's one-time key, the suites' per-token seals) take the direct
+//   path, one thread a block: 16-byte vectors where both buffers are
+//   16-byte aligned, 4-byte words where they are 4-byte aligned, else
+//   bytes, and the partial last block byte by byte.
 //
 // sw_poly1305 replaces the XLA limb products of
 // stringwars_tpu/ops/chacha.py::_poly_chunk_partials (:219) and the host
@@ -65,9 +89,9 @@ struct ChachaKey {
 };
 
 __device__ __forceinline__ void quarter(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d) {
-  a += b; d = rotl32_cc(d ^ a, 16);
+  a += b; d = __byte_perm(d ^ a, 0, 0x1032);  // rotate by 16
   c += d; b = rotl32_cc(b ^ c, 12);
-  a += b; d = rotl32_cc(d ^ a, 8);
+  a += b; d = __byte_perm(d ^ a, 0, 0x2103);  // rotate by 8
   c += d; b = rotl32_cc(b ^ c, 7);
 }
 
@@ -93,36 +117,83 @@ __device__ __forceinline__ void chacha_block(const ChachaKey& k, uint32_t counte
   for (int i = 0; i < 16; ++i) x[i] += s[i];
 }
 
-// vec: 16 when in and out are 16-byte aligned, 4 when 4-byte aligned, else 1.
+constexpr int kTileBlocks = 32;                 // 64-byte blocks a warp's tile: one a lane
+constexpr int64_t kTileBytes = 64 * kTileBlocks;  // 2 KiB (ops/chacha.TILE_BYTES)
+constexpr int kTileVecs = kTileBlocks * 4;      // its 16-byte pieces, four a lane
+
+// The shared-memory slot of a tile's 16-byte piece i (block i / 4, quarter
+// i % 4): the quarter XOR bits 1-2 of the block. Eight lanes storing their
+// blocks' quarter q (blocks 8j..8j+7) and eight lanes loading pieces
+// 32q + 8j..8j+7 (blocks 8q+2j, 8q+2j+1) each cover the 32 banks once.
+__device__ __forceinline__ int ks_slot(int i) {
+  const int b = i >> 2;
+  return (b << 2) | ((i & 3) ^ ((b >> 1) & 3));
+}
+
+__device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) { return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w); }
+
+// vec: 16 when in and out are 16-byte aligned, 4 when 4-byte aligned, else
+// 1; the tiles only at 16.
 __global__ void __launch_bounds__(kThreads)
 chacha_xor_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int64_t n, ChachaKey k,
                   uint32_t counter0, int vec) {
+  __shared__ uint4 ks_tiles[kThreads / 32][kTileVecs];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tiles = vec == 16 ? n / kTileBytes : 0;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const uint4* src = reinterpret_cast<const uint4*>(in);
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  uint4* tile = ks_tiles[warp];
+  int64_t t = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + warp;
+  uint4 d[4];
+  if (t < tiles) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __ldg(src + t * kTileVecs + 32 * q + lane);
+  }
+  while (t < tiles) {
+    const int64_t next = t + warps;
+    const int64_t ahead = next < tiles ? next : t;  // the last tile reloads itself (cached), not past n
+    uint4 dn[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dn[q] = __ldg(src + ahead * kTileVecs + 32 * q + lane);
+    uint32_t x[16];
+    chacha_block(k, counter0 + static_cast<uint32_t>(t * kTileBlocks + lane), x);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tile[ks_slot(4 * lane + q)] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[t * kTileVecs + 32 * q + lane] = xor4(d[q], tile[ks_slot(32 * q + lane)]);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = dn[q];
+    t = next;
+  }
+  // The direct path: the blocks past the whole tiles, one thread a block.
   const int64_t blocks = (n + 63) >> 6;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; b < blocks; b += stride) {
+  for (int64_t b = tiles * kTileBlocks + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; b < blocks;
+       b += stride) {
     const int64_t off = b << 6;
     const uint32_t counter = counter0 + static_cast<uint32_t>(b);
     uint32_t ks[16];
     if (off + 64 <= n && vec == 16) {
-      const uint4* src = reinterpret_cast<const uint4*>(in + off);
-      uint4 d[4];
+      const uint4* from = reinterpret_cast<const uint4*>(in + off);
+      uint4 v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) d[q] = __ldg(src + q);
+      for (int q = 0; q < 4; ++q) v[q] = __ldg(from + q);
       chacha_block(k, counter, ks);
-      uint4* dst = reinterpret_cast<uint4*>(out + off);
+      uint4* to = reinterpret_cast<uint4*>(out + off);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        dst[q] = make_uint4(d[q].x ^ ks[4 * q], d[q].y ^ ks[4 * q + 1], d[q].z ^ ks[4 * q + 2], d[q].w ^ ks[4 * q + 3]);
-      }
+      for (int q = 0; q < 4; ++q) to[q] = xor4(v[q], make_uint4(ks[4 * q], ks[4 * q + 1], ks[4 * q + 2], ks[4 * q + 3]));
     } else if (off + 64 <= n && vec == 4) {
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(in + off);
-      uint32_t d[16];
+      const uint32_t* from = reinterpret_cast<const uint32_t*>(in + off);
+      uint32_t v[16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) d[i] = __ldg(src + i);
+      for (int i = 0; i < 16; ++i) v[i] = __ldg(from + i);
       chacha_block(k, counter, ks);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(out + off);
+      uint32_t* to = reinterpret_cast<uint32_t*>(out + off);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) dst[i] = d[i] ^ ks[i];
+      for (int i = 0; i < 16; ++i) to[i] = v[i] ^ ks[i];
     } else {  // unaligned, or the partial last block: byte by byte
       const int64_t rem = n - off;
       chacha_block(k, counter, ks);
@@ -389,8 +460,12 @@ extern "C" int sw_chacha20_xor(const void* data, void* out, int64_t n, const voi
   memcpy(k.nonce, nonce12, 12);
   const uintptr_t both = reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(out);
   const int vec = (both & 15) == 0 ? 16 : ((both & 3) == 0 ? 4 : 1);
-  const int64_t blocks = (n + 63) >> 6;
-  swt::chacha_xor_kernel<<<swt::stream_blocks(blocks), swt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t tiles = vec == 16 ? n / swt::kTileBytes : 0;
+  // A message of whole tiles fills the resident blocks; a shorter one
+  // launches a thread a block and no occupancy query.
+  const int grid = tiles > 0 ? swt::resident_grid(swt::chacha_xor_kernel, 0, (tiles + swt::kThreads / 32 - 1) / (swt::kThreads / 32))
+                             : swt::stream_blocks((n + 63) >> 6);
+  swt::chacha_xor_kernel<<<grid, swt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), n, k, static_cast<uint32_t>(counter), vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,11 @@ any width ``W`` (``PaddedTokens`` would round it up to a multiple of 4).
   ``left << 16 | right`` (u32) sorted for a binary search, the merge rank
   and the new id. ``from_merges`` builds it from a merge list (ids
   ``256 + rank``); ``from_numpy`` takes the JAX table's arrays. Device
-  copies are staged once per table and device and kept on the object.
+  copies are staged once per table and device and kept on the object,
+  with the table the CUDA kernel reads: ``build_hashed``'s two-choice
+  bucketed cuckoo hash (``HashedTable``), built once per table.
+- ``lookup_hashed_plain``: the kernel's lookup in torch ops, bucket for
+  bucket; ``_lookup`` is the binary search that ``bpe_encode_plain`` uses.
 - ``train_merges``: the JAX package's greedy trainer, merge for merge (the
   most frequent adjacent pair, ties to the smaller pair ids, stop below a
   count of 2), kept incremental: pair counts and the words that hold each
@@ -22,14 +26,14 @@ any width ``W`` (``PaddedTokens`` would round it up to a multiple of 4).
   merged-away slots become -1 holes; one stable compaction follows the loop.
 - ``bpe_encode`` / ``bpe_encode_fused``: the dispatchers, under the JAX
   names. A CUDA batch of width 1..32 takes the CUDA kernel
-  (``ops/bpe_cuda.py``, one warp a row); a wider one takes
+  (``ops/bpe_cuda.py``, rows in lane groups of a warp); a wider one takes
   ``bpe_encode_plain`` on the card, where the JAX package sends it
   (``bpe_pallas.py:226-227`` -> ``bpe.bpe_encode``): a route by shape. A CPU
   batch takes ``bpe_encode_plain``.
 
 Not ported: ``MergeTable.rule_maps`` and ``_rule_encoder``. They walk the
 table as sparse range rules because gathers are slow on a TPU; the card
-reads a sorted table directly.
+reads a hashed table directly.
 """
 
 from __future__ import annotations
@@ -45,6 +49,92 @@ INF = 0x7FFFFFFF  # rank of a pair that no merge names
 KEY_SHIFT = 16  # ids < 2^16: key = left << 16 | right
 MAX_MERGES = (1 << 16) - 256
 KERNEL_WIDTH = 32  # rows up to this width take the kernel: a lane a slot
+_M32 = 0xFFFFFFFF
+HASH_SLOTS = 2  # entries a bucket of the hashed table: 16 bytes, one load
+EMPTY_VALUE = 0xFFFFFFFF  # an empty entry's value: no rank reaches 0xFFFF
+_MAX_KICKS = 256  # entries moved before an insertion gives up on a multiplier pair
+_MAX_ATTEMPTS = 64  # multiplier pairs drawn before the build gives up
+
+
+@dataclasses.dataclass(frozen=True)
+class HashedTable:
+    """A merge table as a two-choice bucketed cuckoo hash, as
+    ``csrc/bpe.cu`` reads it. ``buckets`` is uint32[nb, 2, 2]: each entry
+    (key, rank << 16 | new id), an empty one (``empty_key``, EMPTY_VALUE),
+    where ``empty_key`` is no merge's key. Key k lies in one of its two
+    buckets, ``(k * mults[i] mod 2^32) >> shift``, nb = 2^(32 - shift).
+    ``attempts``: the multiplier pairs drawn; ``kicks``: the entries the
+    last attempt moved to their other bucket."""
+
+    buckets: np.ndarray
+    mults: tuple[int, int]
+    shift: int
+    empty_key: int
+    attempts: int
+    kicks: int
+
+
+def bucket_of(keys: np.ndarray, mult: int, shift: int) -> np.ndarray:
+    """int64: the bucket ``(key * mult mod 2^32) >> shift`` of each u32 key."""
+    return (((keys.astype(np.uint64) * np.uint64(mult)) & np.uint64(_M32)) >> np.uint64(shift)).astype(np.int64)
+
+
+def build_hashed(keys, values, seed: int = 0) -> HashedTable:
+    """Place each ``keys[i]`` (u32, unique) with ``values[i]`` (u32, never
+    EMPTY_VALUE) by cuckoo insertion into nb buckets of 2, nb the smallest
+    power of two (at least 2) that keeps the load at or under one half.
+    The odd multipliers come from ``numpy.random.default_rng(seed)``, drawn
+    again until every key is placed; the kicks' choices too, so a seed
+    gives one table."""
+    keys = np.asarray(keys).astype(np.uint32)
+    values = np.asarray(values).astype(np.uint32)
+    if keys.ndim != 1 or values.shape != keys.shape:
+        raise ValueError(f"expected keys and values of one length, got {keys.shape}, {values.shape}")
+    if np.unique(keys).size != keys.size:
+        raise ValueError("duplicate keys")
+    if (values == EMPTY_VALUE).any():
+        raise ValueError(f"a value may not be {EMPTY_VALUE:#x}, the empty entry's")
+    bits = 1
+    while (HASH_SLOTS << bits) < 2 * keys.size:
+        bits += 1
+    nb, shift = 1 << bits, 32 - bits
+    empty_key = int(np.setdiff1d(np.arange(keys.size + 1, dtype=np.uint32), keys)[0])  # the smallest u32 that is no key
+    rng = np.random.default_rng(seed)
+    for attempt in range(1, _MAX_ATTEMPTS + 1):
+        mults = tuple(int(m) | 1 for m in rng.integers(0, 1 << 32, 2, dtype=np.uint64))
+        homes = np.stack([bucket_of(keys, m, shift) for m in mults], 1).tolist()
+        slots = [[] for _ in range(nb)]  # key indices a bucket
+        kicks = 0
+        placed = True
+        for i in range(keys.size):
+            item = i
+            for _ in range(_MAX_KICKS):
+                b1, b2 = homes[item]
+                if len(slots[b1]) < HASH_SLOTS:
+                    slots[b1].append(item)
+                    item = -1
+                    break
+                if len(slots[b2]) < HASH_SLOTS:
+                    slots[b2].append(item)
+                    item = -1
+                    break
+                # Both full: take a random entry's place, and move that entry on.
+                b = (b1, b2)[int(rng.integers(2))]
+                j = int(rng.integers(HASH_SLOTS))
+                slots[b][j], item = item, slots[b][j]
+                kicks += 1
+            if item >= 0:
+                placed = False
+                break
+        if placed:
+            buckets = np.empty((nb, HASH_SLOTS, 2), np.uint32)
+            buckets[:, :, 0], buckets[:, :, 1] = empty_key, EMPTY_VALUE
+            for b, items in enumerate(slots):
+                for j, item in enumerate(items):
+                    buckets[b, j] = keys[item], values[item]
+            buckets.setflags(write=False)
+            return HashedTable(buckets, mults, shift, empty_key, attempt, kicks)
+    raise ValueError(f"no multiplier pair placed {keys.size} keys in {nb} buckets after {_MAX_ATTEMPTS} draws")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,18 +185,26 @@ class MergeTable:
             a.setflags(write=False)
         return cls(keys, ranks, new_ids, int(vocab_size))
 
+    def hashed(self) -> HashedTable:
+        """The table as the kernel reads it (``build_hashed``, seed 0), built
+        once: entries ``(key, rank << 16 | new_id)``."""
+        if "hashed" not in self.staged:
+            values = (self.ranks.astype(np.uint32) << 16) | self.new_ids.astype(np.uint32)
+            self.staged["hashed"] = build_hashed(self.sorted_keys, values)
+        return self.staged["hashed"]
+
     def on(self, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(keys int64[M], ranks int32[M], new_ids int32[M], packed
-        int32[M, 2])`` on ``device``; ``packed`` holds each entry as the
-        kernel reads it: the key, then ``rank << 16 | new_id`` (u32 bits)."""
+        """``(keys int64[M], ranks int32[M], new_ids int32[M], buckets
+        int32[nb, 4])`` on ``device``; ``buckets`` holds ``hashed()``'s
+        entries as the kernel reads them, key then value (u32 bits)."""
         device = torch.device(device)
         if device not in self.staged:
-            packed = np.stack([self.sorted_keys, (self.ranks.astype(np.uint32) << 16) | self.new_ids.astype(np.uint32)], 1)
+            buckets = self.hashed().buckets.reshape(-1, 2 * HASH_SLOTS)
             self.staged[device] = (
                 torch.from_numpy(self.sorted_keys.astype(np.int64)).to(device),
                 torch.from_numpy(self.ranks.copy()).to(device),
                 torch.from_numpy(self.new_ids.copy()).to(device),
-                torch.from_numpy(np.ascontiguousarray(packed).view(np.int32)).to(device),
+                torch.from_numpy(buckets.view(np.int32).copy()).to(device),
             )
         return self.staged[device]
 
@@ -224,6 +322,25 @@ def _lookup(keys: torch.Tensor, table: MergeTable) -> tuple[torch.Tensor, torch.
     idx = torch.searchsorted(sorted_keys, keys).clamp(max=table.size - 1)
     hit = sorted_keys[idx] == keys
     return torch.where(hit, ranks[idx], INF), torch.where(hit, new_ids[idx], -1)
+
+
+def lookup_hashed_plain(keys: torch.Tensor, table: MergeTable) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_lookup`` as the kernel does it, in torch ops: each u32 key's two
+    buckets of ``table.hashed()`` and the value of the entry that holds
+    it, EMPTY_VALUE for none (an empty entry's key is no merge's)."""
+    hashed = table.hashed()
+    buckets = table.on(keys.device)[3].to(torch.int64) & _M32  # [nb, 4]: key, value, key, value
+    k = keys.to(torch.int64) & _M32
+    value = torch.full_like(k, EMPTY_VALUE)
+    for mult in hashed.mults:
+        # (k * mult) mod 2^32 from 16-bit halves of mult: no product reaches 2^63.
+        low = (k * (mult & 0xFFFF) + (((k * (mult >> 16)) & 0xFFFF) << 16)) & _M32
+        entries = buckets[low >> hashed.shift]
+        hit = torch.where(entries[..., 0::2] == k[..., None], entries[..., 1::2], EMPTY_VALUE)
+        value = torch.minimum(value, hit.min(-1).values)
+    found = value != EMPTY_VALUE
+    return (torch.where(found, value >> 16, INF).to(torch.int32),
+            torch.where(found, value & 0xFFFF, -1).to(torch.int32))
 
 
 def bpe_encode_plain(data: torch.Tensor, lengths: torch.Tensor, table: MergeTable, *,

@@ -7,11 +7,12 @@ without synchronizing, raises on a CUDA launch error, and adds one to
 ``LAUNCHES["bpe"]``. A CPU tensor raises: the plain version is
 ``ops/bpe.bpe_encode_plain``.
 
-The kernel reads the merge table in one of two regimes (``regime_of``): a
-table of up to ``SHARED_MERGES`` entries is staged in shared memory per
-block, a larger one is read from global memory through the read-only cache.
-``global_table=True`` asks for the second at any size, to time the two
-against each other.
+The kernel encodes several rows a warp, in lane groups, and looks pairs up
+in the table's hashed form (``MergeTable.hashed``: two buckets of two
+entries a key), in one of two regimes (``regime_of``): a hashed table of up
+to ``SHARED_BYTES`` is staged in shared memory per block, a larger one is
+read from global memory through the read-only cache. ``global_table=True``
+asks for the second at any size, to time the two against each other.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ from stringwars_tpu_torch.ops.bpe import KERNEL_WIDTH, MergeTable, check_batch
 
 # Launches of the kernel since process start (or the last reset).
 LAUNCHES = {"bpe": 0}
-SHARED_MERGES = 6144  # 48 KiB of 8-byte entries: the most a launch stages without an opt-in
+SHARED_BYTES = 48 << 10  # the most a launch stages without an opt-in: 2,048 buckets, up to 2,048 merges
 
 
 def regime_of(table: MergeTable, global_table: bool = False) -> str:
     """Where the kernel reads ``table``: "shared" or "global" memory."""
-    return "shared" if table.size <= SHARED_MERGES and not global_table else "global"
+    return "shared" if table.hashed().buckets.nbytes <= SHARED_BYTES and not global_table else "global"
 
 
 def bpe_encode(data: torch.Tensor, lengths: torch.Tensor, table: MergeTable, *,
@@ -45,16 +46,15 @@ def bpe_encode(data: torch.Tensor, lengths: torch.Tensor, table: MergeTable, *,
     if lengths.dtype != torch.int32:
         raise ValueError(f"bpe: expected int32 lengths, got {lengths.dtype}")
     lengths = lengths.contiguous()
-    packed = table.on(data.device)[3]
+    buckets, hashed = table.on(data.device)[3], table.hashed()
     ids = torch.empty((rows, width), dtype=torch.int32, device=data.device)
     counts = torch.empty(rows, dtype=torch.int32, device=data.device)
     if rows:
         lib = build.library()
         with torch.cuda.device(data.device):
             code = lib.sw_bpe(
-                data.data_ptr(), rows, width, lengths.data_ptr(), packed.data_ptr() if table.size else None,
-                table.size, int(regime_of(table, global_table) == "shared"), ids.data_ptr(), counts.data_ptr(),
-                build.stream_of(data),
+                data.data_ptr(), rows, width, lengths.data_ptr(), buckets.data_ptr(), buckets.shape[0], *hashed.mults,
+                int(regime_of(table, global_table) == "shared"), ids.data_ptr(), counts.data_ptr(), build.stream_of(data),
             )
         build.check(code, "bpe")
         LAUNCHES["bpe"] += 1

@@ -44,6 +44,7 @@ _CONSTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"
 _P1305 = (1 << 130) - 5
 _CLAMP = 0x0FFFFFFC0FFFFFFC0FFFFFFC0FFFFFFF
 _POLY_SPAN = 16 * 256  # message blocks per partial of csrc/chacha.cu's first pass
+TILE_BYTES = 2048  # a warp's tile in csrc/chacha.cu's keystream kernel: 32 blocks
 
 
 def _check_key_nonce(key: bytes, nonce: bytes, nonce_len: int = 12) -> None:

@@ -17,6 +17,14 @@ from stringwars_tpu_torch.ops import ahocorasick as A
 from stringwars_tpu_torch.ops import ahocorasick_cuda
 
 
+@pytest.fixture(autouse=True)
+def fresh_reference_cache():
+    """The JAX package caches an automaton's rules and LUTs by ``id()``
+    (ROADMAP F2): an automaton made at the address of one that an earlier
+    test let die would read that one's rules. Each test starts empty."""
+    JA._flat_rules_cache().clear()
+
+
 def brute_count(hay: bytes, patterns: list[bytes]) -> int:
     total = 0
     for p in patterns:

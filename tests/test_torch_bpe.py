@@ -102,12 +102,18 @@ def test_merge_table_arrays_equal_jax(rng):
     np.testing.assert_array_equal(table.ranks, np.asarray(jt.ranks))
     np.testing.assert_array_equal(table.new_ids, np.asarray(jt.new_ids))
     assert table.vocab_size == jt.vocab_size and table.sorted_keys.dtype == np.uint32
-    keys, ranks, new_ids, packed = table.on("cpu")
-    assert table.on("cpu")[3] is packed  # staged once per device
-    p = packed.numpy().view(np.uint32)
-    np.testing.assert_array_equal(p[:, 0], table.sorted_keys)
-    np.testing.assert_array_equal(p[:, 1] >> 16, table.ranks)
-    np.testing.assert_array_equal(p[:, 1] & 0xFFFF, table.new_ids)
+    keys, ranks, new_ids, buckets = table.on("cpu")
+    assert table.on("cpu")[3] is buckets and table.hashed() is table.hashed()  # staged and built once
+    hashed = table.hashed()
+    entries = buckets.numpy().view(np.uint32).reshape(-1, B.HASH_SLOTS, 2)
+    np.testing.assert_array_equal(entries, hashed.buckets)
+    homes = [B.bucket_of(table.sorted_keys, m, hashed.shift) for m in hashed.mults]
+    for i, key in enumerate(table.sorted_keys):  # each entry once, in one of its key's two buckets
+        where = [(b, j) for b in {homes[0][i], homes[1][i]} for j in range(B.HASH_SLOTS) if entries[b, j, 0] == key]
+        assert len(where) == 1
+        value = entries[where[0]][1]
+        assert (value >> 16, value & 0xFFFF) == (table.ranks[i], table.new_ids[i])
+    assert (entries[:, :, 1] == B.EMPTY_VALUE).sum() == entries.shape[0] * B.HASH_SLOTS - table.size
 
 
 def test_merge_table_validation_equals_jax():
@@ -123,6 +129,100 @@ def test_merge_table_validation_equals_jax():
         B.MergeTable.from_numpy(keys, [0, 1 << 16], [256, 257], 258)  # rank past 16 bits
     with pytest.raises(ValueError):
         B.MergeTable.from_numpy(keys, [0], [256, 257], 258)  # lengths differ
+
+
+# --- the hashed table the kernel reads ---------------------------------------
+
+
+def merges_with_random_pairs(rng, total: int) -> list[tuple[int, int]]:
+    """512 merges trained on fuzzed words, then random pairs up to ``total``."""
+    merges = B.train_merges(words(rng, b"abcde", 1, 16, 2000), 512)
+    seen = set(merges)
+    while len(merges) < total:
+        pair = (int(rng.integers(0, 256 + len(merges))), int(rng.integers(0, 256 + len(merges))))
+        if pair not in seen:
+            seen.add(pair)
+            merges.append(pair)
+    return merges
+
+
+def crowded_merges(seed: int = 0, count: int = 5) -> list[tuple[int, int]]:
+    """``count`` byte pairs whose keys all lie in bucket 0 under both of the
+    first multipliers that ``build_hashed(seed=seed)`` draws, among the 8
+    buckets of 5 keys: one bucket cannot hold them, so the build draws again."""
+    mults = [int(m) | 1 for m in np.random.default_rng(seed).integers(0, 1 << 32, 2, dtype=np.uint64)]
+    keys = np.arange(1 << 16, dtype=np.uint32)  # left << 16 | right over byte pairs ...
+    keys = (keys >> 8) << 16 | (keys & 0xFF)
+    shift = 32 - max(1, (count - 1).bit_length())  # the table's buckets: count at a load of one half
+    crowded = keys[(B.bucket_of(keys, mults[0], shift) == 0) & (B.bucket_of(keys, mults[1], shift) == 0)][:count]
+    return [(int(k) >> 16, int(k) & 0xFFFF) for k in crowded]
+
+
+@pytest.mark.parametrize("total", [512, 30_000])
+def test_hashed_lookup_equals_the_binary_search(total):
+    """``lookup_hashed_plain`` walks the kernel's buckets; on every key of
+    the table and on 10,000 absent keys it equals ``_lookup``."""
+    rng = np.random.default_rng(20 + total)
+    table = B.MergeTable.from_merges(merges_with_random_pairs(rng, total))
+    assert BC.regime_of(table) == ("shared" if total == 512 else "global")
+    present = torch.from_numpy(table.sorted_keys.astype(np.int64))
+    absent = rng.integers(0, 1 << 32, 12_000, dtype=np.uint64)
+    absent = torch.from_numpy(absent[~np.isin(absent, table.sorted_keys)][:10_000].astype(np.int64))
+    edges = torch.tensor([table.hashed().empty_key, 0, 0xFFFFFFFF, 0xFFFF], dtype=torch.int64)
+    for keys in (present, absent, edges):
+        want, got = B._lookup(keys, table), B.lookup_hashed_plain(keys, table)
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.int32
+        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+        np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert (B.lookup_hashed_plain(absent, table)[0] == B.INF).all()
+    hashed = table.hashed()
+    assert hashed.buckets.shape[0] == {512: 512, 30_000: 32768}[total]  # a load of at most one half
+    assert all(m & 1 for m in hashed.mults) and hashed.shift == 32 - hashed.buckets.shape[0].bit_length() + 1
+
+
+def test_hashed_build_is_deterministic_and_checks_its_keys():
+    rng = np.random.default_rng(21)
+    keys = rng.choice(1 << 32, 3000, replace=False).astype(np.uint32)
+    values = rng.integers(0, 1 << 31, 3000).astype(np.uint32)
+    first, again, other = B.build_hashed(keys, values, 5), B.build_hashed(keys, values, 5), B.build_hashed(keys, values, 6)
+    np.testing.assert_array_equal(first.buckets, again.buckets)
+    assert (first.mults, first.kicks, first.attempts) == (again.mults, again.kicks, again.attempts)
+    assert other.mults != first.mults
+    with pytest.raises(ValueError):
+        B.build_hashed(np.array([7, 9, 7], np.uint32), np.array([1, 2, 3], np.uint32))  # a duplicate key
+    with pytest.raises(ValueError):
+        B.build_hashed(np.array([7], np.uint32), np.array([B.EMPTY_VALUE], np.uint32))  # the empty value
+    empty = B.build_hashed(np.array([], np.uint32), np.array([], np.uint32))
+    assert empty.buckets.shape == (2, B.HASH_SLOTS, 2) and (empty.buckets[:, :, 1] == B.EMPTY_VALUE).all()
+
+
+def test_hashed_build_draws_again_and_kicks():
+    """Five keys crowded into one bucket under the first multipliers: the
+    build draws a second pair; the 30,000-merge table moves entries on."""
+    merges = crowded_merges()
+    assert len(merges) == 5
+    table = B.MergeTable.from_merges(merges)
+    assert table.hashed().attempts >= 2 and table.hashed().buckets.shape[0] == 8
+    keys = torch.from_numpy(table.sorted_keys.astype(np.int64))
+    np.testing.assert_array_equal(B.lookup_hashed_plain(keys, table)[0].numpy(), B._lookup(keys, table)[0].numpy())
+    big = B.MergeTable.from_merges(merges_with_random_pairs(np.random.default_rng(22), 30_000))
+    assert big.hashed().kicks > 0
+
+
+def test_plain_encoder_with_the_hashed_lookup_equals_jax(monkeypatch):
+    """``bpe_encode_plain`` looking pairs up as the kernel does, on a
+    shuffled batch of mixed lengths (short rows beside 32-byte ones), equals
+    the JAX encoders (the fused kernel in interpret mode); also under the
+    crowded table whose build drew twice."""
+    rng = np.random.default_rng(23)
+    corpus = words(rng, b"abcd", 0, 32, 200) + words(rng, b"abcd", 1, 4, 100) + HAND
+    corpus = [corpus[i] for i in rng.permutation(len(corpus))]
+    merges = JB.train_merges(corpus, 60)
+    monkeypatch.setattr(B, "_lookup", B.lookup_hashed_plain)
+    assert_encoders_equal_jax(corpus, merges)
+    crowded = crowded_merges()
+    letters = bytes(sorted({b for pair in crowded for b in pair}))
+    assert_encoders_equal_jax(words(rng, letters, 0, 12, 150), crowded)
 
 
 # --- encoder -----------------------------------------------------------------

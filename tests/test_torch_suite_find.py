@@ -28,6 +28,14 @@ ROWS = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def fresh_reference_cache():
+    """The JAX package caches an automaton's rules and LUTs by ``id()``
+    (ROADMAP F2): an automaton made at the address of one that an earlier
+    test let die would read that one's rules. Each test starts empty."""
+    JA._flat_rules_cache().clear()
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     path = tmp_path_factory.mktemp("corpus") / "english-words.txt"
