@@ -13,6 +13,9 @@ prints no result:
    (the hashes also against the published digests of the empty input; the
    Myers and alignment kernels over pattern lengths 0..1023 against texts of
    0..1100 B in the byte, DNA and codepoint alphabets, global and local,
+   the Myers kernel also at the edges of its lane groups and bands (lengths
+   0..1025 around 32-row lanes and a warp's 1,024 rows, groups of 1 to 32
+   lanes, patterns of up to 2,100 rows),
    affine and linear, and 64 pairs against the brute-force oracles, and the
    alignment kernel at the edges of its lane groups and strips (8, 16 and 32
    lanes a pair, strips of 8 and 16 rows, pairs of several passes); the
@@ -39,9 +42,11 @@ prints no result:
    and 0xFFFFFFF0 (the wrap), at views of offsets 1..15, at the edges of its
    2 KiB warp tiles and of its persistent ring with wraps inside a tile, and
    the RFC 8439 §2.4.2 vector; Poly1305 at lengths 0..300, 65,536 and across
-   its runs, partials and fold, at offsets 1..15, under the adversarial key (r at its largest
-   once clamped, s = 2^128 - 1) over 0xFF blocks, and the RFC vector, also
-   against ``poly1305_ref``; SHA-256 at the boundary lengths with junk past
+   the earlier kernel's runs, partials and fold, at offsets 1..15, under the
+   adversarial key (r at its largest once clamped, s = 2^128 - 1) over 0xFF
+   blocks, one byte around each of its lane groups' spans (512 B, 4 KiB, the
+   16 KiB of one launch, 32 and 33 partials, the persistent grid's cap) in
+   raw and AEAD mode, and the RFC vector, also against ``poly1305_ref``; SHA-256 at the boundary lengths with junk past
    them at every bucket width of the hash suite (a token over 4,096 B
    among them), at every length 0..130 in rows of 4, 16, 64, 128 and 4,160
    B, 16-byte aligned and at a 4-byte offset, and over the hash layouts,
@@ -816,6 +821,124 @@ def check_chacha_edges(dev, errors: dict) -> int:
     return checked
 
 
+MYERS_EDGES = (0, 1, 31, 32, 33, 63, 64, 65, 100, 255, 256, 257, 1023, 1024, 1025)
+
+
+def check_myers_edges(dev, errors: dict) -> int:
+    """The Myers kernel's schedules (``MY.schedule``) against ``myers_plain``
+    on the card, exactly: every pair of lengths |a|, |b| in ``MYERS_EDGES``
+    (the 32-row lane edges, a 1,024-row warp's, and empty sides; pairs of
+    other lengths share a group's warp) in the byte, DNA and codepoint
+    alphabets, whose longest pattern takes a warp of 32-bit lanes and a
+    second band; the same batches repeated until they fill the card, which
+    takes 64-bit lanes of 4 words (2 at codepoints); byte batches whose
+    longest pattern gives groups of 1, 2, 4, 8 and 16 lanes, and patterns of
+    up to 2,100 rows (three bands); and patterns around 8,192 rows in
+    batches that take 64-bit lanes and a second band of them. Returns the
+    batches checked."""
+    from stringwars_tpu_torch.ops import myers as MY
+    from stringwars_tpu_torch.ops import myers_cuda as MYC
+
+    rng = np.random.default_rng(43)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checked, plans = 0, set()
+
+    def check(mb, repeats: int = 1) -> None:
+        """The kernel over ``mb`` and over ``mb`` repeated (the same pairs
+        ``repeats`` times: a larger batch, another schedule) against the
+        plain version of ``mb``."""
+        nonlocal checked
+        want = MY.myers_plain(mb)
+        for k in sorted({1, repeats}):
+            big = mb if k == 1 else dataclasses.replace(
+                mb, planes=mb.planes.repeat(1, 1, k).contiguous(), text=mb.text.repeat(1, k).contiguous(),
+                a_len=mb.a_len.repeat(k).contiguous(), b_len=mb.b_len.repeat(k).contiguous(),
+                host_a_len=np.tile(mb.host_a_len, k), host_b_len=np.tile(mb.host_b_len, k))
+            errors["myers"] = max(errors["myers"], max_err(MYC.myers(big), want.repeat(k)))
+            plans.add(MY.schedule(big.count, int(big.host_a_len.max()), big.nbits, sms))
+            checked += 1
+
+    pairs = [(m, n) for m in MYERS_EDGES for n in MYERS_EDGES]
+    by_bytes = [(bytes(rng.integers(97, 101, m, dtype=np.uint8)), bytes(rng.integers(97, 101, n, dtype=np.uint8)))
+                for m, n in pairs]
+    cps_a = [rng.integers(0, 0x110000, m).astype(np.int32) for m, _ in pairs]
+    cps_b = [np.concatenate([x[: n // 2], rng.integers(0x1F600, 0x1F604, n - n // 2)]).astype(np.int32)[:n]
+             for x, (_, n) in zip(cps_a, pairs)]
+    fill = -(-sms * MY.LATENCY_THREADS // (len(pairs) * 33)) + 1  # repeats past the latency-bound schedule
+    for mb in (MY.MyersBatch.from_arrays(*_padded_codes(by_bytes), nbits=MY.BYTE_BITS, device=dev),
+               MY.myers_from_tokens([acgt[rng.integers(0, 4, m)].tobytes() for m, _ in pairs],
+                                    [acgt[rng.integers(0, 4, n)].tobytes() for _, n in pairs], device=dev),
+               MY.myers_from_codepoints(cps_a, cps_b, device=dev)):
+        check(mb, fill)
+    for cap in (32, 64, 128, 256, 512, 2100):
+        lens = [m for m in MYERS_EDGES if m <= cap] + [cap, int(rng.integers(1, cap + 1))]
+        batch = [(bytes(rng.integers(97, 101, m, dtype=np.uint8)), bytes(rng.integers(97, 101, n, dtype=np.uint8)))
+                 for m in lens for n in (0, 1, 33, 100, 1025)]
+        check(MY.MyersBatch.from_arrays(*_padded_codes(batch), nbits=MY.BYTE_BITS, device=dev))
+    long = [(bytes(rng.integers(97, 101, m, dtype=np.uint8)), bytes(rng.integers(97, 101, n, dtype=np.uint8)))
+            for m in (8191, 8192, 8193, 9000) for n in (0, 1, 100)]
+    check(MY.MyersBatch.from_arrays(*_padded_codes(long), nbits=MY.BYTE_BITS, device=dev), 48)
+    if not {(32, 1), (64, 4), (64, 2)} <= {plan[:2] for plan in plans}:
+        raise AssertionError(f"the Myers edge batches took the schedules {sorted(plans)}, not every form")
+    return checked
+
+
+def _padded_codes(pairs: list[tuple[bytes, bytes]]):
+    """int32 [B, A] patterns, [B, L] texts and their lengths of byte pairs."""
+    A = max(1, max(len(a) for a, _ in pairs))
+    L = max(1, max(len(b) for _, b in pairs))
+    a = np.zeros((len(pairs), A), np.int32)
+    b = np.zeros((len(pairs), L), np.int32)
+    for i, (x, y) in enumerate(pairs):
+        a[i, : len(x)] = np.frombuffer(x, np.uint8)
+        b[i, : len(y)] = np.frombuffer(y, np.uint8)
+    return a, b, np.array([len(x) for x, _ in pairs]), np.array([len(y) for _, y in pairs])
+
+
+def check_poly_edges(dev, errors: dict) -> int:
+    """The Poly1305 kernel's geometry (``CC.poly_geometry``) against
+    ``poly1305_plain`` on the card and, to 64 KiB, ``poly1305_ref``,
+    exactly: raw-mode lengths one byte under, at and over a warp's group of
+    32 blocks (512 B), a block of 8 warps' groups (4 KiB), the one-launch
+    span (16 KiB) and its doubles, 32 and 33 block partials (a fold of more
+    than one group of 32) and the persistent grid's cap (2 blocks an SM);
+    AEAD mode with the MAC input (pad16(aad), pad16(ciphertext), the
+    lengths) across the same spans, with an empty and a 13-byte aad.
+    Returns the tags checked."""
+    from stringwars_tpu_torch.ops import chacha as CC
+
+    rng = np.random.default_rng(44)
+    one = CC.POLY_ONE_LAUNCH * 16
+    cap = torch.cuda.get_device_properties(dev).multi_processor_count * CC.POLY_BLOCKS_PER_SM * one
+    spans = (512, 4096, one, 2 * one, 32 * one, 33 * one, cap, 2 * cap)
+    buf = random_bytes(2 * cap + 4096, 45, dev)
+    checked = 0
+
+    def check(key32: bytes, got: bytes, mac: torch.Tensor) -> None:
+        nonlocal checked
+        want = CC.poly1305_plain(key32, mac)
+        errors["poly1305"] = max(errors["poly1305"], max_err(torch.tensor(list(got)), torch.tensor(list(want))))
+        if mac.numel() <= 65536:
+            ref = CC.poly1305_ref(key32, mac.cpu().numpy().tobytes())
+            errors["poly1305"] = max(errors["poly1305"], max_err(torch.tensor(list(got)), torch.tensor(list(ref))))
+        checked += 1
+
+    for span in spans:
+        for n in (span - 1, span, span + 1):
+            key32 = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+            check(key32, CC.poly1305_tag(key32, buf[:n]), buf[:n])
+    for aad_len in (0, 13):
+        aad = buf[-aad_len:] if aad_len else buf[:0]
+        for span in spans[:6]:
+            for n in (span - 16 - 16 * -(-aad_len // 16) + d for d in (-1, 0, 1)):
+                key32 = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+                key = torch.tensor(list(key32), dtype=torch.uint8, device=dev)
+                tag = bytes(CC.poly1305_cuda(key, buf[:n], aad).cpu().tolist())
+                check(key32, tag, CC._mac_data_tensor(aad.cpu().numpy().tobytes(), buf[:n]))
+    return checked
+
+
 def crowded_bpe_merges(seed: int = 0, count: int = 5) -> list[tuple[int, int]]:
     """``count`` byte pairs whose keys all lie in bucket 0 under both
     multipliers that ``build_hashed(seed=seed)`` draws first: their table's
@@ -884,9 +1007,11 @@ def fingerprint_cells(tokens, ndim: int) -> int:
     return int(positions) * (ndim // 4)
 
 
-# CUDA launches a wrapper launch makes, where more than one (the MAC's runs
-# and fold): device_breakdown scales a kernel's traced mean by these.
-CUDA_LAUNCHES = {"poly1305": 2}
+# CUDA launches a wrapper launch makes in the traced calls (the MAC: one for
+# an input of up to CC.POLY_ONE_LAUNCH blocks, as every per-token seal's;
+# a longer one adds its fold): device_breakdown scales a kernel's traced
+# mean by these.
+CUDA_LAUNCHES = {"poly1305": 1}
 
 
 def traced_call(name: str, call, launches, kernels: dict[str, str], bound: tuple | None = None) -> None:
@@ -1310,6 +1435,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors[key] = max(errors[key], max_err(got, S._score_scan(ab.pairs, 2, -1, go, ge, local=local)))
             dp_outs[(set_name, fn)] = got.cpu().numpy()
     dp_nbits = {name: mb.nbits for name, (mb, _) in dp_sets.items()}
+    myers_edge_checks = check_myers_edges(dev, errors)
     # A sample of 64 pairs against the brute-force oracles on the host.
     small = [i for i, (m, n) in enumerate(pair_lens) if m * n <= 4000]
     oracle_checked = 0
@@ -1597,6 +1723,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         errors["chacha20_xor"] = max(errors["chacha20_xor"], max_err(got, CC.chacha20_xor_plain(cc_key, cc_nonce, view, 1)))
         cc_checks += 1
     cc_edge_checks = check_chacha_edges(dev, errors)
+    poly_edge_checks = check_poly_edges(dev, errors)
     sunscreen = (b"Ladies and Gentlemen of the class of '99: If I could offer you "
                  b"only one tip for the future, sunscreen would be it.")
     rfc_ct = CC.chacha20_xor_cuda(bytes(range(32)), bytes.fromhex("000000000000004a00000000"),
@@ -1689,7 +1816,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"held to its closed form), 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
         f"{len(seed_sets)} seed sets, {tree_levels} tree levels (base offsets 0..15), {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
         f"none), 4 LUT views, 4 DP batches of "
-        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {mp_checked} multi-pattern counts in the DFA regimes "
+        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {myers_edge_checks} Myers batches at the edges of its "
+        f"lane groups and bands (|a|, |b| in {MYERS_EDGES}, groups of 1 to 32 lanes, three bands), {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; alignment batches at the edges of "
         f"the kernel's lane groups and strips, (pairs, longest a, (lanes, rows)): {align_shapes}; "
@@ -1706,7 +1834,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"edges of the lane groups and hashed tables (mixed chunks, shuffled rows, a redrawn table); {cc_checks} ChaCha20 "
         f"streams (counters 0, 1, 0xFFFFFFF0; offsets 1..15), {cc_edge_checks} at the tiles' and the ring's edges "
         f"(wraps inside tiles, offsets 1..16), and the RFC 8439 §2.4.2 vector; {poly_checks} Poly1305 "
-        f"tags, {poly_oracle} equal poly1305_ref, the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
+        f"tags, {poly_oracle} equal poly1305_ref, {poly_edge_checks} at the edges of its groups, spans and grid (raw "
+        f"and AEAD), the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
         f"hashlib; Threefry equal to the pinned jax.random.bits; launches {advanced}",
         started,
     )
@@ -2369,7 +2498,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     for group, mb in sim_keep.pop("myers").items():
         in_bytes = mb.planes.numel() * 8 + mb.text.numel() * 4 + 12 * mb.count
         traced_call(f"levenshtein call (the similarities suite's {group}/swtorch::levenshtein, {mb.count:,} pairs, "
-                    f"nbits {mb.nbits})", lambda mb=mb: MY.myers_distances(mb), launches, {"myers": "myers_kernel"},
+                    f"nbits {mb.nbits})", lambda mb=mb: MY.myers_distances(mb), launches, {"myers": "myers_lanes_kernel"},
                     bound_ms(in_bytes, myers_instructions(mb)))
     in_bytes = (suite_pairs.pairs.a.numel() + suite_pairs.pairs.b.numel()) * 4 + 12 * suite_pairs.count
     for group, go, ge in (("affine", -5, -1), ("linear", -2, -2)):

@@ -45,7 +45,7 @@ SIGNATURES = {
     "sw_xxh32": (_P, _N, _N, _P, _P, _N, ctypes.c_int, _P, _P),
     "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _P, _N, _P, _P, _P),
     "sw_lut_translate": (_P, _N, _P, _P, _P),
-    "sw_myers": (_P, _N, _P, _P, _P, _N, _P, _P, _P),
+    "sw_myers": (_P, _N, _P, _N, _P, _P, _N, _N, _N, _N, _N, _P, _P, _P),
     "sw_align": (_P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P),
     "sw_ac_count": (_P, _N, _P, _N, _P, _N, _N, _N, _P, _P),
     "sw_shiftand": (_P, _N, _P, _N, _N, _N, _P, _P),
@@ -58,7 +58,7 @@ SIGNATURES = {
     "sw_bpe": (_P, _N, _N, _P, _P, _N, _N, _N, _N, _P, _P, _P),
     "sw_threefry_bits": (_N, _N, _N, _P, _P),
     "sw_chacha20_xor": (_P, _P, _N, _P, _P, _N, _P),
-    "sw_poly1305": (_P, _N, _P, _N, _N, _P, _P, _N, _P, _P),
+    "sw_poly1305": (_P, _N, _P, _N, _N, _P, _N, _N, _N, _P, _P, _P),
     "sw_sha256": (_P, _N, _N, _P, _P, _P),
 }
 
@@ -155,6 +155,13 @@ def check(code: int, kernel: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if code != 0:
         raise KernelLaunchError(f"{kernel}: CUDA error {code} at launch")
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once (the launches that size
+    their grids by it are host-bound at the suites' batches)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(tensor: torch.Tensor) -> int:

@@ -52,22 +52,34 @@
 // each block with its 2^128 bit) plus s. What bounds it: one read of the
 // message (128 MiB: 40 us) against 70 instructions a 16-byte block (the
 // limbs of the block, 10; their add, 5; the product by r, 25 multiply-adds
-// of 32 x 32 -> 64 bits; its carries, 30): 18 us.
-// The design:
+// of 32 x 32 -> 64 bits; its carries, 30): 18 us. For a 1.1 KB seal it is
+// the chain of about 15 dependent products. The design:
 //
-// - Each thread runs Horner, h = h * r + m, over a run of kPolyRun blocks,
-//   in five 26-bit limbs with 64-bit products; its 16 blocks are loaded
-//   into registers first, so 256 bytes a thread are in flight at once.
-//   Leading zero blocks align the runs at the message's end: a zero block
-//   at the head of a Horner chain adds nothing.
-// - A block of threads combines its runs in a tree in shared memory:
-//   v[t] = v[t] * r^(kPolyRun * s) + v[t + s], which leaves one partial per
-//   4,096 message blocks. The powers are squared from r by one thread per
-//   block while the others load; no per-key host table.
-// - A second launch, one block, folds the partials the same way with the
-//   multiplier R = r^4096 (Horner over a run of partials per thread, then
-//   the tree), multiplies by r, reduces fully mod 2^130 - 5, adds s mod
-//   2^128 and writes the tag.
+// - Coalesced, lane-interleaved Horner. A warp takes a contiguous span of
+//   32 q blocks; lane l runs Horner, h = h * r^32 + m, over its blocks l,
+//   l + 32, l + 64, ..., in five 26-bit limbs with 64-bit products. So a
+//   warp load instruction reads 512 contiguous bytes as lane-contiguous
+//   16-byte vectors; batches of 4 such groups (2 KiB a warp) are loaded
+//   into registers while the batch before multiplies. The earlier form ran
+//   16 consecutive blocks a thread: a warp instruction touched 32 sectors
+//   at a 256-byte stride. Leading zero blocks align the spans at the
+//   message's end: a zero block at the head of a Horner chain adds nothing.
+// - The lanes combine by shuffles, lane l weighted by r^(31 - l), and the
+//   warps of a block through 8 values of shared memory, warp i weighted by
+//   (r^(32 q))^(warps - 1 - i). The powers come from a scan of products over
+//   the lanes (lane l gets r^(l + 1) in 5 steps), the span's multiplier by
+//   squaring r^32: no serial thread, no tree of __syncthreads.
+// - One launch for a short message: up to 1,024 blocks (16 KiB: the
+//   per-token seals, the AEAD's short MACs) take one block of 1 to 8 warps,
+//   which writes the tag. A longer one takes a persistent grid (3 blocks an
+//   SM) that leaves a partial a block, and a second launch of one warp
+//   folds them with the same lane-interleaved Horner under the multiplier
+//   of a block's span, then multiplies by r, reduces fully mod 2^130 - 5,
+//   adds s mod 2^128 and writes the tag. A fold in the same launch by a
+//   last-block-done counter would need the counter zeroed before each call
+//   (a memset, itself a launch) or one counter shared by calls on different
+//   streams, which is not safe; the fold launch costs a few microseconds of
+//   a 128 MiB MAC.
 // - Raw mode is Poly1305 itself (a partial last block gets its 0x01 byte
 //   and no 2^128 bit). AEAD mode reads the RFC 8439 §2.8 MAC input in place:
 //   pad16(aad) || pad16(ciphertext) || le64(len aad) || le64(len ct), so no
@@ -209,15 +221,16 @@ chacha_xor_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int
 // Poly1305
 // ---------------------------------------------------------------------------
 
-constexpr int kPolyRun = 16;                           // 16-byte blocks a thread
-constexpr int kPolyLevels = 8;                         // log2(kThreads)
-constexpr int64_t kPolySpan = kPolyRun * kThreads;     // message blocks a partial
+constexpr int kPolyMaxWarps = 8;  // warps a block of the MAC kernel
+constexpr int kPolyDepth = 4;        // 32-block groups a warp loads a batch: 2 KiB
+constexpr int kPolyBlocksPerSm = 3;  // ops/chacha.py POLY_BLOCKS_PER_SM
 constexpr uint32_t kM26 = 0x3FFFFFFu;
 
 // A value mod 2^130 - 5 in five 26-bit limbs, not fully reduced. A product's
-// limbs are below 2^26 + 2^12; the sums the tree adds stay below 2^30, so
-// with the other factor a product, every 5-term sum of 64-bit limb
-// products fits (5 x 2^30 x 5 x 2^26.01 < 2^61).
+// limbs are below 2^26 + 2^12; a Horner step's sum below 2^27.1; sums of
+// up to 32 values are carried (p130_carry) before they are multiplied. So
+// with the other factor a product, every 5-term sum of 64-bit limb products
+// fits (5 x 2^27.1 x 5 x 2^26.01 < 2^58).
 struct P130 {
   uint32_t h[5];
 };
@@ -256,6 +269,74 @@ __device__ __forceinline__ P130 p130_mul(const P130& a, const P130& b) {
   return c;
 }
 
+// One carry pass: limbs below 2^32 in, below 2^26 out but the second (2^26
+// and a little).
+__device__ __forceinline__ P130 p130_carry(P130 a) {
+  uint32_t c;
+  c = a.h[0] >> 26; a.h[0] &= kM26; a.h[1] += c;
+  c = a.h[1] >> 26; a.h[1] &= kM26; a.h[2] += c;
+  c = a.h[2] >> 26; a.h[2] &= kM26; a.h[3] += c;
+  c = a.h[3] >> 26; a.h[3] &= kM26; a.h[4] += c;
+  c = a.h[4] >> 26; a.h[4] &= kM26; a.h[0] += c * 5;
+  c = a.h[0] >> 26; a.h[0] &= kM26; a.h[1] += c;
+  return a;
+}
+
+__device__ __forceinline__ P130 p130_shfl(const P130& a, int src) {
+  P130 c;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) c.h[i] = __shfl_sync(0xffffffffu, a.h[i], src);
+  return c;
+}
+
+__device__ __forceinline__ P130 p130_shfl_up(const P130& a, int d) {
+  P130 c;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) c.h[i] = __shfl_up_sync(0xffffffffu, a.h[i], d);
+  return c;
+}
+
+// The sum of every lane's a, carried, in every lane.
+__device__ __forceinline__ P130 p130_warp_sum(P130 a) {
+  a = p130_carry(a);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) a.h[i] += __shfl_xor_sync(0xffffffffu, a.h[i], o);
+  }
+  return p130_carry(a);
+}
+
+// Lane l gets x^(l + 1): a scan of products over `width` lanes (a power of
+// two), log2(width) steps.
+__device__ __forceinline__ P130 p130_powers(const P130& x, int width) {
+  const int lane = threadIdx.x & 31;
+  P130 p = x;
+  for (int d = 1; d < width; d <<= 1) {
+    const P130 y = p130_shfl_up(p, d);
+    if (lane >= d) p = p130_mul(p, y);
+  }
+  return p;
+}
+
+// x^e, e >= 1, by squaring and multiplying.
+__device__ __forceinline__ P130 p130_pow(P130 x, int64_t e) {
+  P130 y = x;
+  for (e -= 1; e > 0; e >>= 1) {
+    if (e & 1) y = p130_mul(y, x);
+    x = p130_mul(x, x);
+  }
+  return y;
+}
+
+// sum_l h_l m^(31 - l) over the warp's lanes, in every lane: lane l holds
+// h_l and pw = m^(l + 1) (p130_powers).
+__device__ __forceinline__ P130 lanes_combine(const P130& h, const P130& pw) {
+  const int lane = threadIdx.x & 31;
+  const P130 weight = p130_shfl(pw, (30 - lane) & 31);  // m^(31 - l); lane 31 takes 1
+  return p130_warp_sum(lane == 31 ? h : p130_mul(h, weight));
+}
+
 // A 16-byte block (four little-endian words) and its 2^128 bit as limbs.
 __device__ __forceinline__ P130 p130_block(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3, uint32_t hibit) {
   return P130{{w0 & kM26, __funnelshift_r(w0, w1, 26) & kM26, __funnelshift_r(w1, w2, 20) & kM26,
@@ -275,7 +356,8 @@ struct PolyInput {
   int64_t aad_len, msg_len;
   int64_t aad_blocks, msg_blocks;  // AEAD: ceil(len / 16) each
   int64_t blocks;                  // 16-byte blocks of the MAC input
-  int64_t lead;                    // zero blocks before it, to a whole number of partials
+  int64_t lead;                    // zero blocks before it, to the grid's whole span
+  int64_t direct_lo, direct_hi;    // the blocks read as 16-byte vectors of msg, whole and aligned
   int aead;
 };
 
@@ -319,93 +401,8 @@ __device__ __forceinline__ uint32_t poly_block(const PolyInput& in, int64_t i, u
   return 1u;
 }
 
-// v[0] = sum_t h_t * m^(kThreads - 1 - t) over the block's threads, m^(2^j)
-// given for j < kPolyLevels: the tree in shared memory. Valid in thread 0.
-__device__ __forceinline__ P130 tree_combine(P130 h, const P130 (&pw)[kPolyLevels], P130 (&v)[kThreads]) {
-  const int t = threadIdx.x;
-  v[t] = h;
-#pragma unroll
-  for (int j = 0; j < kPolyLevels; ++j) {
-    __syncthreads();
-    const int s = 1 << j;
-    if ((t & (2 * s - 1)) == 0) {
-      h = p130_add(p130_mul(h, pw[j]), v[t + s]);
-      v[t] = h;
-    }
-  }
-  return h;
-}
-
-// One partial per kPolySpan blocks of the (lead-padded) MAC input:
-// sum_k m_k r^(kPolySpan - 1 - k) over the span's blocks.
-__global__ void __launch_bounds__(kThreads)
-poly_runs_kernel(PolyInput in, const uint8_t* __restrict__ key, uint32_t* __restrict__ partials) {
-  __shared__ P130 pw[kPolyLevels];
-  __shared__ P130 v[kThreads];
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kPolySpan + threadIdx.x * kPolyRun - in.lead;
-  uint32_t w[kPolyRun][4], hibit[kPolyRun];
-#pragma unroll
-  for (int j = 0; j < kPolyRun; ++j) hibit[j] = poly_block(in, first + j, w[j]);
-  const P130 r = poly_r(key);
-  if (threadIdx.x == 0) {  // r^(kPolyRun * 2^j) by squaring, while the loads are in flight
-    P130 p = r;
-    for (int k = 1; k < kPolyRun; k <<= 1) p = p130_mul(p, p);
-    for (int j = 0; j < kPolyLevels; ++j) {
-      pw[j] = p;
-      p = p130_mul(p, p);
-    }
-  }
-  P130 h = p130_block(w[0][0], w[0][1], w[0][2], w[0][3], hibit[0]);
-#pragma unroll
-  for (int j = 1; j < kPolyRun; ++j) {
-    h = p130_add(p130_mul(h, r), p130_block(w[j][0], w[j][1], w[j][2], w[j][3], hibit[j]));
-  }
-  h = tree_combine(h, pw, v);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) partials[blockIdx.x * 5 + i] = h.h[i];
-  }
-}
-
-// Folds the partials with R = r^kPolySpan, multiplies by r, reduces mod
-// 2^130 - 5, adds s mod 2^128 and writes the 16-byte tag. One block.
-__global__ void __launch_bounds__(kThreads)
-poly_fold_kernel(const uint32_t* __restrict__ partials, int64_t count, const uint8_t* __restrict__ key,
-                 uint8_t* __restrict__ tag) {
-  __shared__ P130 pw[kPolyLevels];
-  __shared__ P130 big;
-  __shared__ P130 v[kThreads];
-  const int64_t per = (count + kThreads - 1) / kThreads;  // partials a thread
-  const int64_t lead = per * kThreads - count;
-  const P130 r = poly_r(key);
-  if (threadIdx.x == 0) {
-    P130 p = r;
-    for (int64_t k = 1; k < kPolySpan; k <<= 1) p = p130_mul(p, p);
-    big = p;  // R
-    P130 q = p;  // R^per, by square and multiply
-    for (int64_t e = per - 1; e > 0; e >>= 1) {
-      if (e & 1) q = p130_mul(q, p);
-      p = p130_mul(p, p);
-    }
-    for (int j = 0; j < kPolyLevels; ++j) {
-      pw[j] = q;
-      q = p130_mul(q, q);
-    }
-  }
-  __syncthreads();
-  const P130 R = big;
-  P130 h = p130_zero();
-  for (int64_t k = 0; k < per; ++k) {
-    const int64_t g = threadIdx.x * per + k - lead;
-    P130 x = p130_zero();
-    if (g >= 0) {
-#pragma unroll
-      for (int i = 0; i < 5; ++i) x.h[i] = partials[g * 5 + i];
-    }
-    h = p130_add(p130_mul(h, R), x);
-  }
-  h = tree_combine(h, pw, v);
-  if (threadIdx.x != 0) return;
+// (h * r mod 2^130 - 5 + s) mod 2^128 as the 16-byte tag.
+__device__ __forceinline__ void poly_finish(P130 h, const P130& r, const uint8_t* key, uint8_t* tag) {
   h = p130_mul(h, r);
   // Carry fully: limbs below 2^26 but the second (at most 2^26), the value
   // below 2 (2^130 - 5); then subtract 2^130 - 5 where that leaves no borrow.
@@ -448,6 +445,121 @@ poly_fold_kernel(const uint32_t* __restrict__ partials, int64_t count, const uin
   }
 }
 
+// A batch of kDepth groups of the warp's span, from group t0: lane l's
+// blocks l + 32 t, the warp's loads 512 contiguous bytes each.
+template <int kDepth>
+struct PolyBatch {
+  uint32_t w[kDepth][4];
+  uint32_t hibit;  // bit d: block d's 2^128 bit
+};
+
+template <int kDepth>
+__device__ __forceinline__ void poly_load(const PolyInput& in, int64_t base, int64_t t0, int64_t q, PolyBatch<kDepth>& b) {
+  const int64_t first = base + 32 * t0;
+  if (first >= in.direct_lo && first + 32 * (kDepth - 1) < in.direct_hi && t0 + kDepth <= q) {
+    const uint4* m = reinterpret_cast<const uint4*>(in.msg) + (first - in.direct_lo);
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const uint4 v = __ldg(m + 32 * d);
+      b.w[d][0] = v.x; b.w[d][1] = v.y; b.w[d][2] = v.z; b.w[d][3] = v.w;
+    }
+    b.hibit = (1u << kDepth) - 1u;
+    return;
+  }
+  b.hibit = 0;
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) {
+    const int64_t t = t0 + d;
+    const uint32_t bit = poly_block(in, t < q ? base + 32 * t : -1, b.w[d]);
+    b.hibit |= bit << d;
+  }
+}
+
+template <int kDepth>
+__device__ __forceinline__ P130 poly_horner(P130 h, const PolyBatch<kDepth>& b, const P130& r32, int64_t t0, int64_t q) {
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) {
+    if (t0 + d < q) h = p130_add(p130_mul(h, r32), p130_block(b.w[d][0], b.w[d][1], b.w[d][2], b.w[d][3], (b.hibit >> d) & 1u));
+  }
+  return h;
+}
+
+// The MAC input, lead-padded to gridDim.x x warps x 32 q blocks, as one
+// polynomial in r. Warp g of the grid takes the contiguous span of 32 q
+// blocks from 32 q g; lane l runs Horner over its blocks l, l + 32, ... with
+// the multiplier r^32, the next batch of kDepth groups loaded while this
+// one multiplies; the lanes combine with the weights r^(31 - l), the warps
+// of a block with (r^(32 q))^(warps - 1 - i). One block writes the tag;
+// more write a partial each, folded by poly_fold_kernel.
+template <int kDepth, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kPolyMaxWarps, kMinBlocks)
+poly_lanes_kernel(PolyInput in, const uint8_t* __restrict__ key, int64_t q, uint32_t* __restrict__ partials,
+                  uint8_t* __restrict__ tag) {
+  __shared__ P130 warp_sums[kPolyMaxWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int64_t span = 32 * q;
+  const int64_t base = (static_cast<int64_t>(blockIdx.x) * warps + warp) * span + lane - in.lead;
+  PolyBatch<kDepth> a, b;
+  poly_load(in, base, 0, q, a);
+  const P130 r = poly_r(key);
+  const P130 pw = p130_powers(r, 32);  // r^(l + 1), while the first batch's loads are in flight
+  const P130 r32 = p130_shfl(pw, 31);
+  P130 h = p130_zero();
+  for (int64_t t0 = 0; t0 < q; t0 += 2 * kDepth) {
+    if (t0 + kDepth < q) poly_load(in, base, t0 + kDepth, q, b);
+    h = poly_horner(h, a, r32, t0, q);
+    if (t0 + 2 * kDepth < q) poly_load(in, base, t0 + 2 * kDepth, q, a);
+    if (t0 + kDepth < q) h = poly_horner(h, b, r32, t0 + kDepth, q);
+  }
+  P130 sum = lanes_combine(h, pw);
+  if (warps > 1) {
+    if (lane == 0) warp_sums[warp] = sum;
+    __syncthreads();
+    if (warp != 0) return;
+    const P130 rq = p130_pow(r32, q);  // the multiplier of a warp's span
+    const P130 qpw = p130_powers(rq, kPolyMaxWarps);  // lane j: rq^(j + 1)
+    const P130 weight = p130_shfl(qpw, (warps - 2 - lane) & 31);  // rq^(warps - 1 - i) for warp i = lane
+    P130 x = lane < warps ? warp_sums[lane] : p130_zero();
+    if (lane < warps - 1) x = p130_mul(x, weight);
+    sum = p130_warp_sum(x);
+  }
+  if (lane != 0) return;
+  if (gridDim.x == 1) {
+    poly_finish(sum, r, key, tag);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) partials[blockIdx.x * 5 + i] = sum.h[i];
+  }
+}
+
+// One warp: folds `count` block partials, block b weighted by
+// M^(count - 1 - b) with M = r^(32 q x kPolyMaxWarps), the span of a block,
+// by the same lane-interleaved Horner (lead-padded to whole groups of 32),
+// and writes the tag.
+__global__ void __launch_bounds__(32)
+poly_fold_kernel(const uint32_t* __restrict__ partials, int64_t count, int64_t q, const uint8_t* __restrict__ key,
+                 uint8_t* __restrict__ tag) {
+  const int lane = threadIdx.x & 31;
+  const int64_t groups = (count + 31) / 32, lead = groups * 32 - count;
+  const P130 r = poly_r(key);
+  const P130 r32 = p130_shfl(p130_powers(r, 32), 31);
+  const P130 m = p130_pow(r32, q * kPolyMaxWarps);
+  const P130 pw = p130_powers(m, 32);
+  const P130 m32 = p130_shfl(pw, 31);
+  P130 h = p130_zero();
+  for (int64_t t = 0; t < groups; ++t) {
+    const int64_t j = 32 * t + lane - lead;
+    P130 x = p130_zero();
+    if (j >= 0) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) x.h[i] = partials[j * 5 + i];
+    }
+    h = p130_add(p130_mul(h, m32), x);
+  }
+  const P130 sum = lanes_combine(h, pw);
+  if (lane == 0) poly_finish(sum, r, key, tag);
+}
+
 }  // namespace swt
 
 // out[i] = data[i] ^ keystream byte i, i < n: ChaCha20 under the 32-byte
@@ -472,11 +584,18 @@ extern "C" int sw_chacha20_xor(const void* data, void* out, int64_t n, const voi
 
 // The 16-byte Poly1305 tag under the 32-byte key r || s (device memory,
 // 4-byte aligned) of msg[0, msg_len) (raw mode, aead = 0) or of the RFC 8439
-// AEAD MAC input over aad and msg (aead = 1). `partials` holds at least
-// ceil(blocks / 4096) x 5 words, blocks being the MAC input's 16-byte blocks.
+// AEAD MAC input over aad and msg (aead = 1). The geometry (grid blocks of
+// `warps` warps, 32 q blocks of the MAC input a warp) is the caller's
+// (ops/chacha.py poly_geometry): grid x warps x 32 q covers the MAC input.
+// One block writes the tag in one launch; a grid of more leaves a partial
+// each in `partials` (grid x 5 words) and a second, one-warp launch folds
+// them.
 extern "C" int sw_poly1305(const void* aad, int64_t aad_len, const void* msg, int64_t msg_len, int64_t aead,
-                           const void* key, void* partials, int64_t capacity, void* tag, void* stream) {
-  if ((reinterpret_cast<uintptr_t>(key) & 3) != 0 || aad_len < 0 || msg_len < 0) {
+                           const void* key, int64_t q, int64_t warps, int64_t grid, void* partials, void* tag,
+                           void* stream) {
+  if ((reinterpret_cast<uintptr_t>(key) & 3) != 0 || aad_len < 0 || msg_len < 0 || q < 1 || warps < 1 ||
+      warps > swt::kPolyMaxWarps || grid < 1 || grid >= (int64_t{1} << 31) ||
+      (grid > 1 && (partials == nullptr || warps != swt::kPolyMaxWarps))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   swt::PolyInput in;
@@ -488,13 +607,16 @@ extern "C" int sw_poly1305(const void* aad, int64_t aad_len, const void* msg, in
   in.msg_blocks = (msg_len + 15) / 16;
   in.aead = aead ? 1 : 0;
   in.blocks = aead ? in.aad_blocks + in.msg_blocks + 1 : in.msg_blocks;
-  const int64_t count = (in.blocks + swt::kPolySpan - 1) / swt::kPolySpan;
-  if (count > capacity || count >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  in.lead = count * swt::kPolySpan - in.blocks;
+  in.lead = grid * warps * 32 * q - in.blocks;
+  if (in.lead < 0) return static_cast<int>(cudaErrorInvalidValue);
+  in.direct_lo = in.aad_blocks;
+  in.direct_hi = in.direct_lo + ((reinterpret_cast<uintptr_t>(msg) & 15) == 0 ? msg_len / 16 : 0);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* k = static_cast<const uint8_t*>(key);
   auto* parts = static_cast<uint32_t*>(partials);
-  if (count > 0) swt::poly_runs_kernel<<<static_cast<int>(count), swt::kThreads, 0, s>>>(in, k, parts);
-  swt::poly_fold_kernel<<<1, swt::kThreads, 0, s>>>(parts, count, k, static_cast<uint8_t*>(tag));
+  auto* out = static_cast<uint8_t*>(tag);
+  swt::poly_lanes_kernel<swt::kPolyDepth, swt::kPolyBlocksPerSm>
+      <<<static_cast<unsigned>(grid), static_cast<unsigned>(32 * warps), 0, s>>>(in, k, q, parts, out);
+  if (grid > 1) swt::poly_fold_kernel<<<1, 32, 0, s>>>(parts, grid, q, k, out);
   return static_cast<int>(cudaGetLastError());
 }

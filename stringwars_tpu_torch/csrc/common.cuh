@@ -104,14 +104,4 @@ __device__ __forceinline__ void scan_batches(const uint8_t* __restrict__ hay, in
   step16(b);
 }
 
-// Threads per block of the one-thread-per-pair DP kernels (myers.cu,
-// affine.cu): 128, or 32 when the batch is too small to give every SM two
-// blocks of 128, so that a few thousand pairs still spread over the SMs.
-inline int pair_threads(int64_t pairs) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return pairs >= static_cast<int64_t>(sms) * 2 * 128 ? 128 : 32;
-}
-
 }  // namespace swt

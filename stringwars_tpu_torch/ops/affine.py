@@ -19,11 +19,11 @@ batch to the plain version, ``similarity._score_scan`` on the same pairs.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
+from stringwars_tpu_torch import build
 from stringwars_tpu_torch.ops import similarity as S
 
 
@@ -50,13 +50,6 @@ def group_shape(max_a: int, pairs: int, sms: int = H100_SMS) -> tuple[int, int]:
     return group, next((r for r in STRIP_ROWS if r >= share), STRIP_ROWS[-1])
 
 
-@functools.cache
-def _sms(index: int | None) -> int:
-    """The SM count of a CUDA device (read once: the launch is host-bound
-    at the similarities suite's batch)."""
-    return torch.cuda.get_device_properties(torch.device("cuda", index)).multi_processor_count
-
-
 @dataclasses.dataclass(frozen=True)
 class AffineBatch:
     """Pairs staged for the alignment kernel."""
@@ -79,7 +72,7 @@ class AffineBatch:
     def shape(self) -> tuple[int, int]:
         """The kernel's (lanes per pair, strip height) for this batch on its
         card."""
-        sms = _sms(self.device.index) if self.device.type == "cuda" else H100_SMS
+        sms = build.sm_count(self.device) if self.device.type == "cuda" else H100_SMS
         return group_shape(int(self.host_a_len.max(initial=0)), self.count, sms)
 
     @classmethod

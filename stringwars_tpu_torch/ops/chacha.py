@@ -43,7 +43,9 @@ _M32 = 0xFFFFFFFF
 _CONSTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"
 _P1305 = (1 << 130) - 5
 _CLAMP = 0x0FFFFFFC0FFFFFFC0FFFFFFC0FFFFFFF
-_POLY_SPAN = 16 * 256  # message blocks per partial of csrc/chacha.cu's first pass
+POLY_WARPS = 8  # warps a block of csrc/chacha.cu's MAC kernel
+POLY_ONE_LAUNCH = 32 * POLY_WARPS * 4  # MAC-input blocks that one launch (one block) takes: 16 KiB
+POLY_BLOCKS_PER_SM = 3  # the persistent grid of a longer message (csrc/chacha.cu kPolyBlocksPerSm)
 TILE_BYTES = 2048  # a warp's tile in csrc/chacha.cu's keystream kernel: 32 blocks
 
 
@@ -111,6 +113,62 @@ def poly1305_ref(key32: bytes, message: bytes) -> bytes:
         block = message[i : i + 16] + b"\x01"
         acc = (acc + int.from_bytes(block, "little")) * r % _P1305
     return ((acc + s) % (1 << 128)).to_bytes(16, "little")
+
+
+def poly_geometry(blocks: int, sms: int) -> tuple[int, int, int]:
+    """(grid, warps, q) of csrc/chacha.cu's MAC kernel for a MAC input of
+    ``blocks`` 16-byte blocks on a card of ``sms`` SMs: ``grid`` blocks of
+    ``warps`` warps, each warp a span of 32 q blocks, the spans covering the
+    input (leading zero blocks fill the rest). Up to ``POLY_ONE_LAUNCH``
+    blocks: one block of just enough warps, which writes the tag; more: a
+    persistent grid of 8-warp blocks whose partials a second launch folds."""
+    if blocks <= POLY_ONE_LAUNCH:
+        warps = min(POLY_WARPS, max(1, -(-blocks // 32)))
+        return 1, warps, max(1, -(-blocks // (32 * warps)))
+    grid = min(-(-blocks // POLY_ONE_LAUNCH), sms * POLY_BLOCKS_PER_SM)
+    return grid, POLY_WARPS, -(-blocks // (32 * POLY_WARPS * grid))
+
+
+def poly1305_lanes_ref(key32: bytes, message: bytes, geometry: tuple[int, int, int]) -> bytes:
+    """The Poly1305 tag by the kernel's own schedule, in Python integers:
+    the message's blocks (each with its 0x01 byte) lead-padded with zero
+    blocks to ``grid x warps x 32 q``; lane l of each warp Horner over its
+    span's blocks l, l + 32, ... with r^32; the lanes summed with the weights
+    r^(31 - l), the warps of a block with (r^(32 q))^(warps - 1 - i); one
+    block's sum is the polynomial, else the blocks' partials folded the same
+    way, 32 lanes with the multiplier of a block's span. Equal to
+    ``poly1305_ref`` for every geometry that covers the message."""
+    grid, warps, q = geometry
+    r = int.from_bytes(key32[:16], "little") & _CLAMP
+    s = int.from_bytes(key32[16:32], "little")
+    values = [int.from_bytes(message[i : i + 16] + b"\x01", "little") for i in range(0, len(message), 16)]
+    span = 32 * q
+    lead = grid * warps * span - len(values)
+    if lead < 0:
+        raise ValueError(f"geometry {geometry} covers {grid * warps * span} blocks of {len(values)}")
+    values = [0] * lead + values
+
+    def lanes(vals: list[int], m: int) -> int:  # sum_j vals[j] m^(len - 1 - j), len a multiple of 32
+        m32 = pow(m, 32, _P1305)
+        total = 0
+        for lane in range(32):
+            h = 0
+            for v in vals[lane::32]:
+                h = (h * m32 + v) % _P1305
+            total += h * pow(m, 31 - lane, _P1305)
+        return total % _P1305
+
+    rq = pow(r, span, _P1305)
+    partials = []
+    for block in range(grid):
+        warp_sums = [lanes(values[(block * warps + i) * span : (block * warps + i + 1) * span], r) for i in range(warps)]
+        partials.append(sum(a * pow(rq, warps - 1 - i, _P1305) for i, a in enumerate(warp_sums)) % _P1305)
+    if grid == 1:
+        h = partials[0]
+    else:
+        partials = [0] * (-grid % 32) + partials
+        h = lanes(partials, pow(rq, warps, _P1305))
+    return ((h * r % _P1305 + s) % (1 << 128)).to_bytes(16, "little")
 
 
 def _pad16(b: bytes) -> bytes:
@@ -296,8 +354,9 @@ def poly1305_cuda(key: torch.Tensor, message: torch.Tensor, aad: torch.Tensor | 
     """uint8[16] on the device: the Poly1305 tag of ``message`` under the
     32-byte ``key`` (r || s, a device tensor, 4-byte aligned); with ``aad``
     (a device tensor, maybe empty), the tag of the RFC 8439 AEAD MAC input
-    pad16(aad) || pad16(message) || the two lengths, read in place. Two
-    launches: the runs and their tree, then the fold."""
+    pad16(aad) || pad16(message) || the two lengths, read in place. One
+    launch up to ``POLY_ONE_LAUNCH`` blocks of MAC input; past it, two: the
+    persistent grid's partials, then their fold (``poly_geometry``)."""
     build.require_cuda_bytes(key, "poly1305 key")
     build.require_cuda_bytes(message, "poly1305")
     _check_data(message, "poly1305")
@@ -310,14 +369,15 @@ def poly1305_cuda(key: torch.Tensor, message: torch.Tensor, aad: torch.Tensor | 
             raise ValueError(f"poly1305: aad on {aad.device}, message on {message.device}")
     aad_len = aad.numel() if aead else 0
     blocks = -(-aad_len // 16) + -(-message.numel() // 16) + 1 if aead else -(-message.numel() // 16)
-    partials = torch.empty((max(1, -(-blocks // _POLY_SPAN)), 5), dtype=torch.int32, device=message.device)
+    grid, warps, q = poly_geometry(blocks, build.sm_count(message.device))
+    partials = torch.empty((grid, 5), dtype=torch.int32, device=message.device) if grid > 1 else None
     tag = torch.empty(16, dtype=torch.uint8, device=message.device)
     lib = build.library()
     with torch.cuda.device(message.device):
         code = lib.sw_poly1305(
             aad.data_ptr() if aad_len else None, aad_len, message.data_ptr() if message.numel() else None,
-            message.numel(), int(aead), key.data_ptr(), partials.data_ptr(), partials.shape[0], tag.data_ptr(),
-            build.stream_of(message),
+            message.numel(), int(aead), key.data_ptr(), q, warps, grid,
+            partials.data_ptr() if partials is not None else None, tag.data_ptr(), build.stream_of(message),
         )
     build.check(code, "poly1305")
     LAUNCHES["poly1305"] += 1

@@ -186,6 +186,142 @@ def myers_plain(batch: MyersBatch) -> torch.Tensor:
     return torch.where(a_len == 0, b_len, score).to(torch.int32)
 
 
+LANE_ROWS = 32  # DP rows of a lane word of csrc/myers.cu at short batches
+LATENCY_THREADS = 1024  # threads an SM below which a batch takes one 32-row word a lane
+_M32 = 0xFFFFFFFF
+
+
+def _pow2(n: int) -> int:
+    """The power of two from 1 to 32 at or above n."""
+    group = 1
+    while group < min(n, 32):
+        group *= 2
+    return group
+
+
+def lane_group(max_a: int) -> int:
+    """Lanes a pair of csrc/myers.cu for patterns of up to ``max_a`` rows at
+    one 32-row word a lane: the words the longest needs, to a power of two
+    from 1 to 32."""
+    return _pow2(-(-max_a // LANE_ROWS))
+
+
+def schedule(count: int, max_a: int, nbits: int, sms: int) -> tuple[int, int, int]:
+    """(rows of a lane word, words a lane, lanes a pair) of csrc/myers.cu
+    for ``count`` pairs whose longest pattern has ``max_a`` rows, on a card
+    of ``sms`` SMs. A batch whose 32-row words all fit in ``LATENCY_THREADS``
+    threads an SM is latency-bound: one 32-row word a lane, as many lanes as
+    the longest pattern has words (``lane_group``). A larger one fills the
+    card anyway and is bound by its instructions: 4 64-bit words a lane (2
+    at 22 planes, for registers), the fewest instructions a row, and as
+    many lanes as the longest pattern needs of those."""
+    words32 = -(-max_a // LANE_ROWS)
+    if count * words32 <= sms * LATENCY_THREADS:
+        return LANE_ROWS, 1, lane_group(max_a)
+    per_lane = 2 if nbits == CP_BITS else 4
+    return 64, per_lane, _pow2(-(-max_a // (64 * per_lane)))
+
+
+def myers_lanes_plain(batch: MyersBatch, plan: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """The kernel's own schedule in plain torch, vectorized over pairs and
+    lanes. ``plan`` is (rows of a lane word, words a lane, lanes a pair), as
+    ``schedule`` gives it (by default for an H100's 132 SMs). Each lane holds
+    its words one above the other and advances them one after the other in
+    a step; the group's lanes cover a band of words, and bands follow one
+    another. At step s, lane w advances column s - w of its words with the
+    character and the hp/hn bits that lane w - 1 passed at step s - 1
+    (packed as the kernel's shuffle packs them: the character in bits
+    0..21, hp in bit 30, hn in bit 31); lane 0 takes the next column's
+    character from the text, and hp/hn from 1/0 in the first band or from
+    the bits the last lane of the band before left, column by column.
+    -> int32[B], equal to ``myers_plain``."""
+    planes, text = batch.planes, batch.text
+    W64, nbits, B = planes.shape
+    dev = planes.device
+    a_len = batch.a_len.to(torch.int64)
+    b_len = batch.b_len.to(torch.int64)
+    L = text.shape[0]
+    max_a = int(batch.host_a_len.max()) if B else 0
+    rows, per_lane, G = schedule(B, max_a, nbits, 132) if plan is None else plan
+    mask = _M32 if rows == 32 else -1  # int64 holds a 64-bit word; its adds and left shifts wrap
+    top = rows - 1
+    words = (a_len + rows - 1) // rows
+    lastw = torch.where(a_len > 0, (a_len - 1) // rows, -1)
+    lastr = ((a_len - 1) % rows).clamp(min=0)[:, None]
+    lane = torch.arange(G, device=dev)
+    bit_k = torch.tensor([*range(nbits - 1), 63], device=dev)[:, None, None]  # bit 63 of a code is 0: the sentinel's mask inverts
+    if rows == 32:
+        lane_words = torch.stack([planes & _M32, (planes >> 32) & _M32], dim=1).reshape(2 * W64, nbits, B)
+    else:
+        lane_words = planes
+    text64 = torch.cat([text.to(torch.int64), torch.zeros((1, B), dtype=torch.int64, device=dev)])  # a zero past the end
+    score = a_len.clone()
+    carry_p = carry_n = None  # [B, L] bits of the band above's last lane
+    band_words = G * per_lane
+    bands = int(((words + band_words - 1) // band_words).max()) if B else 0
+    for band in range(bands):
+        word0 = band * band_words + lane * per_lane  # [G]
+        mine = (words[:, None] - word0[None, :]).clamp(0, per_lane)  # [B, G]
+        lanes = ((words - band * band_words + per_lane - 1) // per_lane).clamp(0, G)
+        to_next = (lane[None, :] == G - 1) & (words > (band + 1) * band_words)[:, None]
+        tw = lastw[:, None] - word0[None, :]
+        steps = torch.where((lanes > 0) & (b_len > 0), b_len + lanes - 1, 0)
+        pls = [lane_words[(word0 + j).clamp(max=lane_words.shape[0] - 1)].permute(1, 2, 0) for j in range(per_lane)]
+        vp = [torch.full((B, G), mask, dtype=torch.int64, device=dev) for _ in range(per_lane)]
+        vn = [torch.zeros((B, G), dtype=torch.int64, device=dev) for _ in range(per_lane)]
+
+        def eq_of(pl, c):  # c: [B, G] characters -> AND_k plane_k ^ mask_k, the sentinel plane inverted
+            terms = pl ^ (((c[None] >> bit_k) & 1) - 1) & mask
+            while terms.shape[0] > 1:
+                half = terms.shape[0] // 2
+                terms = torch.cat([terms[:half] & terms[half : 2 * half], terms[2 * half :]])
+            return terms[0]
+
+        c0 = torch.where(b_len > 0, text64[0], 0)
+        pk = torch.zeros((B, G), dtype=torch.int64, device=dev)
+        pk[:, 0] = c0
+        eq = [eq_of(pl, pk & 0x3FFFFFFF) for pl in pls]
+        next_p = torch.zeros((B, L), dtype=torch.int64, device=dev)
+        next_n = torch.zeros((B, L), dtype=torch.int64, device=dev)
+        for s in range(int(steps.max()) if B else 0):
+            got = torch.cat([pk[:, :1], pk[:, :-1]], dim=1)  # __shfl_up_sync by 1 within the group
+            col = s - lane[None, :]
+            cnext = got & 0x3FFFFFFF
+            hp, hn = (got >> 30) & 1, (got >> 31) & 1
+            cnext[:, 0] = text64[min(s + 1, L)]
+            if band == 0:
+                hp[:, 0], hn[:, 0] = 1, 0
+            else:
+                hp[:, 0] = carry_p[:, s] if s < L else 0
+                hn[:, 0] = carry_n[:, s] if s < L else 0
+            active = (col >= 0) & (col < b_len[:, None])
+            for j in range(per_lane):
+                live = active & (j < mine)
+                xv = eq[j] | vn[j]
+                eq2 = eq[j] | hn
+                xh = ((((eq2 & vp[j]) + vp[j]) & mask) ^ vp[j]) | eq2
+                ph = vn[j] | (~(xh | vp[j]) & mask)
+                mh = vp[j] & xh
+                delta = ((ph >> lastr) & 1) - ((mh >> lastr) & 1)
+                score = score + torch.where(live & (tw == j), delta, 0).sum(dim=1)
+                phs = ((ph << 1) & mask) | hp
+                mhs = ((mh << 1) & mask) | hn
+                vp[j] = torch.where(live, mhs | (~(xv | phs) & mask), vp[j])
+                vn[j] = torch.where(live, phs & xv, vn[j])
+                hp, hn = (ph >> top) & 1, (mh >> top) & 1
+            sends = active & (mine == per_lane)
+            hp_out, hn_out = torch.where(sends, hp, 0), torch.where(sends, hn, 0)
+            out = sends & to_next
+            if bool(out.any()):
+                c = s - (G - 1)
+                next_p[:, c] = torch.where(out[:, -1], hp_out[:, -1], next_p[:, c])
+                next_n[:, c] = torch.where(out[:, -1], hn_out[:, -1], next_n[:, c])
+            pk = cnext | (hp_out << 30) | (hn_out << 31)
+            eq = [eq_of(pl, cnext) for pl in pls]
+        carry_p, carry_n = next_p, next_n
+    return torch.where(a_len == 0, b_len, score).to(torch.int32)
+
+
 def myers_distances(batch: MyersBatch) -> torch.Tensor:
     """Levenshtein distance per pair -> int32[count], on the batch's device:
     the CUDA kernel for a batch on the card, ``myers_plain`` on the CPU."""

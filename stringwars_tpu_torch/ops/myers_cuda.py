@@ -1,10 +1,11 @@
 """Wrapper of the hand-written CUDA kernel in ``csrc/myers.cu``.
 
 The counterpart of ``stringwars_tpu.ops.myers_pallas._myers``. The wrapper
-checks the staged batch, allocates the output and the kernel's carry
-scratch, launches on PyTorch's current stream without synchronizing,
-raises on a CUDA launch error, and adds one to ``LAUNCHES``. A CPU batch
-raises: the plain version is ``ops/myers.myers_plain``.
+checks the staged batch, allocates the output and, for patterns past one
+band of the group's rows, the kernel's carry scratch, launches on PyTorch's
+current stream without synchronizing, raises on a CUDA launch error, and
+adds one to ``LAUNCHES``. A CPU batch raises: the plain versions are
+``ops/myers.myers_plain`` and ``myers_lanes_plain`` (the kernel's schedule).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from stringwars_tpu_torch import build
-from stringwars_tpu_torch.ops.myers import SUPPORTED_NBITS, WORD, MyersBatch
+from stringwars_tpu_torch.ops.myers import SUPPORTED_NBITS, WORD, MyersBatch, schedule
 
 # Launches of the kernel since process start (or the last reset).
 LAUNCHES = {"myers": 0}
@@ -43,19 +44,26 @@ def _check(batch: MyersBatch) -> None:
 
 def myers(batch: MyersBatch) -> torch.Tensor:
     """Levenshtein distance per pair by the CUDA kernel -> int32[count] on
-    the device. Launches asynchronously on the current stream."""
+    the device. Launches asynchronously on the current stream, under the
+    batch's ``ops/myers.schedule`` (lane words, words a lane, lanes a pair),
+    with the bands' carry scratch where a pattern is longer than a band."""
     _check(batch)
     B = batch.count
     out = torch.empty(B, dtype=torch.int32, device=batch.device)
     if B == 0:
         return out
-    groups = -(-batch.text.shape[0] // 32)
-    carry = torch.empty(2 * groups * B, dtype=torch.int32, device=batch.device)  # u32 bit words
+    rows = batch.text.shape[0]
+    max_a = int(batch.host_a_len.max())
+    word_bits, per_lane, group = schedule(B, max_a, batch.nbits, build.sm_count(batch.device))
+    carry = None
+    if max_a > group * per_lane * word_bits:
+        carry = torch.empty(2 * -(-rows // 32) * B, dtype=torch.int32, device=batch.device)  # u32 bit words
     lib = build.library()
     with torch.cuda.device(batch.device):
         code = lib.sw_myers(
-            batch.planes.data_ptr(), batch.nbits, batch.text.data_ptr(), batch.a_len.data_ptr(),
-            batch.b_len.data_ptr(), B, carry.data_ptr(), out.data_ptr(), build.stream_of(out),
+            batch.planes.data_ptr(), batch.nbits, batch.text.data_ptr(), rows, batch.a_len.data_ptr(),
+            batch.b_len.data_ptr(), B, max_a, word_bits, per_lane, group.bit_length() - 1,
+            carry.data_ptr() if carry is not None else None, out.data_ptr(), build.stream_of(out),
         )
     build.check(code, "myers")
     LAUNCHES["myers"] += 1

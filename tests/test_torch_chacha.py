@@ -20,7 +20,7 @@ from stringwars_tpu.ops import chacha as JC
 from stringwars_tpu_torch.ops import chacha as C
 
 # Bytes: around the 16- and 64-byte blocks, and one size past a 4,096-block
-# chunk of the JAX MAC (and a 4,096-block partial of the port's kernel) with a tail.
+# chunk of the JAX MAC (and past the port's one-launch MAC span) with a tail.
 SIZES = [0, 1, 15, 16, 17, 63, 64, 65, 1000, 65536, 200_000, 4096 * 16 + 4096 + 7]
 
 RFC_KEY = bytes(range(32))
@@ -188,3 +188,48 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         C.chacha20_xor_cuda(bytes(32), bytes(12), _t(b"abc"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         C.poly1305_cuda(torch.zeros(32, dtype=torch.uint8), _t(b"abc"))
+
+
+# The MAC kernel's schedule (csrc/chacha.cu, C.poly1305_lanes_ref under
+# C.poly_geometry): around a block, a warp's group of 32 blocks (512 B), a
+# block of 8 warps' groups (4 KiB), the one-launch span (16 KiB), twice it
+# (a grid and a fold) and 33 times it (33 partials at 132 SMs: fold lanes
+# with two each; at 2 SMs, the grid's cap of 6 blocks with a longer span).
+POLY_SPANS = [16, 512, 4096, C.POLY_ONE_LAUNCH * 16, 2 * C.POLY_ONE_LAUNCH * 16, 33 * C.POLY_ONE_LAUNCH * 16]
+
+
+@pytest.mark.parametrize("mode", ["raw", "aead"])
+@pytest.mark.parametrize("span", POLY_SPANS)
+def test_lane_interleaved_poly1305_matches_jax_and_ref(span, mode):
+    rng = np.random.default_rng(span + (mode == "aead"))
+    for n in (span - 1, span, span + 1):
+        key = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+        if mode == "raw":
+            mac = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        else:  # the AEAD's MAC input around the span: pad16(aad) || pad16(ciphertext) || the lengths
+            aad = b"header" if span > 16 else b""
+            ciphertext = rng.integers(0, 256, max(0, n - 16 - len(C._pad16(aad))), dtype=np.uint8).tobytes()
+            mac = C._mac_data(aad, ciphertext)
+        want = JC.poly1305_tag(key, mac)
+        blocks = -(-len(mac) // 16)
+        assert C.poly1305_ref(key, mac) == want
+        for sms in (132, 2):
+            geometry = C.poly_geometry(blocks, sms)
+            assert C.poly1305_lanes_ref(key, mac, geometry) == want, (n, sms, geometry)
+
+
+def test_poly_geometry_covers_the_input():
+    """Up to POLY_ONE_LAUNCH blocks: one block of just enough warps; past
+    it, 8-warp blocks, at most POLY_BLOCKS_PER_SM an SM, each warp's span as
+    short as covers the input."""
+    for sms in (1, 2, 132):
+        for blocks in [0, 1, 31, 32, 33, 256, 257, 1023, 1024, 1025, 2048, 4097, 33 * 1024 + 5, 8_388_608]:
+            grid, warps, q = C.poly_geometry(blocks, sms)
+            covered = grid * warps * 32 * q
+            assert covered >= blocks and q >= 1 and 1 <= warps <= C.POLY_WARPS
+            if blocks <= C.POLY_ONE_LAUNCH:
+                assert grid == 1 and warps == max(1, min(C.POLY_WARPS, -(-blocks // 32)))
+            else:
+                assert warps == C.POLY_WARPS and 1 < grid <= max(2, sms * C.POLY_BLOCKS_PER_SM)
+                assert grid * warps * 32 * (q - 1) < blocks
+    assert C.poly_geometry(8_388_608, 132) == (396, 8, 83)  # the 128 MiB corpus on an H100

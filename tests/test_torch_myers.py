@@ -135,3 +135,108 @@ def test_cuda_wrapper_refuses_cpu_batches(staged):
     assert myers_cuda.LAUNCHES == before
     with pytest.raises(ValueError):
         M.MyersBatch.from_arrays(np.zeros((1, 1)), np.zeros((1, 1)), [1], [1], nbits=7)
+
+
+# The lane-group kernel's schedules (csrc/myers.cu, M.schedule,
+# M.myers_lanes_plain): lanes of 32-bit words or of several 64-bit words, a
+# skewed wavefront, hp/hn passed lane to lane, bands past a group's rows.
+EDGES = (0, 1, 31, 32, 33, 63, 64, 65, 100, 255, 256, 257, 1023, 1024, 1025)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test on one intra-op thread: the schedule's emulation runs
+    thousands of small steps, and under the parallel test run a step split
+    over every core's threads waits on all of them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def edges():
+    """alphabet -> (tokens, port batch, JAX distances) over every pair of
+    lengths |a|, |b| in EDGES."""
+    rng = np.random.default_rng(11)
+    pairs = [(m, n) for m in EDGES for n in EDGES]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    cps_a = [rng.integers(0, 0x110000, m).astype(np.int32) for m, _ in pairs]
+    sets = {
+        "bytes": ([bytes(rng.integers(0, 256, m, dtype=np.uint8)) for m, _ in pairs],
+                  [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for _, n in pairs]),
+        "dna": ([acgt[rng.integers(0, 4, m)].tobytes() for m, _ in pairs],
+                [acgt[rng.integers(0, 4, n)].tobytes() for _, n in pairs]),
+        "codepoints": (cps_a, [np.concatenate([x[: n // 2], rng.integers(0x1F600, 0x1F604, n)])[:n].astype(np.int32)
+                               for x, (_, n) in zip(cps_a, pairs)]),
+    }
+    out = {}
+    for name, (a, b) in sets.items():
+        stage_jax = JM.myers_from_codepoints if name == "codepoints" else JM.myers_from_tokens
+        out[name] = (a, b, _stage(name, a, b), JM.myers_distances(stage_jax(a, b), interpret=True))
+    return pairs, out
+
+
+def _stage(alphabet, a, b):
+    return (M.myers_from_codepoints if alphabet == "codepoints" else M.myers_from_tokens)(a, b)
+
+
+def _short(edges, alphabet, rows=257):
+    """The port batch of the edge pairs of up to ``rows`` rows and 257
+    columns, and their JAX distances."""
+    pairs, sets = edges
+    a, b, _, want = sets[alphabet]
+    keep = [i for i, (m, n) in enumerate(pairs) if m <= rows and n <= 257]
+    return _stage(alphabet, [a[i] for i in keep], [b[i] for i in keep]), want[keep]
+
+
+@pytest.mark.parametrize("alphabet", ["bytes", "dna", "codepoints"])
+def test_lanes_schedule_matches_pallas_and_plain_at_lane_and_band_edges(edges, alphabet):
+    """A warp of 32-bit lanes a pair (the longest pattern, 1,025 rows, takes
+    33 words: a second band), pairs of every edge length sharing groups,
+    against the JAX kernel; and, with ``myers_plain``, the pairs of up to
+    257 rows and columns (``myers_plain`` at 1,025 x 1,025 alone would take
+    as long as the rest of the file)."""
+    _, sets = edges
+    _, _, port, want = sets[alphabet]
+    assert M.schedule(port.count, int(port.host_a_len.max()), port.nbits, 132) == (32, 1, 32)
+    got = M.myers_lanes_plain(port)
+    assert got.dtype == torch.int32 and got.shape == (port.count,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    short, short_want = _short(edges, alphabet)
+    plain = M.myers_plain(short).numpy()
+    np.testing.assert_array_equal(plain, short_want)
+    np.testing.assert_array_equal(M.myers_lanes_plain(short, (32, 1, 8)).numpy(), plain)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+def test_lanes_schedule_at_each_group_size(edges, group):
+    """32-bit lanes in groups narrower than the patterns' words go on in
+    bands (1 lane: a band a word), on the byte pairs of up to 100 rows."""
+    port, want = _short(edges, "bytes", rows=100)
+    np.testing.assert_array_equal(M.myers_lanes_plain(port, (32, 1, group)).numpy(), want)
+
+
+@pytest.mark.parametrize("alphabet,plan", [("bytes", (64, 4, 1)), ("dna", (64, 4, 2)), ("codepoints", (64, 2, 1))])
+def test_lanes_schedule_with_words_a_lane(edges, alphabet, plan):
+    """The schedule of batches that fill the card: 64-bit lane words, 4 a
+    lane (2 at codepoints), lanes whose words a pattern fills only in part,
+    and bands of 1 or 2 lanes (257 rows: 5 words)."""
+    port, want = _short(edges, alphabet)
+    np.testing.assert_array_equal(M.myers_lanes_plain(port, plan).numpy(), want)
+
+
+def test_schedule_follows_the_batch():
+    """One 32-bit word a lane while the batch's words fit 1,024 threads an
+    SM (the similarities suite's 4,096 pairs of 100 B), else 64-bit words,
+    4 a lane (2 at codepoints): the published shapes' plans on an H100."""
+    cases = {0: 1, 1: 1, 32: 1, 33: 2, 64: 2, 65: 4, 100: 4, 128: 4, 129: 8, 256: 8, 257: 16, 512: 16, 513: 32,
+             1024: 32, 1025: 32, 5000: 32}
+    assert {m: M.lane_group(m) for m in cases} == cases
+    assert M.schedule(4096, 100, 3, 132) == (32, 1, 4)
+    assert M.schedule(4096, 100, M.CP_BITS, 132) == (32, 1, 4)
+    assert M.schedule(65536, 256, M.BYTE_BITS, 132) == (64, 4, 1)
+    assert M.schedule(33856, 1023, 3, 132) == (64, 4, 4)
+    assert M.schedule(33856, 1023, M.CP_BITS, 132) == (64, 2, 8)
+    assert M.schedule(132 * 1024 // 4, 100, 3, 132) == (32, 1, 4)
+    assert M.schedule(132 * 1024 // 4 + 1, 100, 3, 132) == (64, 4, 1)

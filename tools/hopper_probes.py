@@ -1,8 +1,10 @@
-"""Measurement probes of the port's ChaCha20 XOR and BPE kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers and Poly1305 kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
     python3 tools/hopper_probes.py seal --other-tree DIR
+    python3 tools/hopper_probes.py myers
+    python3 tools/hopper_probes.py poly
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -31,6 +33,31 @@ subcommand measures:
   corpus seal, with this tree's library and with ``--other-tree``'s (the
   same C entry points), in one process, in the orders A B B A and B A A B;
   host clock around each call and a synchronize, median of 30 calls.
+- ``myers``: the similarities suite's batch (4,096 pairs of
+  ``synthetic:dna-100b`` lines, staged as its ``uniform`` and
+  ``uniform-utf8`` rows stage them), 65,536 pairs of 256 B (bytes 65..68,
+  nine planes) and 184 x 184 pairs of 1 KB ``synthetic:dna`` lines, through
+  the variants of ``tools/hopper_probes/myers_variants.cu``: the earlier
+  one-thread-a-pair kernel, the same with its text column made in
+  registers instead of loaded, and the lane-group kernel with 32-bit lanes
+  of one word at the batch's group size, half it and twice it, and with
+  64-bit lanes of 1, 2 and 4 words (every variant but the register one
+  held to the earlier kernel's distances), and the package's ``myers``;
+  the earlier kernel also on the suite's batch repeated 4 and 16 times.
+  Each timed by CUDA events and by ``torch.profiler`` device time a launch
+  (the suite's kernels run for less than the host takes to launch them).
+  Then the SASS split of each kernel's largest basic block (the earlier
+  kernel's column loop).
+- ``poly``: at 128 MiB (raw mode) and at a 1.1 KB token (AEAD mode, the
+  per-token seal's MAC input), the earlier MAC (its runs kernel and its
+  fold launch) whole, its runs kernel with its loads alone and with its
+  products alone, its fold launch alone, the package's ``poly1305_cuda``,
+  the lane-interleaved kernel at other batch depths and blocks an SM and
+  with its loads alone and its products alone (the variants of
+  ``tools/hopper_probes/poly_variants.cu``) and, at 128 MiB, ``copy_`` of
+  the same bytes; each held to ``poly1305_plain`` where it computes the
+  tag, and timed by CUDA events and by ``torch.profiler`` device time a
+  call. Then the SASS split of the kernels' largest basic blocks.
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -39,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -57,6 +85,9 @@ from stringwars_tpu_torch import build, datasets  # noqa: E402
 from stringwars_tpu_torch.ops import bpe as BPE  # noqa: E402
 from stringwars_tpu_torch.ops import bpe_cuda as BPC  # noqa: E402
 from stringwars_tpu_torch.ops import chacha as CC  # noqa: E402
+from stringwars_tpu_torch.ops import myers as MY  # noqa: E402
+from stringwars_tpu_torch.ops import myers_cuda as MYC  # noqa: E402
+from stringwars_tpu_torch.ops import similarity as S  # noqa: E402
 from stringwars_tpu_torch.suites import encryption as ES  # noqa: E402
 from stringwars_tpu_torch.suites import tokenization as TS  # noqa: E402
 
@@ -296,16 +327,205 @@ def seal(args) -> None:
         print(f"seal, {row}, {lib}'s library: {', '.join(f'{v:.4f}' for v in values)} ms (median {statistics.median(values):.4f})")
 
 
+def device_orders(calls: dict) -> dict:
+    """name -> (call, kernel substring): ``torch.profiler`` device ms a call
+    of the kernels whose names hold the substring, in the dict's order, then
+    in the reverse; None where no trace saw them."""
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            fn, kernel = calls[name]
+            times[name].append(CS.device_ms(fn, kernel, calls=30, per_call=True))
+    return times
+
+
+def _fmt(values) -> str:
+    return ", ".join("not measured" if v is None else f"{v:.4f}" for v in values)
+
+
+def suite_myers_batches(dev) -> dict:
+    """The similarities suite's two Myers stagings of its 4,096 pairs (64
+    queries x 64 candidates of ``synthetic:dna-100b`` lines)."""
+    lines = [t for t in datasets.synthesize("dna-100b", 2 * 64 * 64 * 101 + 101).split(b"\n") if t][: 2 * 64 * 64]
+    queries, candidates = lines[:64], lines[64:128]
+    pa = [q for q in queries for _ in candidates]
+    pb = [c for _ in queries for c in candidates]
+    return {
+        "suite uniform (4,096 pairs of 100 B)": MY.myers_from_tokens(pa, pb, device=dev),
+        "suite uniform-utf8 (codepoints)": MY.myers_from_codepoints(
+            [S.decode_codepoints(t) for t in pa], [S.decode_codepoints(t) for t in pb], device=dev),
+    }
+
+
+def repeated(mb: MY.MyersBatch, k: int) -> MY.MyersBatch:
+    return dataclasses.replace(
+        mb, planes=mb.planes.repeat(1, 1, k).contiguous(), text=mb.text.repeat(1, k).contiguous(),
+        a_len=mb.a_len.repeat(k).contiguous(), b_len=mb.b_len.repeat(k).contiguous(),
+        host_a_len=np.tile(mb.host_a_len, k), host_b_len=np.tile(mb.host_b_len, k))
+
+
+def myers(args) -> None:
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_myers_variants.so"
+    print(f"myers_variants.cu built: {finish(nvcc_shared(PROBES / 'myers_variants.cu', so), 'myers_variants.cu')}")
+    lib = ctypes.CDLL(str(so))
+    lib.myers_variant_run.argtypes = (_N, _P, _N, _P, _N, _P, _P, _N, _N, _N, _P, _P, _P)
+    batches = suite_myers_batches(dev)
+    rng = np.random.default_rng(0)
+    ca = rng.integers(65, 69, (65536, 256)).astype(np.int32)
+    cb = rng.integers(65, 69, (65536, 256)).astype(np.int32)
+    full = np.full(65536, 256, np.int32)
+    batches["64k x 256 B (bytes, 9 planes)"] = MY.MyersBatch.from_arrays(ca, cb, full, full, nbits=MY.BYTE_BITS, device=dev)
+    side = 184
+    dna = [t for t in datasets.synthesize("dna", (2 * side + 1) * 1024).split(b"\n") if t]
+    queries, candidates = dna[:side], dna[side : 2 * side]
+    batches["184 x 184 pairs of 1 KB ACGT"] = MY.myers_from_tokens(
+        [q for q in queries for _ in candidates], [c for _ in queries for c in candidates], device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def variant(mb, v, lg, per_lane=1):
+        out = torch.empty(mb.count, dtype=torch.int32, device=dev)
+        carry = torch.empty(2 * -(-mb.text.shape[0] // 32) * mb.count, dtype=torch.int32, device=dev)
+
+        def run():
+            code = lib.myers_variant_run(v, mb.planes.data_ptr(), mb.nbits, mb.text.data_ptr(), mb.text.shape[0],
+                                         mb.a_len.data_ptr(), mb.b_len.data_ptr(), mb.count, lg, per_lane,
+                                         carry.data_ptr(), out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"myers variant {v}: CUDA error {code}")
+            return out
+        return run
+
+    for name, mb in batches.items():
+        max_a = int(mb.host_a_len.max())
+        calls = {
+            "the earlier kernel (one thread a pair, 64-bit words)": (variant(mb, 0, 0), "parent_myers_kernel"),
+            "the earlier kernel, text made in registers": (variant(mb, 1, 0), "parent_myers_kernel"),
+        }
+        lg32 = MY.lane_group(max_a).bit_length() - 1
+        plans = {(32, 1, g) for g in (max(lg32 - 1, 0), lg32, min(lg32 + 1, 5))}
+        for per_lane in (1, 2, 4):
+            lg = MY._pow2(-(-max_a // (64 * per_lane))).bit_length() - 1
+            plans |= {(64, per_lane, lg), (64, per_lane, min(lg + 1, 5))} if per_lane == 4 else {(64, per_lane, lg)}
+        for bits, per_lane, g in sorted(plans):
+            calls[f"lane groups, {bits}-bit words, {per_lane} a lane, {1 << g} lanes a pair"] = (
+                variant(mb, 2 if bits == 32 else 3, g, per_lane), "myers_lanes_kernel")
+        calls[f"the package's myers (schedule {MY.schedule(mb.count, max_a, mb.nbits, sms)})"] = (
+            lambda mb=mb: MYC.myers(mb), "myers_lanes_kernel")
+        want = calls["the earlier kernel (one thread a pair, 64-bit words)"][0]().clone()
+        for label, (fn, _) in calls.items():
+            if "registers" not in label and not torch.equal(fn(), want):
+                raise AssertionError(f"myers {name}, {label}: distances differ from the earlier kernel's")
+        print(f"myers {name}: {mb.count:,} pairs, nbits {mb.nbits}, longest pattern {max_a}, text rows "
+              f"{mb.text.shape[0]}; every variant equal to the earlier kernel")
+        events = both_orders({label: fn for label, (fn, _) in calls.items()})
+        device = device_orders(calls)
+        for label in calls:
+            print(f"myers {name}, {label}: device {_fmt(device[label])} ms a launch; events {_fmt(events[label])} ms")
+        if name.startswith("suite"):
+            for k in (4, 16):
+                big = repeated(mb, k)
+                fn = variant(big, 0, 0)
+                print(f"myers {name} x{k} ({big.count:,} pairs), the earlier kernel: device "
+                      f"{_fmt(device_orders({'x': (fn, 'parent_myers_kernel')})['x'])} ms a launch; events "
+                      f"{_fmt(both_orders({'x': fn})['x'])} ms")
+    for label, mangled in (("the earlier kernel, nbits 3", "parent_myers_kernelILi3ELi4ELb0E"),
+                           ("the earlier kernel, nbits 9", "parent_myers_kernelILi9ELi4ELb0E"),
+                           ("lane groups, 32-bit words, nbits 3", "myers_lanes_kernelILi3EjLi1E"),
+                           ("lane groups, 32-bit words, nbits 9", "myers_lanes_kernelILi9EjLi1E"),
+                           ("lane groups, 32-bit words, nbits 22", "myers_lanes_kernelILi22EjLi1E"),
+                           ("lane groups, 64-bit words, 4 a lane, nbits 9", "myers_lanes_kernelILi9EmLi4E"),
+                           ("lane groups, 64-bit words, 4 a lane, nbits 3", "myers_lanes_kernelILi3EmLi4E")):
+        pipes = CS.sass_pipes(mangled, library=str(so))
+        print(f"myers SASS, {label}: {pipes['text'] if pipes else 'not measured (no cuobjdump)'}")
+
+
+def poly(args) -> None:
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_poly_variants.so"
+    print(f"poly_variants.cu built: {finish(nvcc_shared(PROBES / 'poly_variants.cu', so), 'poly_variants.cu')}")
+    lib = ctypes.CDLL(str(so))
+    lib.poly_variant_run.argtypes = (_N, _P, _N, _P, _N, _N, _P, _N, _N, _N, _P, _P, _P)
+    stream = torch.cuda.current_stream().cuda_stream
+    key = np.random.default_rng(5).integers(0, 256, 32, dtype=np.uint8).tobytes()
+    key_dev = torch.tensor(list(key), dtype=torch.uint8, device=dev)
+    lines = [t for t in datasets.synthesize("long-lines", 1 << 20).split(b"\n") if t]
+    token = min(lines[: ES.SAMPLE_TOKENS], key=lambda t: abs(len(t) - 1100))
+    empty = torch.empty(0, dtype=torch.uint8, device=dev)
+    shapes = {
+        "128 MiB, raw mode": (CS.random_bytes(128 << 20, 6, dev), None),
+        f"a {len(token)} B token, AEAD mode (the per-token seal's MAC)": (
+            torch.tensor(list(token), dtype=torch.uint8, device=dev), empty),
+    }
+    # lane-interleaved variants: number, label, blocks an SM of its grid
+    lanes = {4: ("batches of 4 groups, 2 blocks an SM", 2), 5: ("batches of 8 groups, 2 blocks an SM", 2),
+             6: ("batches of 4 groups, 4 blocks an SM", 4), 7: ("batches of 8 groups, 1 block an SM", 1),
+             8: ("its loads alone", CC.POLY_BLOCKS_PER_SM), 9: ("its products alone", CC.POLY_BLOCKS_PER_SM)}
+    for name, (msg, aad) in shapes.items():
+        aead = aad is not None
+        blocks = -(-msg.numel() // 16) + (1 if aead else 0)
+        partials = torch.zeros((max(-(-blocks // 4096), 4 * sms), 5), dtype=torch.int32, device=dev)
+        tag = torch.empty(16, dtype=torch.uint8, device=dev)
+
+        def variant(v, per_sm=2):
+            with mock.patch.object(CC, "POLY_BLOCKS_PER_SM", per_sm):
+                grid, warps, q = CC.poly_geometry(blocks, sms)
+
+            def run():
+                code = lib.poly_variant_run(v, aad.data_ptr() if aead and aad.numel() else None, 0,
+                                            msg.data_ptr(), msg.numel(), int(aead), key_dev.data_ptr(), q, warps, grid,
+                                            partials.data_ptr(), tag.data_ptr(), stream)
+                if code:
+                    raise RuntimeError(f"poly variant {v}: CUDA error {code}")
+                return tag
+            return run
+
+        package = (lambda msg=msg, aad=aad: CC.poly1305_cuda(key_dev, msg, aad))
+        want = CC.poly1305_plain(key, CC._mac_data_tensor(b"", msg) if aead else msg)
+        checked = {"the earlier MAC": variant(0), "the package's": package}
+        checked.update({f"lane-interleaved, {label}": variant(v, per_sm) for v, (label, per_sm) in lanes.items() if v < 8})
+        for label, fn in checked.items():
+            got = bytes(fn().cpu().tolist())
+            if got != want:
+                raise AssertionError(f"poly {name}: {label} tag {got.hex()} differs from poly1305_plain's {want.hex()}")
+        calls = {
+            "the earlier MAC whole (runs, then fold)": (variant(0), "_kernel"),
+            "its runs kernel, loads alone": (variant(1), "runs_kernel"),
+            "its runs kernel, products alone": (variant(2), "runs_kernel"),
+            "its fold launch alone": (variant(3), "fold_kernel"),
+            "the package's poly1305_cuda (batches of 4 groups, 3 blocks an SM)": (package, "poly_"),
+        }
+        calls.update({f"lane-interleaved, {label}": (variant(v, per_sm), "_kernel") for v, (label, per_sm) in lanes.items()})
+        if not aead:
+            out = torch.empty_like(msg)
+            calls["copy_ of the same bytes"] = (lambda: out.copy_(msg), "")
+        print(f"poly {name}: {blocks:,} blocks, geometry {CC.poly_geometry(blocks, sms)} (grid, warps, q); every variant "
+              f"that computes the tag equals poly1305_plain")
+        events = both_orders({label: fn for label, (fn, _) in calls.items()})
+        device = device_orders({label: c for label, c in calls.items() if c[1]})
+        for label in calls:
+            print(f"poly {name}, {label}: device {_fmt(device.get(label, [None]))} ms a call; events {_fmt(events[label])} ms")
+    for label, mangled, library in (("the package's kernel", "poly_lanes_kernelILi4ELi3E", str(build.library_path())),
+                                    ("batches of 8 groups", "poly_lanes_kernelILi8ELi2E", str(so)),
+                                    ("the earlier runs kernel", "runs_kernelILb1ELb1E", str(so))):
+        pipes = CS.sass_pipes(mangled, library=library)
+        print(f"poly SASS, {label}: {pipes['text'] if pipes else 'not measured (no cuobjdump)'}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=("chacha", "bpe", "seal"))
+    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("hopper_probes: no CUDA device", file=sys.stderr)
         return 2
     print(card_line(), flush=True)
-    {"chacha": chacha, "bpe": bpe, "seal": seal}[args.probe](args)
+    {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly}[args.probe](args)
     return 0
 
 
