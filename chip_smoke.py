@@ -19,9 +19,13 @@ prints no result:
    affine and linear, and 64 pairs against the brute-force oracles, and the
    alignment kernel at the edges of its lane groups and strips (8, 16 and 32
    lanes a pair, strips of 8 and 16 rows, pairs of several passes); the
-   Aho-Corasick DFA kernel in each table regime and the Shift-And kernel with
-   one and two state words, at their own and at small chunks, and 64 small
-   multi-pattern cases against brute force; the class map over every
+   Aho-Corasick DFA kernel in each of its 10 forms (``ACC.form_of``: the
+   class table in shared memory with 16- and 32-bit entries, the classes
+   from the map (as row offsets, or as classes where an offset passes a
+   byte) or computed from one byte range, the table split into rows on chip
+   and off, and the 256-column table's global and wide regimes) and the Shift-And kernel with one and two state words
+   (words filled to bits 31 and 63, one-byte patterns), at their own and at small chunks,
+   and 64 small multi-pattern cases against brute force; the class map over every
    segmentation table, pruned at 0xFFFF and whole, the fused scan (one
    launch a program, the builds inside it) of each kind both ways at 128 Mi
    positions and across the seams of its tiles (1,024 to 8,192 positions,
@@ -52,9 +56,9 @@ prints no result:
    B, 16-byte aligned and at a 4-byte offset, and over the hash layouts,
    also against ``hashlib``; the tree level at base offsets 0..15 around
    the 16-byte units, its slices and chunks; find, rfind, Shift-And and
-   Aho-Corasick on views at offsets 1..15 of a 64 MB tape (the wrappers'
-   aligning copy timed at 64 MB); the Threefry fill against the pinned
-   ``jax.random.bits`` words);
+   Aho-Corasick (the DFA in six forms) on views at offsets 1..15 of a 64
+   MB tape (the wrappers' aligning copy timed at 64 MB); the Threefry fill
+   against the pinned ``jax.random.bits`` words);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -409,7 +413,8 @@ def sass_pipes(kernel: str, body_holds: str | None = None, library: str | None =
         alu = sum(op in ALU_OPCODES for op in ops)
         fma = sum(op in FMA_OPCODES for op in ops)
         top = sorted({op: ops.count(op) for op in set(ops)}.items(), key=lambda kv: -kv[1])[:8]
-        return {"total": len(ops), "alu": alu, "fma": fma, "other": len(ops) - alu - fma, "top": top}
+        return {"total": len(ops), "alu": alu, "fma": fma, "other": len(ops) - alu - fma, "top": top,
+                "counts": {op: ops.count(op) for op in set(ops)}}
 
     bodies = [block for block in blocks if body_holds is None or body_holds in block] or blocks
     body, whole = split(max(bodies, key=len)), split([op for block in blocks for op in block])
@@ -658,9 +663,10 @@ def check_unaligned(dev, errors: dict, n: int = 64 << 20) -> int:
     """The haystack scans at every misaligned offset: views ``hay[k:]``, k =
     1..15, of 64 MB over the letters a-d (dense matches) through find, rfind
     (counts and last offsets, relative to the view), Shift-And and
-    Aho-Corasick, each equal to the plain version (the CPU path) on the same
-    bytes; then the cost of the wrapper's aligning copy at that size, on a
-    line of its own. Returns the number of views checked."""
+    Aho-Corasick (the DFA in each form: ``ACC.form_of``), each equal to the
+    plain version (the CPU path) on the same bytes; then the cost of the
+    wrapper's aligning copy at that size, on a line of its own. Returns the
+    number of views checked."""
     from stringwars_tpu_torch import build
     from stringwars_tpu_torch.ops import ahocorasick as AC
     from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC
@@ -674,6 +680,14 @@ def check_unaligned(dev, errors: dict, n: int = 64 << 20) -> int:
     patterns = [b"a", b"abc", b"dcba", b"abcdab", b"bbbbbbbb", b"cadbcadb"]
     batch = F.NeedleBatch.from_needles([F.pack_needle(p) for p in patterns], dev)
     auto, sa = AC.Automaton(patterns), SA.ShiftAndSet(patterns)
+    rng = np.random.default_rng(22)
+    letters = np.frombuffer(b"abcd", np.uint8)
+    deep = [bytes(rng.choice(letters, 10)) for _ in range(1500)]  # runs deep into the trie on a-d text
+    random_bytes = [bytes(rng.integers(0, 256, 8, dtype=np.uint8)) for _ in range(3000)] + [b"abca", b"dd"]
+    forms = {ACC.form_of(a, ACC.shared_bytes(dev)): a for a in (
+        auto, AC.Automaton(patterns + [b"\x00d"]), AC.Automaton(patterns * 20 + deep[:300]), AC.Automaton(patterns[:3] + [b"ab"] * 300 + deep[:30]),
+        AC.Automaton(deep + [bytes(rng.integers(97, 157, 10, dtype=np.uint8)) for _ in range(500)]),
+        AC.Automaton(random_bytes), AC.Automaton(random_bytes + [b"c"] * 300))}
     checked = 0
     for k in range(1, 16):
         view = hay[k:]
@@ -686,11 +700,14 @@ def check_unaligned(dev, errors: dict, n: int = 64 << 20) -> int:
         errors["find_count"] = max(errors["find_count"], max_err(got_counts, want_counts))
         errors["rfind_count"] = max(errors["rfind_count"], max_err(got_r[0], want_r[0]), max_err(got_r[1], want_r[1]))
         want = AC.ac_count_plain(auto, view, extent)
-        errors["ac_dfa"] = max(errors["ac_dfa"], max_err(ACC.ac_count(auto, view, extent), want))
+        for form in forms.values():
+            errors["ac_dfa"] = max(errors["ac_dfa"], max_err(ACC.ac_count(form, view, extent), AC.ac_count_plain(form, view, extent)))
         errors["shiftand"] = max(errors["shiftand"], max_err(SAC.shiftand_count(sa, view, extent), want))
         if int(want.item()) == 0 or int(want_r[1].min().item()) < 0:
             raise AssertionError(f"the unaligned view at offset {k} holds no match of some pattern")
         checked += 1
+    if len(forms) < 6:
+        raise AssertionError(f"the unaligned views reached only the DFA forms {sorted(forms)}")
     view = hay[1 : n + 1]
     copy_ms = time_ms(lambda: build.aligned_bytes(view, n))
     phase("row", f"aligned-copy-64MB (the wrapper's copy of an unaligned {n:,}-byte haystack view): {copy_ms:.4f} ms "
@@ -1331,11 +1348,18 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         errors["lut_translate"] = max(errors["lut_translate"], max_err(M.lut_translate_cuda(view, lut), M.lut_translate_plain(view, lut)))
     # Multi-pattern counts over 6 MB + 13 B (lowercase, then a-c, then every
     # byte value) with patterns planted, at n and n - 5 and a short extent:
-    # the DFA in its three table regimes (by the automata's sizes: 13 to 47
-    # states shared, the dictionary and the long random set global, the
-    # 300-fold duplicate wide), the Shift-And kernel
-    # with one and two state words, each at its own chunk and at 32-byte
-    # chunks (shorter than the long patterns' overlap).
+    # the DFA in each of its forms (ACC.form_of: the class table in shared
+    # memory with 16- and 32-bit entries, in blocks of 256 and 1,024
+    # threads, the classes from the map (as row offsets, or as classes past
+    # 128: 201 and 202 classes) or computed from one byte range, the split
+    # of 16- and 32-bit tables, and the 256-column
+    # table's global and wide regimes: 32-bit entries by duplicate words, a
+    # NUL pattern to break the letters' range, sets of 2,000 random 10-byte
+    # words over 60 letters, 3,000 over 200 byte values and the dictionary
+    # with a count of 23 split, 3,000 random 8-byte words global
+    # and with a 300-fold duplicate wide), the Shift-And kernel with one and
+    # two state words (both filled to bit 31 and 63 too), each at its own
+    # chunk and at 32-byte chunks (shorter than the long patterns' overlap).
     mp_rng = np.random.default_rng(9)
     english = datasets.synthesize("english-words", 1 << 20)
     words_1k = list(dict.fromkeys(T.Tape.from_buffer(english, "words").to_list()))[:1000]
@@ -1353,7 +1377,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "1kwords": words_1k,
         "random300": random300,
         "wide": [b"a"] * 300 + [b"ab"],
+        "bits31+63": [b"ab" * 16, b"ba" * 16],
+        "nul1k": words_1k + [b"\x00q"],
+        "range32": words_1k[:250] + [b"the"] * 70,
+        "map32": words_1k[:250] + [b"the"] * 70 + [b"\x00q"],
+        "range32s": words_1k[:40] + [b"the"] * 260,
+        "map32s": words_1k[:40] + [b"the"] * 260 + [b"\x00q"],
+        "bytes200": [bytes([b]) for b in range(200)] + [b"\x00\xff"],
+        "split-raw": [bytes(mp_rng.integers(0, 200, 8, dtype=np.uint8)) for _ in range(3000)],
+        "split16": [bytes(mp_rng.integers(97, 157, 10, dtype=np.uint8)) for _ in range(2000)],
+        "split32": words_1k + [b"e"] * 20,
+        "global": [bytes(mp_rng.integers(0, 256, 8, dtype=np.uint8)) for _ in range(3000)],
     }
+    mp_sets["wide256"] = mp_sets["global"] + [b"a"] * 300
     for patterns in mp_sets.values():
         for i, p in enumerate(patterns[:64]):
             for at in mp_rng.integers(0, mp_hay.numel() - len(p), 4).tolist() + ([mp_hay.numel() - len(p)] if i == 0 else []):
@@ -1361,7 +1397,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     mp_checked, regimes_seen = 0, set()
     for set_name, patterns in mp_sets.items():
         auto = AC.Automaton(patterns)
-        regimes_seen.add(ACC.regime_of(auto))
+        regimes_seen.add(ACC.form_of(auto, ACC.shared_bytes(dev)))
         sa = SA.ShiftAndSet(patterns) if sum(map(len, patterns)) <= SA.MAX_BITS and max(map(len, patterns)) <= 32 else None
         for extent in (mp_hay.numel(), mp_hay.numel() - 5, (1 << 20) + 3):
             want = AC.ac_count_plain(auto, mp_hay, extent)
@@ -1373,7 +1409,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 for chunk in (None, ACC.CHUNK_ALIGN):
                     errors["shiftand"] = max(errors["shiftand"], max_err(SAC.shiftand_count(sa, mp_hay, extent, chunk=chunk), want))
                     mp_checked += 1
-    if regimes_seen != {"shared", "global", "wide"} or SA.ShiftAndSet(mp_sets["8words"]).n_words != 2:
+    forms = {f"shared/{bits}-bit{by}" for bits in (16, 32) for by in ("", "/range")}
+    forms |= {"shared/16-bit/raw", "split/16-bit", "split/32-bit", "split/16-bit/raw", "global", "wide"}
+    if regimes_seen != forms or SA.ShiftAndSet(mp_sets["8words"]).n_words != 2:
         raise AssertionError(f"the multi-pattern checks missed a regime or the two-word Shift-And: {regimes_seen}")
     del mp_parts, mp_hay
     # 64 small cases against brute force: 0..3000 B over two or three
@@ -1913,7 +1951,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         phase(
             "main path",
             f"ac_count / shiftand_count on the find suite's {n:,} B: {got} ({dictionary.states} DFA states in the "
-            f"{ACC.regime_of(dictionary)} regime, equal to the plain version; the DFA and Shift-And counts agree); "
+            f"{ACC.form_of(dictionary, ACC.shared_bytes(hay.device))} form, equal to the plain version; the DFA and Shift-And counts agree); "
             f"launches {launches()}",
             started,
         )
@@ -2426,28 +2464,51 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     del flat
 
     # Multi-pattern counts at tools/tpu_campaign.py's shapes (:940-1006): 64 MB
-    # of lowercase; the four-word set as a DFA (shared-memory table) and as
-    # one Shift-And word, the eight-word set as two Shift-And words, and the
-    # 1,000-word dictionary as a DFA (global table). Bound: one read of the
-    # bytes, or the instructions the function needs per byte: the DFA 4
-    # (extract the byte, form the index, load, add the count), Shift-And 2
-    # (extract, load) + 6 per 32-bit state word (shift, or, and, the final
-    # test, popcount, add). Each kernel is shorter than its wrapper's host
-    # work, so ms is the profiler's device time of the kernel.
+    # of lowercase; the four-word set as a DFA (the class table in shared
+    # memory) and as one Shift-And word, the eight-word set as two Shift-And
+    # words, and the 1,000-word dictionary as a DFA (its 221 KB class table
+    # in shared memory, its classes computed from the byte range). Bound: one read of the bytes, or the instructions the
+    # function needs per byte: the DFA 4 (extract the byte, form the index,
+    # load, add the count), Shift-And 2 (extract, load) + 6 per 32-bit state
+    # word (shift, or, and, the final test, popcount, add). Each kernel is
+    # shorter than its wrapper's host work, so ms is the profiler's device
+    # time of the kernel. Beside it, the ALU-pipe ceiling: the ALU
+    # instructions a byte of the basic block the row runs for its counted
+    # bytes (the largest; for Shift-And the largest that counts, with its
+    # POPCs, one a byte and word) over the bytes walked (each chunk's
+    # warm-up too), at 64 a clock an SM. Bytes a block: the DFA's PRMTs (one
+    # a byte), Shift-And's POPCs over its words.
     ac_flat = lowercase(64 << 20, 0, dev)
     nb = ac_flat.numel()
+
+    def alu_ceiling(kernel: str, max_len: int, body_holds: str, per_step: int) -> str:
+        pipes = sass_pipes(kernel, body_holds)
+        if pipes is None:
+            return "; SASS pipe split not measured (no cuobjdump)"
+        body = pipes["body"]
+        per_byte = body["alu"] / max(body["counts"].get(body_holds, 0) / per_step, 1)
+        chunk = ACC.kernel_chunk(max_len)
+        walked = nb + (-(-nb // chunk) - 1) * (-(-(max_len - 1) // 32) * 32)
+        ceiling = walked * per_byte / (132 * 64 * 1.98e9) * 1e3
+        return (f"; SASS {pipes['text']}; {per_byte:.2f} ALU instructions a byte, ALU-pipe ceiling {ceiling:.4f} ms "
+                f"({walked:,} bytes walked)")
+
     for name, auto, key in (
         ("ac-dfa-64MB", AC.Automaton(mp_sets["4words"]), "ac_dfa"),
         ("ac-dfa-1kwords-64MB", AC.Automaton(words_1k), None),
     ):
-        row(f"{name} ({ACC.regime_of(auto)}, {auto.states} states)", lambda: ACC.ac_count(auto, ac_flat),
-            lambda: AC.ac_count_plain(auto, ac_flat), nb, bound_ms(nb, 4 * nb), key, plain_samples=1, profiled="ac_kernel")
+        form = ACC.form_of(auto, ACC.shared_bytes(dev))
+        instance = f"ac_class_kernelItLb0ELi{2 if form.endswith('range') else 1}EE"
+        row(f"{name} ({form}, {auto.states} states, {auto.layout(ACC.shared_bytes(dev)).classes} classes)",
+            lambda: ACC.ac_count(auto, ac_flat), lambda: AC.ac_count_plain(auto, ac_flat), nb, bound_ms(nb, 4 * nb), key,
+            plain_samples=1, profiled="ac_class_kernel", note=alu_ceiling(instance, auto.max_len, "PRMT", 1))
     for name, sa, key in (
         ("ac-shiftand-64MB", SA.ShiftAndSet(mp_sets["4words"]), "shiftand"),
         ("ac-shiftand8-64MB", SA.ShiftAndSet(mp_sets["8words"]), None),
     ):
         row(f"{name} ({sa.n_words}-word state)", lambda: SAC.shiftand_count(sa, ac_flat), lambda: SA.shiftand_count_plain(sa, ac_flat),
-            nb, bound_ms(nb, (2 + 6 * sa.n_words) * nb), key, plain_samples=1, profiled="sa_kernel")
+            nb, bound_ms(nb, (2 + 6 * sa.n_words) * nb), key, plain_samples=1, profiled="sa_kernel",
+            note=alu_ceiling(f"sa_kernelILi{sa.n_words}ELb0E", sa.max_len, "POPC", sa.n_words))
     del ac_flat
 
     # Edit distances and alignment scores at tools/tpu_campaign.py's shapes:

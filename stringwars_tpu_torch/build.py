@@ -47,7 +47,8 @@ SIGNATURES = {
     "sw_lut_translate": (_P, _N, _P, _P, _P),
     "sw_myers": (_P, _N, _P, _N, _P, _P, _N, _N, _N, _N, _N, _P, _P, _P),
     "sw_align": (_P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P, _P),
-    "sw_ac_count": (_P, _N, _P, _N, _P, _N, _N, _N, _P, _P),
+    "sw_ac_count": (_P, _N, _P, _N, _P, _N, _N, _P, _P),
+    "sw_ac_classes": (_P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _P, _P),
     "sw_shiftand": (_P, _N, _P, _N, _N, _N, _P, _P),
     "sw_class_map": (_P, _N, _P, _N, _N, _P, _P),
     "sw_range_map": (_P, _N, _P, _N, _N, _P, _P),

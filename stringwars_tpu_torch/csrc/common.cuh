@@ -69,15 +69,15 @@ inline int stream_blocks(int64_t vectors) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
-// Blocks of kThreads to launch for a grid-stride kernel (the chunk scans of
+// Blocks of `threads` to launch for a grid-stride kernel (the chunk scans of
 // ahocorasick.cu and shiftand.cu): enough to fill every SM at the kernel's
 // occupancy with `smem` bytes of dynamic shared memory, no more than `want`.
 template <typename Kernel>
-inline int resident_grid(Kernel kernel, size_t smem, int64_t want) {
+inline int resident_grid(Kernel kernel, size_t smem, int64_t want, int threads = kThreads) {
   int device = 0, sms = 132, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }

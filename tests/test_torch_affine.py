@@ -19,6 +19,8 @@ from stringwars_tpu.ops import similarity as JS
 from stringwars_tpu_torch.ops import affine as A
 from stringwars_tpu_torch.ops import affine_cuda
 from stringwars_tpu_torch.ops import similarity as S
+from _torch_threads import one_thread  # noqa: F401
+
 
 # (gap_open, gap_extend, local) -> the JAX XLA function of the same score.
 MODELS = {

@@ -15,6 +15,7 @@ import torch
 from stringwars_tpu.ops import ahocorasick as JA
 from stringwars_tpu_torch.ops import ahocorasick as A
 from stringwars_tpu_torch.ops import ahocorasick_cuda
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -208,10 +209,18 @@ def test_tables_are_staged_once_per_automaton():
 
 
 def test_kernel_regime_and_chunk_choice():
-    assert ahocorasick_cuda.regime_of(A.Automaton([b"the", b"and", b"tion", b"abcd"])) == "shared"
+    def regime(auto, shared=A.SHARED_BYTES):
+        return auto.layout(shared).regime
+
+    assert regime(A.Automaton([b"the", b"and", b"tion", b"abcd"])) == "shared"
     words = [bytes(np.random.default_rng(i).integers(97, 123, 8, dtype=np.uint8)) for i in range(40)]
-    assert ahocorasick_cuda.regime_of(A.Automaton(words)) == "global"
-    assert ahocorasick_cuda.regime_of(A.Automaton([b"a"] * 300)) == "wide"
+    assert regime(A.Automaton(words)) == "shared"
+    assert regime(A.Automaton(words), 1024) == "split"
+    every_byte = [bytes([b]) for b in range(256)]  # 256 classes: they do not shrink the table
+    assert regime(A.Automaton(every_byte)) == "shared"
+    assert regime(A.Automaton(every_byte), 64 << 10) == "global"
+    assert regime(A.Automaton(every_byte + [b"a"] * 300)) == "wide"  # 32-bit entries, 263 KB: a count over 255
+    assert regime(A.Automaton([b"a"] * 300)) == "shared"  # a 16-bit entry holds the count of 300
     assert ahocorasick_cuda.kernel_chunk(1) == ahocorasick_cuda.kernel_chunk(65) == 256
     assert ahocorasick_cuda.kernel_chunk(300) == 1216
     assert ahocorasick_cuda.check_chunk(32, "x") == 32
@@ -219,6 +228,136 @@ def test_kernel_regime_and_chunk_choice():
         with pytest.raises(ValueError, match="chunk"):
             ahocorasick_cuda.check_chunk(bad, "x")
     assert A.ac_count(A.Automaton([b"a"] * 300), torch.from_numpy(np.frombuffer(b"aab", np.uint8).copy())) == 600
+
+
+# The kernel's class tables (ops/ahocorasick.class_layout), walked by
+# ac_count_classes_plain as csrc/ahocorasick.cu walks them.
+def _grams(letters: int, threes: int, dups: int = 1) -> list[bytes]:
+    """Every two-letter word over ``letters`` letters, then ``threes``
+    three-letter words (one state each), the second two-letter word
+    ``dups`` times (no three-letter word ends with it): 1 + letters +
+    letters^2 + threes states, output counts up to max(dups, 2)."""
+    alphabet = bytes(range(33, 33 + letters))
+    two = [bytes([a, b]) for a in alphabet for b in alphabet]
+    return two + [two[i] + alphabet[:1] for i in range(threes)] + [two[1]] * (dups - 1)
+
+
+def _one_class():
+    """An automaton whose 256 columns are one: a single state that counts
+    every byte (no pattern set builds it), as the port's and the JAX
+    package's tables."""
+    import jax.numpy as jnp
+
+    port = A.Automaton.from_numpy(np.zeros(256, np.int32), np.ones(1, np.int32), [b"x"])
+    jax_auto = JA.Automaton.__new__(JA.Automaton)
+    jax_auto.max_len, jax_auto.states = 1, 1
+    jax_auto.delta_flat, jax_auto.out_count = jnp.zeros(256, jnp.int32), jnp.ones(1, jnp.int32)
+    return port, jax_auto
+
+
+# name -> (patterns, shared bytes, entry bytes (None: the layout's own), the
+# layout wanted: (regime, entry bytes)), the Pallas kernel held beside
+# the XLA scan where the automaton is small.
+CLASS_CASES = {
+    "4095 states": (_grams(63, 62), A.SHARED_BYTES, None, ("split", 2)),
+    "4096 states": (_grams(63, 63), A.SHARED_BYTES, None, ("split", 2)),
+    "4097 states": (_grams(63, 64), A.SHARED_BYTES, None, ("split", 2)),
+    "4097 states, a count of 8": (_grams(63, 64, 8), A.SHARED_BYTES, None, ("split", 4)),
+    "max_out 3 at 14 state bits": (_grams(90, 3, 3), A.SHARED_BYTES, None, ("split", 2)),
+    "max_out 4 at 14 state bits": (_grams(90, 3, 4), A.SHARED_BYTES, None, ("split", 4)),
+    "256 classes": ([bytes([b]) for b in range(256)] + [b"\x00\xff", b"ab"], A.SHARED_BYTES, None, ("shared", 2)),
+    "max_out 255": ([b"ab"] * 255 + [b"b"], A.SHARED_BYTES, None, ("shared", 2)),
+    "max_out 256, 32-bit entries": ([b"ab"] * 256 + [b"b"], A.SHARED_BYTES, 4, ("shared", 4)),
+    "wide": ([b"a"] * 300 + [b"ab"], A.SHARED_BYTES, None, ("shared", 2)),
+    "random300": ([bytes(np.random.default_rng(8).choice(np.frombuffer(b"abc", np.uint8), m)) for m in (1, 2, 3, 7, 40, 150, 299, 300)],
+                  A.SHARED_BYTES, None, ("shared", 2)),
+    "classic, two rows on chip": (SETS["classic"], A.MAP_BYTES + 32, None, ("split", 2)),
+    "zero-ff, 32-bit, one row on chip": (SETS["zero-ff"], A.MAP_BYTES + 32, 4, ("split", 4)),
+}
+PALLAS_CASES = {"wide", "classic, two rows on chip", "zero-ff, 32-bit, one row on chip"}
+
+
+def _class_hay(patterns: list[bytes], seed: int) -> np.ndarray:
+    """4 KB over the patterns' bytes and 1 KB of every byte value, some
+    patterns planted, the first also at the very end."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(bytes(sorted(set(b"".join(patterns))))[:96], np.uint8)
+    hay = np.concatenate([rng.choice(alphabet, 4096), rng.integers(0, 256, 1024, dtype=np.uint8)])
+    for i, at in enumerate(rng.integers(0, hay.size - 320, 24)):
+        p = patterns[(i * 7919) % len(patterns)]
+        hay[at : at + len(p)] = np.frombuffer(p, np.uint8)
+    hay[hay.size - len(patterns[0]) :] = np.frombuffer(patterns[0], np.uint8)
+    return hay
+
+
+def test_classes_are_the_distinct_columns_of_delta():
+    """Bytes share a class exactly where their columns of ``delta`` are
+    equal; classes are numbered by their first byte; the breadth-first
+    order keeps the root first and never goes back up a level."""
+    for patterns in [*SETS.values(), CLASS_CASES["256 classes"][0], CLASS_CASES["random300"][0]]:
+        auto = A.Automaton(patterns)
+        class_of, first = A.byte_classes(auto.delta)
+        cols = auto.delta.T
+        same = (cols[:, None, :] == cols[None, :, :]).all(-1)
+        np.testing.assert_array_equal(same, class_of[:, None] == class_of[None, :])
+        np.testing.assert_array_equal(class_of[first], np.arange(first.size))
+        assert (np.diff(first) > 0).all() and all(class_of[b] <= class_of[first[-1]] for b in range(256))
+        order = A.bfs_order(auto.delta)
+        assert order[0] == 0 and sorted(order.tolist()) == list(range(auto.states))
+        layout = auto.layout()
+        same = layout.class_of[:, None] == layout.class_of[None, :]  # the layout's numbering: the same classes
+        np.testing.assert_array_equal(same, class_of[:, None] == class_of[None, :])
+        if layout.range_lo >= 0:  # the class the kernel computes from the byte range is the map's
+            t = (np.arange(256) - layout.range_lo) % (1 << 32)
+            np.testing.assert_array_equal(np.minimum(t, first.size - 1), layout.class_of)
+    assert A.Automaton(SETS["nested"]).layout().range_lo == ord("a")
+    assert A.Automaton([bytes([b]) for b in range(256)]).layout().range_lo == 1
+    assert A.Automaton(SETS["html"]).layout().range_lo == A.Automaton(SETS["zero-ff"]).layout().range_lo == -1
+    auto = A.Automaton(SETS["html"])  # nine one-byte patterns: their bytes, and one class for the rest
+    class_of, first = A.byte_classes(auto.delta)
+    assert first.size == 10 and len({class_of[b] for b in range(256) if bytes([b]) not in SETS["html"]}) == 1
+
+
+@pytest.mark.parametrize("name", sorted(CLASS_CASES))
+def test_class_tables_count_as_jax(name):
+    """The kernel's lookup (byte -> class -> entry of the next state and its
+    count, 16- or 32-bit, rows on chip and off) counts what the JAX XLA
+    scan, the Pallas kernel in interpret mode (small automata), the port's
+    plain scan and the sequential scan count, at the kernel's chunk and at
+    32-byte chunks (the seams, and overlaps longer than a chunk)."""
+    patterns, shared, entry_bytes, want_layout = CLASS_CASES[name]
+    auto = A.Automaton(patterns)
+    layout = A.class_layout(auto.delta, auto.out_count, shared, entry_bytes)
+    assert (layout.regime, layout.entry_bytes) == want_layout
+    assert layout.table.dtype == (np.uint16 if layout.entry_bytes == 2 else np.uint32)
+    rows, class_map = A.class_tensors(layout, "cpu")  # as the kernel reads them: the map's row offsets or classes
+    np.testing.assert_array_equal(class_map.numpy(), layout.class_of * (layout.entry_bytes if layout.scaled else 1))
+    assert layout.scaled == (layout.classes * layout.entry_bytes <= 256)
+    assert rows.numel() % 16 == 0 and rows.numpy()[: layout.table.nbytes].tobytes() == layout.table.tobytes()
+    if layout.regime == "split":
+        assert 0 < layout.hot < auto.states
+    hay = _class_hay(patterns, len(name))
+    jax_auto = JA.Automaton(patterns)
+    want = int(JA.ac_count(jax_auto, hay))
+    assert want == auto.count_host(hay) > 0
+    if name in PALLAS_CASES:
+        assert JA.ac_count_pallas(jax_auto, hay, interpret=True) == want
+    hay_t = torch.from_numpy(hay)
+    for chunk in (ahocorasick_cuda.kernel_chunk(auto.max_len), 32):
+        assert A.ac_count_classes_plain(layout, hay_t, chunk=chunk, max_len=auto.max_len).item() == want
+    assert A.ac_count_plain(auto, hay_t, hay.size - 3).item() == A.ac_count_classes_plain(
+        layout, hay_t, hay.size - 3, max_len=auto.max_len).item()
+
+
+def test_one_class_counts_as_jax():
+    """An automaton of one class (every column equal) reads one entry a row."""
+    port, jax_auto = _one_class()
+    layout = port.layout()
+    assert (layout.classes, layout.regime, layout.entry_bytes) == (1, "shared", 2)
+    hay = np.random.default_rng(3).integers(0, 256, 3001, dtype=np.uint8)
+    want = int(JA.ac_count(jax_auto, hay))
+    assert want == 3001 == port.count_host(hay)
+    assert A.ac_count_classes_plain(layout, torch.from_numpy(hay), chunk=32).item() == want
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -22,6 +22,8 @@ from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.ops import bpe as B
 from stringwars_tpu_torch.ops import bpe_cuda as BC
 from stringwars_tpu_torch.unicode.pretokenize import gpt2_pretokens
+from _torch_threads import one_thread  # noqa: F401
+
 
 A, BB, C = ord("a"), ord("b"), ord("c")
 HAND = [b"", b"a", b"aa", b"aaa", b"aaaa", b"aaaaa", b"ab", b"aab", b"aac", b"aacaac", b"abab", b"cabcab", b"bca"]

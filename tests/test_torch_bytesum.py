@@ -8,6 +8,7 @@ from stringwars_tpu import tape as jax_tape
 from stringwars_tpu.ops import bytesum as JB
 from stringwars_tpu_torch import tape
 from stringwars_tpu_torch.ops import bytesum as B
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [0, 1, 3, 4095, (1 << 20) + 7])

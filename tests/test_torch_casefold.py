@@ -18,6 +18,8 @@ from stringwars_tpu_torch.ops import casefold as C
 from stringwars_tpu_torch.ops import rulemap as R
 from stringwars_tpu_torch.tape import PaddedTokens
 from stringwars_tpu_torch.unicode import tables as T
+from _torch_threads import one_thread  # noqa: F401
+
 
 # The JAX package's own samples (tests/test_casefold.py) and a few with
 # 3-codepoint folds, final sigma, titlecase digraphs and astral letters.

@@ -18,6 +18,8 @@ from cryptography.hazmat.primitives.poly1305 import Poly1305
 
 from stringwars_tpu.ops import chacha as JC
 from stringwars_tpu_torch.ops import chacha as C
+from _torch_threads import one_thread  # noqa: F401
+
 
 # Bytes: around the 16- and 64-byte blocks, and one size past a 4,096-block
 # chunk of the JAX MAC (and past the port's one-launch MAC span) with a tail.

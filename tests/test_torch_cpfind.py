@@ -16,6 +16,7 @@ from stringwars_tpu.ops import casefold as JC
 from stringwars_tpu.ops import find_pallas as JFP
 from stringwars_tpu_torch.ops import find as F
 from stringwars_tpu_torch.ops import find_cuda as FC
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _stream(rng, n):

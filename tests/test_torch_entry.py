@@ -11,6 +11,8 @@ import torch
 
 import __graft_entry__
 from stringwars_tpu_torch import entry as E
+from _torch_threads import one_thread  # noqa: F401
+
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ from stringwars_tpu_torch.ops import casefold as C
 from stringwars_tpu_torch.ops import expand as E
 from stringwars_tpu_torch.ops import expand_cuda as EC
 from stringwars_tpu_torch.tape import PaddedTokens
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _jax_tokens(tokens: PaddedTokens) -> JaxPaddedTokens:

@@ -18,6 +18,8 @@ import torch
 
 from stringwars_tpu.ops import memops as JM
 from stringwars_tpu_torch.ops import memops as M
+from _torch_threads import one_thread  # noqa: F401
+
 
 SEEDS = [0, 1, 2, 77, 2**31 - 1]
 SIZES = [0, 1, 3, 4, 5, 1000, 65539]

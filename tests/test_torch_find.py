@@ -16,6 +16,8 @@ from stringwars_tpu.ops import find_pallas as JP
 from stringwars_tpu_torch import build
 from stringwars_tpu_torch.ops import find as F
 from stringwars_tpu_torch.ops import find_cuda
+from _torch_threads import one_thread  # noqa: F401
+
 
 N = 300_001  # not a multiple of 4
 LENGTHS = [1, 2, 3, 4, 5, 8, 13, 16, 29, 505, 506, 600]

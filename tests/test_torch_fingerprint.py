@@ -11,6 +11,7 @@ from stringwars_tpu.ops import memops as JM
 from stringwars_tpu_torch import tape
 from stringwars_tpu_torch.ops import fingerprint as F
 from stringwars_tpu_torch.ops import memops as M
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _docs(seed: int = 42) -> list[bytes]:

@@ -17,6 +17,8 @@ from stringwars_tpu_torch.parallel.mesh import DeviceScope, scope_variants
 from stringwars_tpu_torch.utils import config, report
 from stringwars_tpu_torch.utils.harness import BenchBudget, WorkUnits, measure_throughput
 from stringwars_tpu_torch.utils.profiler import measured_roofline
+from _torch_threads import one_thread  # noqa: F401
+
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,8 @@ from stringwars_tpu.ops import hash as JH
 from stringwars_tpu_torch import tape
 from stringwars_tpu_torch.ops import hash as H
 from stringwars_tpu_torch.ops import hash_cuda
+from _torch_threads import one_thread  # noqa: F401
+
 
 # Lengths 0..130 and every bucket edge of the hash suite (and one past).
 LENGTHS = list(range(131)) + [255, 256, 257, 1023, 1024, 1025]

@@ -15,6 +15,7 @@ from stringwars_tpu.ops import myers_pallas as JM
 from stringwars_tpu_torch.ops import myers as M
 from stringwars_tpu_torch.ops import myers_cuda
 from stringwars_tpu_torch.ops import similarity as S
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _byte_pairs():
@@ -141,17 +142,6 @@ def test_cuda_wrapper_refuses_cpu_batches(staged):
 # M.myers_lanes_plain): lanes of 32-bit words or of several 64-bit words, a
 # skewed wavefront, hp/hn passed lane to lane, bands past a group's rows.
 EDGES = (0, 1, 31, 32, 33, 63, 64, 65, 100, 255, 256, 257, 1023, 1024, 1025)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the schedule's emulation runs
-    thousands of small steps, and under the parallel test run a step split
-    over every core's threads waits on all of them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,8 @@ from stringwars_tpu_torch.ops import lut as L
 from stringwars_tpu_torch.ops import rulemap as R
 from stringwars_tpu_torch.ops import segment as SEG
 from stringwars_tpu_torch.unicode import tables as T
+from _torch_threads import one_thread  # noqa: F401
+
 
 TABLES = [
     "grapheme_break_table",

@@ -27,6 +27,8 @@ from stringwars_tpu_torch.ops import scanline_cuda as PC
 from stringwars_tpu_torch.ops import scanline_ir as IR
 from stringwars_tpu_torch.ops import segment as PS
 from stringwars_tpu_torch.unicode import tables
+from _torch_threads import one_thread  # noqa: F401
+
 
 N = 2 * 32768 + 3 * 2048 + 5  # crosses both tiles
 

@@ -23,6 +23,8 @@ from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.ops import segment as PS
 from test_scanline import _fuzz_text
 from test_segment import GRAPHEME_SAMPLES, WORD_SAMPLES, _regex_words
+from _torch_threads import one_thread  # noqa: F401
+
 
 # (text, segments) of tests/test_sentence.py
 SENTENCE_SAMPLES = [

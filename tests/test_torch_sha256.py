@@ -16,6 +16,8 @@ from stringwars_tpu.ops.sha256 import prepare_sha256, sha256_digest_bytes
 from stringwars_tpu_torch import tape
 from stringwars_tpu_torch.ops import sha256 as S
 from stringwars_tpu_torch.suites import hash as hash_suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 BOUNDARY = [0, 1, 3, 55, 56, 63, 64, 65, 119, 120, 128, 129, 191, 192]
 

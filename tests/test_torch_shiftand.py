@@ -16,6 +16,7 @@ from stringwars_tpu.ops import shiftand as JS
 from stringwars_tpu_torch.ops import ahocorasick as A
 from stringwars_tpu_torch.ops import shiftand as S
 from stringwars_tpu_torch.ops import shiftand_cuda
+from _torch_threads import one_thread  # noqa: F401
 
 
 def brute_count(patterns, hay: bytes) -> int:
@@ -155,6 +156,57 @@ def test_two_words_match_jax():
     want = brute_count(SEVEN, bytes(text))
     assert S.shiftand_count(sa, torch.from_numpy(hay.copy())) == want
     assert JS.shiftand_count(JS.ShiftAndSet(SEVEN), hay, interpret=True) == want
+
+
+# Sets at the state words' edges: a word filled to bit 31, both filled to
+# bit 63, a 32-char pattern, one-byte patterns (start bits equal final
+# bits: the find suite's charsets).
+FULL_SETS = {
+    "bit 31": [b"ab" * 16],
+    "bits 31 and 63": [b"ab" * 16, b"ba" * 16],
+    "bits 31 and 63, many": [b"abc" * 7 + b"ab" * 5 + b"a", b"b" * 16, b"ca" * 8],
+    "one-byte": [bytes([c]) for c in b"\n\r\x0b\x0cab"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(FULL_SETS))
+def test_full_words_match_jax(name):
+    """The kernel's recurrence (two independent 32-bit words, as the plain
+    version runs it) counts as the JAX kernel counts, with patterns ending
+    at the haystack's last byte, at n below one chunk and past it."""
+    patterns = FULL_SETS[name]
+    sa = S.ShiftAndSet(patterns)
+    top = max(p for p in range(64) if sa.occupied >> p & 1)
+    assert top in (31, 63) or name == "one-byte"
+    assert sa.start_mask == sa.final_mask or name != "one-byte"
+    rng = np.random.default_rng(len(name))
+    hay = rng.choice(np.frombuffer(b"abc\n", np.uint8), 3_000)
+    for at in rng.integers(0, 2_900, 12):
+        p = patterns[int(at) % len(patterns)]
+        hay[at : at + len(p)] = np.frombuffer(p, np.uint8)
+    hay[-len(patterns[0]) :] = np.frombuffer(patterns[0], np.uint8)
+    hay[200 - len(patterns[-1]) : 200] = np.frombuffer(patterns[-1], np.uint8)
+    hay_t = torch.from_numpy(hay.copy())
+    for n in (hay.size, 200):
+        want = brute_count(patterns, hay[:n].tobytes())
+        assert want > 0
+        assert S.shiftand_count_plain(sa, hay_t, n, chunk=64).item() == want
+        assert JS.shiftand_count(JS.ShiftAndSet(patterns), hay[:n], interpret=True) == want
+
+
+@pytest.mark.parametrize("charset", [b"\n\r\x0b\x0c", b"</>&'\"=[]", b"0123456789", b"aab"])
+def test_one_byte_patterns_count_by_table(charset):
+    """One-byte patterns (the find suite's charsets; duplicates too): the
+    state after a byte is its mask, so the kernel's one-byte form counts
+    popcount(mask[byte] & final) a byte, a table of 256 counts."""
+    patterns = [bytes([c]) for c in charset]
+    sa = S.ShiftAndSet(patterns)
+    assert sa.max_len == 1 and sa.start_mask == sa.final_mask
+    table = np.array([bin(int(m) & sa.final_mask).count("1") for m in sa.byte_masks])
+    hay = np.random.default_rng(len(charset)).choice(np.frombuffer(charset + b"ab\x00", np.uint8), 2_000)
+    want = JS.shiftand_count(JS.ShiftAndSet(patterns), hay, interpret=True)
+    assert int((np.bincount(hay, minlength=256) * table).sum()) == want == brute_count(patterns, hay.tobytes()) > 0
+    assert S.shiftand_count_plain(sa, torch.from_numpy(hay.copy())).item() == want
 
 
 def test_extent_edges():

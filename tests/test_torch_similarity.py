@@ -13,6 +13,8 @@ import torch
 
 from stringwars_tpu.ops import similarity as JS
 from stringwars_tpu_torch.ops import similarity as S
+from _torch_threads import one_thread  # noqa: F401
+
 
 SCORES = ["levenshtein", "nw_score_linear", "sw_score_linear", "nw_score_affine", "sw_score_affine"]
 

@@ -13,6 +13,8 @@ from cryptography.hazmat.primitives.ciphers.aead import ChaCha20Poly1305
 from stringwars_tpu.ops import chacha as JC
 from stringwars_tpu_torch.ops import chacha as C
 from stringwars_tpu_torch.suites import encryption as enc_suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 ROWS = [
     "keygen/swtorch::chacha20poly1305<1cpu>",

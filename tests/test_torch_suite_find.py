@@ -16,6 +16,8 @@ from stringwars_tpu.ops import find as JF
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.ops import shiftand as SA
 from stringwars_tpu_torch.suites import find as suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 ROWS = [
     "substring-forward/swtorch::find_count<1cpu>",

@@ -16,6 +16,8 @@ from stringwars_tpu_torch.ops import hash as H
 from stringwars_tpu_torch.ops import sha256 as SHA
 from stringwars_tpu_torch.suites import fingerprints as fp_suite
 from stringwars_tpu_torch.suites import hash as hash_suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 HASH_ROWS = [
     "stateless/swtorch::swh64<1cpu>",

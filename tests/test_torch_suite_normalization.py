@@ -16,6 +16,8 @@ from stringwars_tpu.tape import PaddedTokens as JaxPaddedTokens
 from stringwars_tpu.tape import Tape as JaxTape
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.suites import normalization as suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 DEVICE_ROWS = [
     "case-fold/swtorch::utf8_fold<1cpu>",

@@ -20,6 +20,8 @@ from stringwars_tpu.ops import similarity as JS
 from stringwars_tpu.suites import similarities as jax_suite
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.suites import similarities as suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 BAND = 4
 ROWS = [

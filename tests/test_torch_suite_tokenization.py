@@ -17,6 +17,8 @@ from stringwars_tpu.suites.tokenization import _cp_ceiling as jax_cp_ceiling
 from stringwars_tpu.tape import PaddedTokens as JaxPaddedTokens
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.suites import tokenization as suite
+from _torch_threads import one_thread  # noqa: F401
+
 
 DEVICE_ROWS = [
     "tokenize-whitespace/swtorch::split<1cpu>",

@@ -8,6 +8,8 @@ import torch
 
 from stringwars_tpu.ops import utf8 as J
 from stringwars_tpu_torch.ops import utf8 as P
+from _torch_threads import one_thread  # noqa: F401
+
 
 SAMPLES = [
     b"",

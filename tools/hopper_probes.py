@@ -1,10 +1,12 @@
-"""Measurement probes of the port's ChaCha20, BPE, Myers and Poly1305 kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick and Shift-And kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
     python3 tools/hopper_probes.py seal --other-tree DIR
     python3 tools/hopper_probes.py myers
     python3 tools/hopper_probes.py poly
+    python3 tools/hopper_probes.py ac [--other-tree DIR]
+    python3 tools/hopper_probes.py shiftand [--other-tree DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -58,6 +60,36 @@ subcommand measures:
   the same bytes; each held to ``poly1305_plain`` where it computes the
   tag, and timed by CUDA events and by ``torch.profiler`` device time a
   call. Then the SASS split of the kernels' largest basic blocks.
+- ``ac``: 64 MiB of lowercase (``chip_smoke.py``'s ``ac-dfa-*-64MB``
+  rows) through the four-word set and the 1,000-word dictionary: the
+  earlier kernel (``tools/hopper_probes/ac_variants.cu``: the 256-column
+  int32 table, in shared memory up to 96 states, else read with
+  ``__ldg``) as it was and with its table load replaced by arithmetic, the
+  dictionary cut to its first 96 states in breadth-first order through the
+  earlier shared regime (the same chain from a small table), the package's
+  class-table kernel with 16- and 32-bit entries in blocks of 256 and 1,024
+  threads, with its classes read from the map where the kernel computes
+  them from the byte range, and with 2 and 4 chunks a thread walked in
+  step; each that
+  computes the count first held to ``ac_count_plain``, each timed by CUDA
+  events and by ``torch.profiler`` device time a launch. With
+  ``--other-tree`` (a checkout whose ``sw_ac_classes`` takes this
+  package's class tables), that tree's kernel on this package's tables of
+  each set, in the same orders. Then the SASS split of the
+  kernels' largest basic blocks, per byte (bytes a block: its PRMTs, one a
+  byte).
+- ``shiftand``: the same 64 MiB through the four-word set (one state word)
+  and the eight-word set (two), and the find suite's ``aho_corasick`` call
+  (its three charsets over the suite's 64 MB ``synthetic:english-words``
+  tape): the earlier kernel (``tools/hopper_probes/sa_variants.cu``) as it
+  was and without its mask load, the package's kernel and the same without
+  its mask load, and a probe kernel with the haystack read directly or
+  staged by warps in slices of 64, 128 or 256 bytes a lane and (one word of
+  up to 16 bits) two steps' final bits a POPC, held and timed as in
+  ``ac``; the same at 16 MiB, which stays in L2; the suite's call traced
+  (launches, device ms, busy share) and, with ``--other-tree``, its p50 on
+  that tree's library against this tree's in one process (A B B A, host
+  clock and a synchronize, median of 200 calls). Then the SASS splits.
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -82,13 +114,19 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as CS  # noqa: E402
 from stringwars_tpu_torch import build, datasets  # noqa: E402
+from stringwars_tpu_torch import tape as T  # noqa: E402
+from stringwars_tpu_torch.ops import ahocorasick as AC  # noqa: E402
+from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC  # noqa: E402
 from stringwars_tpu_torch.ops import bpe as BPE  # noqa: E402
 from stringwars_tpu_torch.ops import bpe_cuda as BPC  # noqa: E402
 from stringwars_tpu_torch.ops import chacha as CC  # noqa: E402
 from stringwars_tpu_torch.ops import myers as MY  # noqa: E402
 from stringwars_tpu_torch.ops import myers_cuda as MYC  # noqa: E402
+from stringwars_tpu_torch.ops import shiftand as SA  # noqa: E402
+from stringwars_tpu_torch.ops import shiftand_cuda as SAC  # noqa: E402
 from stringwars_tpu_torch.ops import similarity as S  # noqa: E402
 from stringwars_tpu_torch.suites import encryption as ES  # noqa: E402
+from stringwars_tpu_torch.suites import find as FS  # noqa: E402
 from stringwars_tpu_torch.suites import tokenization as TS  # noqa: E402
 
 PROBES = ROOT / "tools" / "hopper_probes"
@@ -516,16 +554,278 @@ def poly(args) -> None:
         print(f"poly SASS, {label}: {pipes['text'] if pipes else 'not measured (no cuobjdump)'}")
 
 
+def per_byte_pipes(mangled: str, library: str, steps_of) -> str:
+    """The SASS split of a kernel's largest basic block and its ALU and FMA
+    instructions a byte (``steps_of(counts)``: the bytes the block walks)."""
+    pipes = CS.sass_pipes(mangled, library=library)
+    if pipes is None:
+        return "not measured (no cuobjdump)"
+    body = pipes["body"]
+    steps = steps_of(body["counts"])
+    if not steps:
+        return pipes["text"]
+    return f"{pipes['text']}; {steps} bytes a body: ALU {body['alu'] / steps:.2f}, FMA {body['fma'] / steps:.2f} a byte"
+
+
+def dictionary_words() -> list[bytes]:
+    """``chip_smoke.py``'s 1,000-word dictionary (``synthetic:english-words``)."""
+    english = datasets.synthesize("english-words", 1 << 20)
+    return list(dict.fromkeys(T.Tape.from_buffer(english, "words").to_list()))[:1000]
+
+
+def bfs_cut(auto: AC.Automaton, keep: int) -> np.ndarray:
+    """The earlier kernel's packed table (``next << 8 | count``) of the
+    automaton's first ``keep`` states in breadth-first order, transitions
+    past them sent to the root: the same chain from a small table (its
+    count is not the automaton's)."""
+    order = AC.bfs_order(auto.delta)[:keep]
+    renumber = np.zeros(auto.states, np.int64)
+    renumber[order] = np.arange(keep)
+    inside = np.zeros(auto.states, bool)
+    inside[order] = True
+    nxt = auto.delta[order].astype(np.int64)
+    entries = (np.where(inside[nxt], renumber[nxt], 0) << 8) | np.minimum(auto.out_count[nxt], 255)
+    return entries.reshape(-1).astype(np.uint32).view(np.int32)
+
+
+def ac(args) -> None:
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_ac_variants.so"
+    print(f"ac_variants.cu built: {finish(nvcc_shared(PROBES / 'ac_variants.cu', so), 'ac_variants.cu')}")
+    lib = ctypes.CDLL(str(so))
+    lib.ac_parent_run.argtypes = (_N, _P, _N, _P, _N, _N, _N, _N, _P, _P)
+    lib.ac_chains_run.argtypes = (_N, _P, _N, _P, _P, _N, _N, _N, _N, _N, _N, _P, _P)
+    pkg = build.library()
+    hay = CS.lowercase(64 << 20, 0, dev)
+    n = hay.numel()
+    stream = torch.cuda.current_stream().cuda_stream
+    shared = ACC.shared_bytes(dev)
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def parent(table, states, on_chip, variant, auto):
+        def run():
+            out.zero_()
+            code = lib.ac_parent_run(variant, hay.data_ptr(), n, table.data_ptr(), states, int(on_chip),
+                                     ACC.kernel_chunk(auto.max_len), auto.max_len - 1, out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"ac parent variant {variant}: CUDA error {code}")
+            return out
+        return run
+
+    def classes(auto, entry_bytes, threads, chains=1, by_range=True):
+        lay = AC.class_layout(auto.delta, auto.out_count, shared, entry_bytes)
+        rows, cmap = AC.class_tensors(lay, dev)
+
+        def run():
+            out.zero_()
+            if chains == 1:
+                code = pkg.sw_ac_classes(hay.data_ptr(), n, rows.data_ptr(), cmap.data_ptr(), auto.states, lay.classes,
+                                         lay.entry_bytes, lay.hot, threads,
+                                         lay.range_lo if by_range else -1, ACC.kernel_chunk(auto.max_len),
+                                         auto.max_len - 1, out.data_ptr(), stream)
+            else:
+                code = lib.ac_chains_run(chains, hay.data_ptr(), n, rows.data_ptr(), cmap.data_ptr(), auto.states,
+                                         lay.classes, lay.entry_bytes, threads, ACC.kernel_chunk(auto.max_len),
+                                         auto.max_len - 1, out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"ac class variant ({entry_bytes} B, {threads} threads, {chains} chains): CUDA error {code}")
+            return out
+        return run, lay
+
+    other = None
+    if args.other_tree:
+        other = ctypes.CDLL(other_library(Path(args.other_tree)))
+        other.sw_ac_classes.argtypes = build.SIGNATURES["sw_ac_classes"]
+        other.sw_ac_classes.restype = ctypes.c_int
+
+    def other_classes(auto):
+        lay = auto.layout(shared)
+        rows, cmap = AC.class_tensors(lay, dev)
+
+        def run():
+            out.zero_()
+            code = other.sw_ac_classes(hay.data_ptr(), n, rows.data_ptr(), cmap.data_ptr(), auto.states, lay.classes,
+                                       lay.entry_bytes, lay.hot, ACC.block_threads(lay), lay.range_lo,
+                                       ACC.kernel_chunk(auto.max_len), auto.max_len - 1, out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"ac {args.other_tree}'s class kernel: CUDA error {code}")
+            return out
+        return run
+
+    for name, auto in (("4 words", AC.Automaton([b"the", b"and", b"tion", b"abcd"])),
+                       ("1,000 words", AC.Automaton(dictionary_words()))):
+        want = AC.ac_count_plain(auto, hay)
+        packed = auto.tables(dev).packed
+        on_chip = auto.states <= 96
+        where = "shared" if on_chip else "global"
+        calls = {f"the earlier kernel ({where} table)": (parent(packed, auto.states, on_chip, 0, auto), "parent_ac_kernel"),
+                 f"the earlier kernel, table load replaced by arithmetic": (parent(packed, auto.states, on_chip, 1, auto), "parent_ac_kernel")}
+        if not on_chip:
+            cut = torch.from_numpy(bfs_cut(auto, 96)).to(dev)
+            calls["the earlier kernel on the first 96 states (shared table)"] = (parent(cut, 96, True, 0, auto), "parent_ac_kernel")
+        computes = set(calls) - {"the earlier kernel, table load replaced by arithmetic",
+                                 "the earlier kernel on the first 96 states (shared table)"}
+        for entry_bytes in (2, 4):
+            for threads in (256, 1024):
+                run, lay = classes(auto, entry_bytes, threads)
+                label = f"class table, {8 * entry_bytes}-bit entries ({lay.regime}, {lay.hot} rows on chip), {threads} threads"
+                calls[label] = (run, "ac_class_kernel")
+                computes.add(label)
+        lay = AC.class_layout(auto.delta, auto.out_count, shared, 2)
+        if lay.range_lo >= 0:
+            threads = ACC.block_threads(lay)
+            label = f"class table, 16-bit entries, classes read from the map (not by the byte range), {threads} threads"
+            calls[label] = (classes(auto, 2, threads, by_range=False)[0], "ac_class_kernel")
+            computes.add(label)
+        for chains in (2, 4):
+            threads = ACC.block_threads(lay)
+            label = f"class table, 16-bit entries, {chains} chunks a thread in step, {threads} threads"
+            calls[label] = (classes(auto, 2, threads, chains)[0], "chains_kernel")
+            computes.add(label)
+        calls["the package's ac_count"] = (lambda auto=auto: ACC.ac_count(auto, hay), "ac_class_kernel")
+        computes.add("the package's ac_count")
+        if other is not None:
+            label = f"{args.other_tree}'s class kernel"
+            calls[label] = (other_classes(auto), "ac_class_kernel")
+            computes.add(label)
+        for label in computes:
+            got = calls[label][0]()
+            if not torch.equal(got, want):
+                raise AssertionError(f"ac {name}, {label}: {int(got.item())} differs from ac_count_plain's {int(want.item())}")
+        lay = auto.layout(shared)
+        print(f"ac {name}: {auto.states} states, {lay.classes} classes, max_len {auto.max_len}, max_out {auto.max_out}; "
+              f"package regime {lay.regime}, {lay.entry_bytes * 8}-bit entries, {lay.hot * lay.pitch + AC.MAP_BYTES:,} B "
+              f"staged; count {int(want.item()):,}; every variant that computes it equals ac_count_plain")
+        events = both_orders({label: fn for label, (fn, _) in calls.items()})
+        device = device_orders(calls)
+        for label in calls:
+            print(f"ac {name}, {label}: device {_fmt(device[label])} ms a launch; events {_fmt(events[label])} ms")
+    library = str(build.library_path())
+    for label, mangled, lib_path in (("the earlier kernel, shared table", "parent_ac_kernelILi0ELb0E", str(so)),
+                                     ("the earlier kernel, global table", "parent_ac_kernelILi1ELb0E", str(so)),
+                                     ("class table, 16-bit, shared", "ac_class_kernelItLb0ELi1EE", library),
+                                     ("class table, 16-bit, shared, by the byte range", "ac_class_kernelItLb0ELi2EE", library),
+                                     ("class table, 32-bit, split", "ac_class_kernelIjLb1ELi1EE", library)):
+        loads = (lambda c: c.get("PRMT", 0)) if "class" in label else (lambda c: c.get("LDS", 0) + c.get("LDG", 0))
+        print(f"ac SASS, {label}: {per_byte_pipes(mangled, lib_path, loads)}")
+
+
+def shiftand(args) -> None:
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_sa_variants.so"
+    print(f"sa_variants.cu built: {finish(nvcc_shared(PROBES / 'sa_variants.cu', so), 'sa_variants.cu')}")
+    lib = ctypes.CDLL(str(so))
+    lib.sa_variant_run.argtypes = (_N, _P, _N, _P, _N, _N, _N, _P, _P)
+    stream = torch.cuda.current_stream().cuda_stream
+    flat = CS.lowercase(64 << 20, 0, dev)
+    tape = datasets.load_tape(None, tokens_mode="words", size_limit="64mb", device=dev)
+    suite = [FS.byteset_matcher(cs) for cs in FS.BYTESETS.values()]
+    if not all(isinstance(m, SA.ShiftAndSet) for m in suite):
+        raise AssertionError("a find-suite charset did not take Shift-And")
+
+    def variant(sa, hay, n, v):
+        out = torch.zeros(1, dtype=torch.int64, device=dev)
+        table, _ = sa.tables(dev)
+
+        def run():
+            out.zero_()
+            code = lib.sa_variant_run(v, hay.data_ptr(), n, table.data_ptr(), sa.n_words, ACC.kernel_chunk(sa.max_len),
+                                      sa.max_len - 1, out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"shiftand variant {v}: CUDA error {code}")
+            return out
+        return run
+
+    shapes = {"ac-shiftand-64MB (4 words, one state word)": ([SA.ShiftAndSet([b"the", b"and", b"tion", b"abcd"])], flat, flat.numel()),
+              "ac-shiftand8-64MB (8 words, two state words)": (
+                  [SA.ShiftAndSet([b"needle", b"haystack", b"pattern", b"search", b"string", b"find", b"match", b"token"])],
+                  flat, flat.numel()),
+              f"the find suite's aho_corasick call (3 charsets over {tape.total_bytes:,} B)": (suite, tape.data, tape.total_bytes),
+              "16 MiB (in L2), 4 words": ([SA.ShiftAndSet([b"the", b"and", b"tion", b"abcd"])], flat[: 16 << 20], 16 << 20)}
+    for name, (sets, hay, n) in shapes.items():
+        def each(make):
+            fns = [make(sa) for sa in sets]
+            return lambda: [fn() for fn in fns]
+
+        calls = {
+            "the earlier kernel": (each(lambda sa: variant(sa, hay, n, 0)), "parent_sa_kernel"),
+            "the earlier kernel without its mask load": (each(lambda sa: variant(sa, hay, n, 1)), "parent_sa_kernel"),
+            "the package's kernel": (each(lambda sa: (lambda: SAC.shiftand_count(sa, hay, n))), "sa_kernel"),
+        }
+        if all(sa.n_words == 2 and sa.max_len > 1 for sa in sets):  # one word: the earlier kernel's loop
+            calls["the package's kernel without its mask load"] = (each(lambda sa: variant(sa, hay, n, 2)), "noload_sa_kernel")
+        narrow = all(sa.n_words == 1 and sa.occupied < 1 << 16 for sa in sets)
+        probes = []
+        for code, slice_bytes in enumerate((0, 64, 128, 256)):
+            for pack in ((1, 2) if narrow else (1,)):
+                label = (f"probe kernel: {f'staged by warps in {slice_bytes}-byte slices' if slice_bytes else 'direct loads'}"
+                         f", {'two steps a POPC' if pack == 2 else 'a POPC a word'}")
+                calls[label] = (each(lambda sa, v=16 + 4 * code + pack: variant(sa, hay, n, v)), "probe_sa_kernel")
+                probes.append(label)
+        want = [SA.shiftand_count_plain(sa, hay, n) for sa in sets]
+        for label in ("the earlier kernel", "the package's kernel", *probes):
+            got = calls[label][0]()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"shiftand {name}, {label}: {[int(g.item()) for g in got]} differ from "
+                                     f"shiftand_count_plain's {[int(w.item()) for w in want]}")
+        print(f"shiftand {name}: counts {[int(w.item()) for w in want]}; the earlier and the package's kernels equal "
+              f"shiftand_count_plain")
+        events = both_orders({label: fn for label, (fn, _) in calls.items()})
+        device = {label: [] for label in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for label in order:
+                fn, kernel = calls[label]
+                device[label].append(CS.device_ms(fn, kernel, calls=30, per_call=True))
+        for label in calls:
+            print(f"shiftand {name}, {label}: device {_fmt(device[label])} ms a call ({len(sets)} launches); "
+                  f"events {_fmt(events[label])} ms")
+    routine, _ = FS.aho_corasick_routine(tape)
+    CS.traced_call(f"aho_corasick call (the find suite's byteset-forward/swtorch::aho_corasick over {tape.total_bytes:,} B)",
+                   routine, lambda: dict(SAC.LAUNCHES), {"shiftand": "sa_kernel"}, CS.bound_ms(3 * tape.total_bytes))
+    if args.other_tree:
+        other = ctypes.CDLL(other_library(Path(args.other_tree)))
+        other.sw_shiftand.argtypes = build.SIGNATURES["sw_shiftand"]
+        other.sw_shiftand.restype = ctypes.c_int
+        libraries = {"this tree": build.library(), args.other_tree: other}
+        times = {name: [] for name in libraries}
+
+        def p50(calls: int = 200) -> float:
+            routine()
+            torch.cuda.synchronize()
+            samples = []
+            for _ in range(calls):
+                started = time.perf_counter()
+                routine()
+                samples.append((time.perf_counter() - started) * 1e3)
+            return statistics.median(samples)
+
+        names = list(libraries)
+        for name in names + names[::-1]:
+            with mock.patch.object(build, "library", lambda name=name: libraries[name]):
+                times[name].append(p50())
+        for name, values in times.items():
+            print(f"shiftand, the find suite's aho_corasick call p50 on {name}'s library: "
+                  f"{', '.join(f'{v:.4f}' for v in values)} ms")
+    library = str(build.library_path())
+    for label, mangled, lib_path in (("the earlier kernel, u32 state", "parent_sa_kernelIjLb1E", str(so)),
+                                     ("the earlier kernel, u64 state", "parent_sa_kernelImLb1E", str(so)),
+                                     ("the package's kernel, one word", "sa_kernelILi1ELb0E", library),
+                                     ("the package's kernel, two words", "sa_kernelILi2ELb0E", library)):
+        print(f"shiftand SASS, {label}: {per_byte_pipes(mangled, lib_path, lambda c: c.get('LDS', 0))}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly"))
+    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("hopper_probes: no CUDA device", file=sys.stderr)
         return 2
     print(card_line(), flush=True)
-    {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly}[args.probe](args)
+    {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand}[args.probe](args)
     return 0
 
 
