@@ -58,7 +58,12 @@ prints no result:
    the 16-byte units, its slices and chunks; find, rfind, Shift-And and
    Aho-Corasick (the DFA in six forms) on views at offsets 1..15 of a 64
    MB tape (the wrappers' aligning copy timed at 64 MB); the Threefry fill
-   against the pinned ``jax.random.bits`` words);
+   against the pinned ``jax.random.bits`` words; XXH3-64 at every length
+   0..2,100 with junk past it, seeds 0 and nonzero, rows at byte offsets 0,
+   1, 3 and 4, and the published digest of the empty input; the three
+   normalization kernels (decompose, reorder, compose) and each form's
+   pipeline on rows of 64 and of the wide bucket (a run of 300 marks), each
+   form's output also against ``unicodedata``);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -68,8 +73,9 @@ prints no result:
      distinct words as a DFA, four and eight words both ways (the two
      kernels must agree), the dictionary also against the plain version;
    - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
-     digests must equal ``swh64_ref``, every SHA-256 digest the plain
-     version on the card and 10,000 sampled ones ``hashlib``;
+     digests must equal ``swh64_ref``, every XXH3-64 digest the plain
+     version on the card, every SHA-256 digest the plain version on the
+     card and 10,000 sampled ones ``hashlib``;
    - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
      documents' min-hashes must equal the numpy spec replay, and the quality
      line is read back;
@@ -95,7 +101,13 @@ prints no result:
      1,000 compare booleans to the host's, both ``fold_tokens`` matrices to
      the CPU route's (the plain rule walk); its 100 needle counts to the
      plain window count on the card and to a host count of overlapping
-     matches in ``text.casefold()``; the launches are those of the suite's run;
+     matches in ``text.casefold()``; each ``normalize-*`` row's last call,
+     assembled, to ``unicodedata.normalize`` of the whole corpus, and each
+     of its row buckets to the plain pipeline on the card; the launches are
+     those of the suite's run;
+   - nfc-of-nfd: the corpus' NFD (from the suite) through
+     ``ops/normalize.normalize(..., "NFC")``, where every row is slow (the
+     composition kernel's path), equal to ``unicodedata``'s NFC;
    - ``suites.encryption.main`` on 128 MB of ``synthetic:long-lines``: both
      corpus seals (ciphertext and tag) equal to the plain versions on the
      card, the decryption rows' plaintexts to the corpus, the 64 per-token
@@ -134,11 +146,16 @@ prints no result:
    the ALU pipe's ceiling), ``poly1305-128MB``,
    ``aead-seal-128MB`` (the encryption suite's corpus call),
    ``sha256-words-128MB`` (the hash suite's buckets, with the kernel's SASS
-   split by pipe and the ALU pipe's ceiling) and ``fill_random-128MB``; the
+   split by pipe and the ALU pipe's ceiling), ``xxh3-words-128MB`` (the same
+   buckets) and ``fill_random-128MB``; the normalization kernels at the
+   main path's shapes (``nf_decompose-nfkd-128MB``, ``nf_reorder-nfd-128MB``,
+   ``nf_compose-nfc-of-nfd-128MB``, profiler device time) and the whole
+   ``nfc-of-nfd-128MB`` route; the
    tree level also at a byte offset of 1, the class map's and ``lut_map``'s
    rows beside ``table[idx]`` where it computes the same function; and the
-   similarities, encryption and hash suites' calls traced as the suites
-   make them (``traced_call``: device ms by kernel, busy share, bound).
+   similarities, encryption, hash (XXH3 too) and normalization suites'
+   calls traced as the suites make them (``traced_call``: device ms by
+   kernel, busy share, bound).
    The earlier suites run at a quarter second of warm-up and one second a
    row. A profiler trace that
    misses a kernel is taken again, up to three times; where all three miss
@@ -169,6 +186,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unicodedata
 from pathlib import Path
 
 import numpy as np
@@ -504,8 +522,8 @@ def segment_programs(SEG) -> tuple:
 
 # The normalization suite's device rows.
 NORMALIZATION_ROWS = (
-    "case-fold/swtorch::utf8_fold", "case-insensitive-compare/swtorch::uncased_eq",
-    "case-insensitive-find/swtorch::uncased_find",
+    "case-fold/swtorch::utf8_fold", *[f"normalize-{form}/swtorch::utf8_norm" for form in ("nfc", "nfd", "nfkc", "nfkd")],
+    "case-insensitive-compare/swtorch::uncased_eq", "case-insensitive-find/swtorch::uncased_find",
 )
 # The encryption suite's device rows (group, row), without the scope.
 ENCRYPTION_ROWS = tuple(
@@ -1152,6 +1170,177 @@ def one_key_fork(name: str, hay: torch.Tensor, batch, dev) -> None:
     phase("row", f"{name}: one key, one-filter bitmap: {text} ms a launch (device), equal")
 
 
+XXH3_SEEDS = (0, 0x9E3779B97F4A7C15)
+XXH3_LONGEST = 2100
+
+
+def check_xxh3(dev, errors: dict) -> int:
+    """XXH3-64 at every length 0..2,100 with junk past each length, under
+    seeds 0 and nonzero, in rows whose first byte lies 0, 1, 3 or 4 bytes
+    into their buffer, against the plain version on the card; the empty
+    input against its published digest."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import xxh3 as X3
+
+    rows, width = XXH3_LONGEST + 1, XXH3_LONGEST + 12
+    lengths = torch.arange(rows, dtype=torch.int32, device=dev)
+    checks = 0
+    for offset in (0, 1, 3, 4):
+        flat = random_bytes(offset + rows * width, 30 + offset, dev)
+        tokens = T.PaddedTokens(flat[offset:].view(rows, width), lengths, width)
+        for seed in XXH3_SEEDS:
+            errors["xxh3"] = max(errors["xxh3"], max_err(X3.xxh3_64_cuda(tokens, seed), X3.xxh3_64_plain(tokens, seed)))
+            checks += 1
+    empty = T.PaddedTokens(torch.zeros((1, 4), dtype=torch.uint8, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), 4)
+    if int(X3.xxh3_64_cuda(empty)[0].view(torch.int64)) & ((1 << 64) - 1) != X3.EMPTY_DIGEST:
+        raise AssertionError("XXH3-64('') differs from the published digest 0x2D06800538D394C2")
+    return checks
+
+
+def normalize_rows_plain(rows: torch.Tensor, lengths: torch.Tensor, form: str, max_cp: int):
+    """``ops/normalize.normalize_rows`` with every kernel's plain version, on
+    the tensors' device (the expand kernel's where the route takes it)."""
+    from stringwars_tpu_torch.ops import expand as EX
+    from stringwars_tpu_torch.ops import normalize as NORM
+
+    compat = NORM.is_compat(form)
+    if NORM.decompose_route(compat, max_cp, rows.shape[1]) == "expand":
+        staged, max_exp = NORM._decomp_fused_tables(compat, max_cp)
+        out, counts = EX.expand_compact_rows_plain(rows, lengths, staged, max_exp, rows.shape[1], False)
+    else:
+        out, counts = NORM.decompose_rows_plain(rows, lengths, NORM.decomp_tables(compat, max_cp))
+    NORM.reorder_rows_plain_(out, counts)
+    if form in ("NFC", "NFKC"):
+        counts = NORM.compose_rows_plain_(out, counts)
+    return out, counts
+
+
+def normalization_texts(seed: int = 15) -> list[str]:
+    """Texts for the normalization kernels' checks: seeded streams of
+    letters, marks in and out of order, Hangul syllables and conjoining
+    jamo, compat characters and the longest expansions, and a zalgo run of
+    300 marks (a row of the wide bucket)."""
+    rng = np.random.default_rng(seed)
+    pieces = ["a", "é", "é", "á̧", "ḍ̇", "q̣̇", "가", "각", "한", "ᄀ", "ᅡ", "ᆨ", "ﬃ", "①", "½",
+              "Å", "Ω", "ǅ", "ཷ", "ཱི", "ﷺ", "ᾂ", "ṩ", " ", "日", "\n"]
+    streams = ["".join(pieces[i] for i in rng.integers(0, len(pieces), 50_000)) for _ in range(3)]
+    return streams + ["x" + "̖́" * 150 + "a" + "̈" * 300 + "b"]
+
+
+def check_normalize(dev, errors: dict) -> int:
+    """The three normalization kernels against their plain versions on the
+    card, in each form, on the rows of ``segment_rows`` (rows of 64 and the
+    wide bucket): the decomposition kernel at the form's tables, the
+    reordering kernel on its output, the composition kernel on that; then
+    each form's pipeline (the expand kernel where its route takes it) against
+    the plain pipeline, and its assembled output against unicodedata."""
+    from stringwars_tpu_torch.ops import normalize as NORM
+
+    checks = 0
+    for text in normalization_texts():
+        cps = torch.tensor(np.frombuffer(text.encode("utf-32-le"), np.int32).copy(), device=dev)
+        max_cp = int(cps.max())
+        for form in NORM.FORMS:
+            compat = NORM.is_compat(form)
+            buckets = NORM.segment_rows(cps, compat)
+            outputs = []
+            for b in buckets:
+                tabs = NORM.decomp_tables(compat, max_cp)
+                got, counts = NORM.decompose_rows_cuda(b.rows, b.lengths, tabs)
+                want, want_counts = NORM.decompose_rows_plain(b.rows, b.lengths, tabs)
+                errors["nf_decompose"] = max(errors["nf_decompose"], max_err(got, want), max_err(counts, want_counts))
+                reordered = NORM.reorder_rows_cuda_(got.clone(), counts)
+                errors["nf_reorder"] = max(errors["nf_reorder"], max_err(reordered, NORM.reorder_rows_plain_(got, counts)))
+                composed = reordered.clone()
+                kept = NORM.compose_rows_cuda_(composed, counts)
+                kept_plain = NORM.compose_rows_plain_(reordered, counts)
+                errors["nf_compose"] = max(errors["nf_compose"], max_err(composed, reordered), max_err(kept, kept_plain))
+                out = NORM.normalize_rows(b.rows, b.lengths, form, max_cp)
+                plain = normalize_rows_plain(b.rows, b.lengths, form, max_cp)
+                err = max(max_err(out[0], plain[0]), max_err(out[1], plain[1]))
+                if err:
+                    raise AssertionError(f"{form}: the pipeline on rows of {b.width} differs from the plain pipeline by {err}")
+                outputs.append(out)
+                checks += 4
+            values, keys = NORM.gather_outputs(buckets, outputs)
+            got_text = "".join(map(chr, values[torch.sort(keys, stable=True).indices].tolist()))
+            if got_text != unicodedata.normalize(form, text):
+                raise AssertionError(f"{form} of a check text ({len(text):,} characters) differs from unicodedata")
+    return checks
+
+
+def normalization_rows(row, keep: dict, launches, dev) -> None:
+    """The normalization kernels at the main path's shapes (the 128 MB
+    multilingual corpus): the decomposition kernel over NFKD's slow rows,
+    the reordering kernel over NFD's decomposed slow rows (unsorted), the
+    composition kernel over the corpus' NFD in rows, decomposed and
+    reordered (every row slow), by profiler device time (the calls clone
+    their input, which the kernels sort or compose in place); the whole NFC
+    route over those rows (``nfc-of-nfd-128MB``, CUDA events); and each
+    ``normalize-*`` suite call traced. Bounds: the bytes, 4 a codepoint read
+    and 4 an output slot written (the decomposition's zeros included), 4 a
+    codepoint a reordering moves, 4 a count."""
+    from stringwars_tpu_torch.ops import expand as EX
+    from stringwars_tpu_torch.ops import normalize as NORM
+    from stringwars_tpu_torch.suites import normalization as norm_suite
+
+    stages = keep["stages"]
+    nfkd = stages["NFKD"]
+    b = nfkd.buckets[0]
+    tabs = NORM.decomp_tables(True, nfkd.slow_max)
+    live = int(b.lengths.sum())
+    row(f"nf_decompose-nfkd-128MB (NFKD's slow rows: {b.count:,} rows of {b.width}, {live:,} codepoints, max_exp "
+        f"{tabs.max_exp})",
+        lambda: NORM.decompose_rows_cuda(b.rows, b.lengths, tabs), lambda: NORM.decompose_rows_plain(b.rows, b.lengths, tabs),
+        4 * live, bound_ms(4 * b.rows.numel() + 8 * b.count + 4 * b.count * b.width * tabs.max_exp), "nf_decompose",
+        plain_samples=1, profiled="nf_decompose_kernel")
+    nfd = stages["NFD"]
+    b = nfd.buckets[0]
+    if NORM.decompose_route(False, nfd.slow_max, b.width) == "expand":
+        fused, max_exp = NORM._decomp_fused_tables(False, nfd.slow_max)
+        src, counts = EX.expand_compact_rows(b.rows, b.lengths, fused, max_exp, b.width, False)
+    else:
+        src, counts = NORM.decompose_rows_cuda(b.rows, b.lengths, NORM.decomp_tables(False, nfd.slow_max))
+    live = int(counts.sum())
+    moved = int((NORM.reorder_rows_cuda_(src.clone(), counts) != src).sum())
+    row(f"nf_reorder-nfd-128MB (NFD's slow rows decomposed: {src.shape[0]:,} rows of {src.shape[1]}, {live:,} "
+        f"codepoints, {moved:,} moved)",
+        lambda: NORM.reorder_rows_cuda_(src.clone(), counts), lambda: NORM.reorder_rows_plain_(src.clone(), counts),
+        4 * live, bound_ms(4 * live + 4 * moved + 4 * counts.numel()), "nf_reorder", plain_samples=1,
+        profiled="nf_reorder_kernel")
+    buckets, top = keep["nfd_rows"], keep["nfd_max"]
+    b = buckets[0]
+    src, counts = NORM.decompose_rows(b.rows, b.lengths, False, top)
+    live = int(counts.sum())
+
+    def composed(compose):
+        rows = src.clone()
+        return rows, compose(rows, counts)
+
+    row(f"nf_compose-nfc-of-nfd-128MB (the corpus' NFD decomposed and reordered: {src.shape[0]:,} rows of "
+        f"{src.shape[1]}, {live:,} codepoints)",
+        lambda: composed(NORM.compose_rows_cuda_), lambda: composed(NORM.compose_rows_plain_), 4 * live,
+        bound_ms(8 * live + 8 * counts.numel()), "nf_compose", plain_samples=1, profiled="nf_compose_kernel")
+    del src
+    total = sum(int(b.lengths.sum()) for b in buckets)
+    moved = sum(4 * b.rows.numel() + 8 * b.count + 4 * b.count * b.width * NORM.decomp_tables(False, top).max_exp
+                for b in buckets)
+    row(f"nfc-of-nfd-128MB (the NFC route over the corpus' NFD: {total:,} codepoints in "
+        + " + ".join(f"{b.count:,} rows of {b.width}" for b in buckets) + ")",
+        lambda: tuple(t for b in buckets for t in NORM.normalize_rows(b.rows, b.lengths, "NFC", top)),
+        lambda: tuple(t for b in buckets for t in normalize_rows_plain(b.rows, b.lengths, "NFC", top)),
+        4 * total, bound_ms(moved), plain_samples=1)
+    names = {"class_map": "class_map_kernel", "expand": "expand_kernel", "nf_decompose": "nf_decompose_kernel",
+             "nf_reorder": "nf_reorder_kernel", "nf_compose": "nf_compose_kernel"}
+    for form, stage in stages.items():
+        before = launches()
+        norm_suite.normalize_call(stage)
+        torch.cuda.synchronize()
+        ran = [k for k in names if launches()[k] > before[k]]
+        traced_call(f"normalize-{form.lower()} call (the suite's)", lambda stage=stage: norm_suite.normalize_call(stage),
+                    launches, {k: names[k] for k in ran})
+
+
 def make_row(timings: dict):
     """``row``: a kernel timed beside its plain version on the card (equal
     first), with its bound and, where given, one PyTorch call's time; the
@@ -1238,8 +1427,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.ops import scanline as SL
     from stringwars_tpu_torch.ops import scanline_cuda as SLC
     from stringwars_tpu_torch.ops import segment as SEG
+    from stringwars_tpu_torch.ops import normalize as NORM
     from stringwars_tpu_torch.ops import sha256 as SHA
     from stringwars_tpu_torch.ops import utf8 as U8
+    from stringwars_tpu_torch.ops import xxh3 as X3
     from stringwars_tpu_torch.suites import encryption as enc_suite
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
@@ -1251,7 +1442,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.utils.profiler import card_identity
 
     counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
-                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES, CC.LAUNCHES, SHA.LAUNCHES)
+                SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES, CC.LAUNCHES, SHA.LAUNCHES, X3.LAUNCHES,
+                NORM.LAUNCHES)
 
     def wait_corpus() -> bytes:
         if child.wait():
@@ -1845,6 +2037,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         if got[at : at + len(words)].tolist() != list(words):
             raise AssertionError(f"Threefry words of seed {seed} at {at} differ from the pinned jax.random.bits")
     errors["threefry"] = max(errors["threefry"], max_err(M.threefry_bits_cuda(5, 32 << 20, dev), M.threefry_bits_plain(5, 32 << 20, dev)))
+    xxh3_checks = check_xxh3(dev, errors)
+    norm_checks = check_normalize(dev, errors)
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -1874,7 +2068,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"(wraps inside tiles, offsets 1..16), and the RFC 8439 §2.4.2 vector; {poly_checks} Poly1305 "
         f"tags, {poly_oracle} equal poly1305_ref, {poly_edge_checks} at the edges of its groups, spans and grid (raw "
         f"and AEAD), the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
-        f"hashlib; Threefry equal to the pinned jax.random.bits; launches {advanced}",
+        f"hashlib; Threefry equal to the pinned jax.random.bits; {xxh3_checks} XXH3 batches (every length 0..{XXH3_LONGEST} "
+        f"with junk past it, seeds {XXH3_SEEDS}, rows at byte offsets 0, 1, 3, 4), XXH3('') the published digest; "
+        f"{norm_checks} normalization batches (the three kernels and each form's pipeline on rows of 64 and the wide "
+        f"bucket, a run of 300 marks among them), each form's output equal to unicodedata; launches {advanced}",
         started,
     )
 
@@ -1961,7 +2158,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         ctx, _ = run_suite(
             hash_suite.main,
             ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1"],
-            [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8")]
+            [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8", "xxh3_64")]
             + ["stateful/swtorch::tree_hash64<1gpu>", "checksum/swtorch::bytesum<1gpu>", "checksum/swtorch::sha256<1gpu>"],
         )
         suite_launches = launches()  # the suite's own run: the checks below launch the kernels again
@@ -1979,6 +2176,12 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors["sha256"] = max(errors["sha256"], err)
             if err:
                 raise AssertionError(f"SHA-256 of the {padded.count:,} tokens of width {padded.width} differ from the plain version")
+        # XXH3-64: every digest of every bucket against the plain version on the card.
+        for padded in ctx.staged.buckets:
+            err = max_err(X3.xxh3_64_cuda(padded), X3.xxh3_64_plain(padded))
+            errors["xxh3"] = max(errors["xxh3"], err)
+            if err:
+                raise AssertionError(f"XXH3-64 of the {padded.count:,} tokens of width {padded.width} differ from the plain version")
         idx, digests = ctx.staged.digests(SHA.sha256)
         sample = np.random.default_rng(19).choice(idx.size, 10_000, replace=False)
         offsets, data = ctx.tape.offsets.cpu().numpy(), ctx.tape.data.cpu().numpy()
@@ -1993,6 +2196,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             "main path",
             f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
             f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; every "
+            f"XXH3-64 digest equals the plain version on the card; every "
             f"SHA-256 digest equals the plain version on the card, 10,000 sampled tokens hashlib; launches of the "
             f"suite's run {launches()}",
             started,
@@ -2263,10 +2467,40 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors["cp_window"] = max(errors["cp_window"], max_err(got, F.cp_window_count_plain(hay, hay.numel(), nd)))
         if staged["needle_counts"] != host_counts or errors["cp_window"]:
             raise AssertionError(f"needle counts {staged['needle_counts']} differ from the host's {host_counts} or the plain version")
+        # Normalize: each form's last call, the fast rows kept verbatim and
+        # the slow rows' outputs in corpus order, equals unicodedata over the
+        # whole corpus; the call's quick check is the staging's routing, and
+        # each bucket's output equals the plain pipeline on the card.
+        norm = staged["normalize"]
+        norm_lines = []
+        for form, entry in norm["forms"].items():
+            stage, (quick, outputs) = entry["stage"], entry["out"]
+            if not torch.equal(quick, stage.fast):
+                raise AssertionError(f"{form}: the call's quick check differs from the staging's routing")
+            compat = NORM.is_compat(form)
+            for b, (out, counts) in zip(stage.buckets, outputs):
+                want, want_counts = normalize_rows_plain(b.rows, b.lengths, form, stage.slow_max)
+                err = max(max_err(out, want), max_err(counts, want_counts))
+                route = NORM.decompose_route(compat, stage.slow_max, b.width)
+                for kernel in ("expand" if route == "expand" else "nf_decompose", "nf_reorder") + (
+                        ("nf_compose",) if form in ("NFC", "NFKC") else ()):
+                    errors[kernel] = max(errors[kernel], err)
+                if err:
+                    raise AssertionError(f"{form}: rows of {b.width} differ from the plain pipeline by {err}")
+            got = norm_suite.assemble(stage, outputs, norm["lead"], norm["cps"])
+            want_np = np.frombuffer(unicodedata.normalize(form, text).encode("utf-32-le"), np.int32)
+            if not np.array_equal(got.cpu().numpy(), want_np):
+                raise AssertionError(f"{form} of the corpus differs from unicodedata.normalize")
+            if form == "NFD":
+                norm_keep["nfd"] = got
+            if form == "NFC":
+                norm_keep["nfc"] = want_np
+            norm_lines.append(f"{form} {int((~stage.fast).sum()):,} of {stage.quick.count:,} rows slow, "
+                              f"{stage.slow_codepoints:,} codepoints in {stage.routes()}, {want_np.size:,} out")
         for counter in counters:
             counter.update({k: suite_launches[k] for k in counter})
         norm_keep.update(rows=rows, max_cp=mcp, max_exp=max_exp, haystack=hay, needles=staged["needles"],
-                         compare_rows=staged["compare_rows"])
+                         compare_rows=staged["compare_rows"], stages={f: e["stage"] for f, e in norm["forms"].items()})
         n_text, n_folded = len(text), len(folded_text)
         del ctx, staged, text, folded_text, out, counts, want
         phase(
@@ -2276,8 +2510,28 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             f"on the card, its {n_folded:,} codepoints (from {n_text:,}) len(text.casefold()), 10,000 sampled rows "
             f"str.casefold; {int(equal.sum())} of {len(pairs)} line pairs equal, as on the host, and both fold_tokens "
             f"matrices equal the rule walk; {len(host_counts)} needle counts {host_counts[:12]}... equal the plain "
-            f"window count and the host's overlapping count over {hay.numel():,} folded codepoints; launches of the "
-            f"suite's run {launches()}",
+            f"window count and the host's overlapping count over {hay.numel():,} folded codepoints; each form's output "
+            f"equals the plain pipeline on the card and unicodedata.normalize over the whole corpus ({'; '.join(norm_lines)}); "
+            f"launches of the suite's run {launches()}",
+            started,
+        )
+
+    def nfc_of_nfd_path() -> None:
+        """The NFC of NFD-stored text, where every row is slow: the corpus'
+        NFD (the suite's, equal to unicodedata's) through ``normalize``."""
+        started = time.perf_counter()
+        nfd = norm_keep["nfd"]
+        got = NORM.normalize(nfd.cpu().numpy(), "NFC", dev)
+        if not np.array_equal(got, norm_keep["nfc"]):
+            raise AssertionError("NFC of the corpus' NFD differs from unicodedata.normalize('NFC', text)")
+        norm_keep["nfd_rows"] = NORM.segment_rows(nfd, False)
+        norm_keep["nfd_max"] = int(nfd.max())
+        phase(
+            "main path",
+            f"nfc-of-nfd: the corpus' NFD ({nfd.numel():,} codepoints, max {norm_keep['nfd_max']:#x}) through "
+            f"normalize(..., 'NFC') on {dev} in "
+            + " + ".join(f"{b.count:,} rows of {b.width}" for b in norm_keep["nfd_rows"])
+            + f"; equals unicodedata.normalize('NFC', text) ({got.size:,} codepoints); launches {launches()}",
             started,
         )
 
@@ -2350,12 +2604,13 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
-    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum", "sha256"], hash_path)
+    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum", "sha256", "xxh3"], hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
     path(["class_map", "fused_scan", "lb_rules", "bpe"], tokenization_path)
-    path(["expand", "range_map", "cp_window"], normalization_path)
+    path(["expand", "range_map", "cp_window", "class_map", "nf_decompose", "nf_reorder"], normalization_path)
+    path(["nf_reorder", "nf_compose"], nfc_of_nfd_path)
     path(["chacha20_xor", "poly1305", "threefry"], encryption_path)
     torch.cuda.empty_cache()
 
@@ -2752,6 +3007,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
          {"bpe": "bpe_kernel"}),
     ):
         traced_call(f"{name} call (the suite's)", call, launches, kernel)
+    normalization_rows(row, norm_keep, launches, dev)
     norm_keep.clear()
     tok_keep.clear()
     del frows, hay, needle, a_rows, b_rows, bpe
@@ -2836,6 +3092,21 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 bound_ms(n_tree, 9 * n_tree / 8))
     traced_call(f"sha256 call (the hash suite's checksum/swtorch::sha256 over its {len(buckets.buckets)} buckets)",
                 lambda: [SHA.sha256(p) for p in buckets.buckets], launches, {"sha256": "sha256_kernel"}, sha_bound)
+    # XXH3-64 over the same buckets. Bound: each token read once, its length
+    # and digest (12 B), or the 32-bit instructions the spec needs at least:
+    # 24 a token, 17 a 16-byte mix of the 17..240-byte paths, 64 a 64-byte
+    # stripe of the long path, whichever takes longer.
+    x3_ops = 0
+    for p in buckets.buckets:
+        n = p.lengths.to(torch.int64)
+        mid = (n > 16) & (n <= 240)
+        x3_ops += 24 * p.count + int((17 * (n // 16))[mid].sum()) + int((64 * ((n - 1) // 64 + 1))[n > 240].sum())
+    x3_bound = bound_ms(buckets.token_bytes + 12 * buckets.tokens, x3_ops)
+    row(f"xxh3-words-128MB ({buckets.tokens:,} tokens in {len(buckets.buckets)} buckets, {x3_ops:,} operations)",
+        lambda: tuple(X3.xxh3_64_cuda(p) for p in buckets.buckets), lambda: tuple(X3.xxh3_64_plain(p) for p in buckets.buckets),
+        buckets.token_bytes, x3_bound, "xxh3", plain_samples=1)
+    traced_call(f"xxh3_64 call (the hash suite's stateless/swtorch::xxh3_64 over its {len(buckets.buckets)} buckets)",
+                lambda: [X3.xxh3_64(p) for p in buckets.buckets], launches, {"xxh3": "xxh3_kernel"}, x3_bound)
     del buckets, tape
     fill_words = 32 << 20
     row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),
@@ -2871,6 +3142,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "poly1305": ("stringwars_tpu_torch/csrc/chacha.cu", "stringwars_tpu/ops/chacha.py:219"),
         "sha256": ("stringwars_tpu_torch/csrc/sha256.cu", "stringwars_tpu/ops/sha256.py:112"),
         "threefry": ("stringwars_tpu_torch/csrc/threefry.cu", "stringwars_tpu/ops/memops.py:104"),
+        "xxh3": ("stringwars_tpu_torch/csrc/xxh3.cu", "stringwars_tpu/ops/xxh3.py:162"),
+        "nf_decompose": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:238"),
+        "nf_reorder": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:298"),
+        "nf_compose": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:429"),
     }
     kernels = [
         {

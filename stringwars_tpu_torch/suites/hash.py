@@ -12,9 +12,8 @@ baselines (the ``xxhash`` wheel, CPython builtins, ``zlib``, ``hashlib``)
 run the same corpus under the same deadline pacing as the reference's
 Python suite; a row whose module is missing is SKIPPED. The checksum
 group's ``swtorch::sha256`` row hashes every token of the same buckets per
-call (``ops/sha256.py``).
-
-Not ported yet: the ``xxh3_64`` device row.
+call (``ops/sha256.py``). The ``swtorch::xxh3_64`` row is XXH3-64 (seed 0,
+the reference's headline hash) over the same buckets (``ops/xxh3.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import torch
 from stringwars_tpu_torch.ops import bytesum as B
 from stringwars_tpu_torch.ops import hash as H
 from stringwars_tpu_torch.ops import sha256 as SHA
+from stringwars_tpu_torch.ops import xxh3 as X3
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens, Tape, bucket_spans
 from stringwars_tpu_torch.utils.config import get_env_bool
@@ -86,6 +86,7 @@ def bench_device_hashes(ctx: SuiteContext, staged: HashBuckets) -> None:
         "xxh64": H.xxh64,
         "xxh32": H.xxh32,
         "swh64_multiseed8": functools.partial(H.swh64_multiseed, seeds=MULTISEEDS),
+        "xxh3_64": X3.xxh3_64,
     }
     for scope in ctx.scopes:
         for op, fn in variants.items():

@@ -1,15 +1,23 @@
-"""Normalization suite: case fold, case-insensitive compare and find
-(reference ``normalization/bench.rs``; defaults: the whole file as one
-token, 3 s warm-up + 20 s measure, 128 MB of ``synthetic:multilingual``).
+"""Normalization suite: case fold, NFC/NFD/NFKC/NFKD, case-insensitive
+compare and find (reference ``normalization/bench.rs``; defaults: the whole
+file as one token, 3 s warm-up + 20 s measure, 128 MB of
+``synthetic:multilingual``).
 
 The port of ``stringwars_tpu.suites.normalization`` for one device, with its
-variant names, less the four ``normalize-{nfc,nfd,nfkc,nfkd}`` groups, which
-come with the normalization slice (decomposition and composition). Device
-rows (``swtorch::...<1gpu>``):
+variant names. Device rows (``swtorch::...<1gpu>``):
 
 - ``case-fold/swtorch::utf8_fold``: ``expand.fold_tokens_fused`` over the
   corpus cut into 32-byte rows (``stream_rows``), pruned to the corpus'
   exact codepoint ceiling; ``swtorch::ascii_fold`` on ASCII corpora only;
+- ``normalize-{nfc,nfd,nfkc,nfkd}/swtorch::utf8_norm``: the quick check
+  (``rows_nfc_verbatim`` for NFC/NFKC, ``rows_inert`` for NFD/NFKD) over the
+  corpus in ``QUICK_WIDTH``-byte rows, then ``ops/normalize.normalize_rows``
+  over the codepoints of the rows that fail it, in rows of 64 and a bucket
+  of wider rows (``FormStage``). The JAX suite cuts its rows at character
+  boundaries, so a row kept verbatim can end before a mark that the next
+  row normalizes alone (F13); here every row ends before a safe codepoint
+  where the width allows, and ``assemble`` gives ``unicodedata.normalize``
+  of the whole corpus. Each form's route and staging seconds go to stderr;
 - ``case-insensitive-compare/swtorch::uncased_eq``: ``uncased_equal_batch``
   over the first 1,000 pairs of adjacent non-empty lines;
 - ``case-insensitive-find/swtorch::uncased_find``: one of 100 seeded needles
@@ -24,18 +32,22 @@ The staging seconds go to stderr.
 
 ``main`` returns the suite's context; ``ctx.staged`` holds ``n`` (the
 corpus bytes), ``rows`` (the 32-byte ``PaddedTokens``), ``max_cp``, ``fold``
-(the last fold call's output and counts), ``pairs``, ``compare_rows`` (their
-two sides as ``PaddedTokens``), ``equal`` (the last compare call's
-booleans), ``haystack`` (the folded codepoints), ``needles`` (their folded
-codepoints) and ``needle_counts`` (the device count of each needle, from
-one pass over all of them before the row is timed).
+(the last fold call's output and counts), ``normalize`` (``lead`` and
+``cps``, the corpus decoded at each byte, and ``forms``: per form its
+``stage`` and ``out``, the last call's quick check and outputs), ``pairs``,
+``compare_rows`` (their two sides as ``PaddedTokens``), ``equal`` (the last
+compare call's booleans), ``haystack`` (the folded codepoints), ``needles``
+(their folded codepoints) and ``needle_counts`` (the device count of each
+needle, from one pass over all of them before the row is timed).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import sys
 import time
+import unicodedata
 
 import numpy as np
 import torch
@@ -43,76 +55,40 @@ import torch
 from stringwars_tpu_torch.ops import casefold as CF
 from stringwars_tpu_torch.ops import expand as EX
 from stringwars_tpu_torch.ops import find as F
+from stringwars_tpu_torch.ops import normalize as NORM
+from stringwars_tpu_torch.ops.utf8 import _codepoints_at
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens, Tape, _pad_spans
 from stringwars_tpu_torch.utils.harness import WorkUnits
 
 
-def stream_row_starts(data: torch.Tensor, width: int) -> torch.Tensor:
+def stream_row_starts(data: torch.Tensor, width: int, safe: torch.Tensor | None = None) -> torch.Tensor:
     """Row starts (int64, on the data's device) that cut a UTF-8 byte stream
     into rows of at most ``width`` bytes, never inside a multibyte character:
     a row ends at the last lead byte within ``width`` of its start, or, where
     there is none (a continuation run longer than the width), after ``width``
-    bytes. The JAX package walks that chain of starts in Python; here it is
-    walked in chunks of ``64 * width`` bytes at once: first from every entry
-    a chunk can have (the chain enters each chunk within ``width`` of its
-    start), then, once the entries are linked on the host, from the true ones."""
-    n = data.numel()
-    if not 0 < width < 1 << 16:
-        raise ValueError(f"width must lie in [1, 65535], got {width}")
-    dev = data.device
-    if n <= width:
-        return torch.zeros(1, dtype=torch.int64, device=dev)
-    pos = torch.arange(n, device=dev)
+    bytes (the JAX package's chain of starts, ``ops/normalize.row_starts``).
+    With ``safe`` (a bool per byte), a row ends before the last safe lead
+    within the width where there is one."""
     lead = (data & 0xC0) != 0x80
-    rank = torch.cumsum(lead, 0) - 1  # index among the leads of the last lead at or before p
-    leads = torch.nonzero(lead).squeeze(1)
-    last_lead = torch.where(rank >= 0, leads[rank.clamp(min=0)] if leads.numel() else rank, -1)
-    back = (pos - last_lead).clamp(max=width)  # how far p lies past it, capped at width
-    del pos, lead, rank, leads, last_lead
-
-    def step(s: torch.Tensor) -> torch.Tensor:
-        """The next start after s (for s + width < n)."""
-        e = (s + width).clamp(max=n - 1)
-        d = back[e]
-        return torch.where(d < width, e - d, e)
-
-    chunk = 64 * width
-    chunk_ends = torch.arange(1, -(-n // chunk) + 1, device=dev) * chunk
-    cur = (chunk_ends - chunk)[:, None] + torch.arange(width, device=dev)[None, :]
-    live = cur + width < n
-    while bool(live.any()):
-        cur = torch.where(live, step(cur), cur)
-        live &= (cur < chunk_ends[:, None]) & (cur + width < n)
-    exits = (cur - chunk_ends[:, None]).tolist()  # offset into the next chunk, < 0 where the chain ends
-    entries, offset = [], 0
-    for k, row in enumerate(exits):
-        entries.append(k * chunk + offset)
-        offset = row[offset]
-        if offset < 0:
-            break
-    cur = torch.tensor(entries, dtype=torch.int64, device=dev)
-    ends = chunk_ends[: cur.numel()]
-    visited = [cur]
-    live = cur + width < n
-    while bool(live.any()):
-        cur = torch.where(live, step(cur), cur)
-        inside = live & (cur < ends)
-        visited.append(torch.where(inside, cur, -1))
-        live = inside & (cur + width < n)
-    starts = torch.stack(visited, 1).reshape(-1)  # chunk by chunk, each in order
-    return starts[starts >= 0]
+    if safe is None:
+        return NORM.row_starts(lead, width)
+    return NORM.row_starts(lead & safe, width, fallback=lead)
 
 
-def stream_rows(data_np: np.ndarray, width: int = 1024, *, device=None) -> PaddedTokens:
-    """The UTF-8 byte stream as ``[rows, width]`` ``PaddedTokens`` whose rows
-    never split a multibyte character (the rows of ``stream_row_starts``),
-    built on ``device`` by one scatter of the bytes; ``width`` a multiple of 4,
-    as every ``PaddedTokens`` width is."""
+def stream_rows(data_np, width: int = 1024, *, device=None, safe: torch.Tensor | None = None) -> PaddedTokens:
+    """The UTF-8 byte stream (a numpy array, or a uint8 tensor) as ``[rows,
+    width]`` ``PaddedTokens`` whose rows never split a multibyte character
+    (the rows of ``stream_row_starts``), built on ``device`` by one scatter
+    of the bytes; ``width`` a multiple of 4, as every ``PaddedTokens`` width
+    is."""
     if width % 4:
         raise ValueError(f"the row width must be a multiple of 4, got {width}")
-    data = torch.from_numpy(np.array(data_np, dtype=np.uint8)).to(device)
-    starts = stream_row_starts(data, width)
+    if isinstance(data_np, torch.Tensor):
+        data = data_np.to(device)
+    else:
+        data = torch.from_numpy(np.array(data_np, dtype=np.uint8)).to(device)
+    starts = stream_row_starts(data, width, safe)
     lengths = torch.diff(starts, append=torch.tensor([data.numel()], device=data.device))
     return _pad_spans(data, starts, lengths, width=width, align=4)
 
@@ -143,6 +119,93 @@ def suite_needles(text: str) -> list[bytes]:
     rng = np.random.default_rng(42)
     words = [w for w in text.split() if len(w) >= 3 or len(w.encode()) >= 3]
     return [words[i].encode() for i in rng.integers(0, max(len(words), 1), 100)] if words else []
+
+
+QUICK_WIDTH = 1024  # bytes a quick-check row holds (the JAX suite's stream_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class FormStage:
+    """One form's staging over the corpus: the quick-check rows (``QUICK_WIDTH``
+    bytes, cut before safe codepoints where the width allows), the quick
+    check's verdict on each, and the codepoints of the rows that fail it as
+    rows cut before safe codepoints (``ops/normalize.segment_rows``; a new
+    row at each run of failing rows), with the byte offset of every such
+    codepoint in the corpus."""
+
+    form: str
+    quick: PaddedTokens
+    fast: torch.Tensor  # bool[quick rows]
+    buckets: list  # ops/normalize.CodepointRows
+    slow_offsets: torch.Tensor  # int64[slow codepoints]
+    max_cp: int  # the corpus' codepoint ceiling (the quick check's tables)
+    slow_max: int  # the slow codepoints' ceiling (the decomposition's tables)
+
+    @property
+    def slow_codepoints(self) -> int:
+        return int(self.slow_offsets.numel())
+
+    def routes(self) -> str:
+        compat = NORM.is_compat(self.form)
+        return " + ".join(f"{b.count:,} rows of {b.width} ({NORM.decompose_route(compat, self.slow_max, b.width)})"
+                          for b in self.buckets) or "no slow rows"
+
+
+def corpus_codepoints(data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(is_lead, codepoint decoded at each byte) of UTF-8 bytes, on their
+    device (junk at continuation bytes)."""
+    b = data.to(torch.int32)
+    return (b & 0xC0) != 0x80, _codepoints_at(b, b.numel())
+
+
+def quick_rows(data: torch.Tensor, compat: bool, lead: torch.Tensor, cps: torch.Tensor) -> PaddedTokens:
+    """The corpus as ``QUICK_WIDTH``-byte rows, each ending before the last
+    safe codepoint within the width (before the last character where none
+    is safe): a row kept verbatim then never meets a neighbour it would
+    compose or reorder with."""
+    safe = lead & NORM.safe_on(compat, data.device)[cps.to(torch.int64).clamp(0, NORM.tables.MAX_CP - 1)]
+    return stream_rows(data, QUICK_WIDTH, device=data.device, safe=safe)
+
+
+def quick_check(form: str, rows: PaddedTokens, max_cp: int) -> torch.Tensor:
+    """bool per row: verbatim its own ``form`` (``rows_nfc_verbatim`` for
+    NFC/NFKC, ``rows_inert`` for NFD/NFKD)."""
+    check = NORM.rows_nfc_verbatim if form in ("NFC", "NFKC") else NORM.rows_inert
+    return check(rows.data, rows.lengths, NORM.is_compat(form), max_cp)
+
+
+def stage_form(form: str, quick: PaddedTokens, lead: torch.Tensor, cps: torch.Tensor, max_cp: int) -> FormStage:
+    """Route the quick-check rows of ``form`` and stage the slow codepoints."""
+    fast = quick_check(form, quick, max_cp)
+    n = lead.numel()
+    byte_slow = torch.repeat_interleave(~fast, quick.lengths.to(torch.int64), output_size=n)
+    slow_offsets = torch.nonzero(lead & byte_slow).squeeze(1)
+    slow = cps[slow_offsets]
+    # A run of slow rows begins after a fast row, at a safe codepoint: cut there.
+    forced = (slow_offsets == 0) | ~byte_slow[(slow_offsets - 1).clamp(min=0)]
+    buckets = NORM.segment_rows(slow, NORM.is_compat(form), forced)
+    slow_max = int(slow.max()) if slow.numel() else 0x7F
+    return FormStage(form, quick, fast, buckets, slow_offsets, max_cp, slow_max)
+
+
+def normalize_call(stage: FormStage) -> tuple[torch.Tensor, list]:
+    """One call of a ``normalize-*`` row: the quick check over every
+    quick-check row, then the form's row pipeline over the slow rows.
+    Returns (the quick check's verdicts, each bucket's (out, counts))."""
+    quick = quick_check(stage.form, stage.quick, stage.max_cp)
+    outs = [NORM.normalize_rows(b.rows, b.lengths, stage.form, stage.slow_max) for b in stage.buckets]
+    return quick, outs
+
+
+def assemble(stage: FormStage, outputs: list, lead: torch.Tensor, cps: torch.Tensor) -> torch.Tensor:
+    """The corpus' normalized codepoints (int32, on the device): the fast
+    rows' codepoints as they are and the slow rows' outputs, in corpus order."""
+    fast_bytes = torch.repeat_interleave(stage.fast, stage.quick.lengths.to(torch.int64), output_size=lead.numel())
+    keep = lead & fast_bytes
+    slow_values, slow_keys = NORM.gather_outputs(stage.buckets, outputs)
+    values = torch.cat([cps[keep].to(torch.int32), slow_values.to(cps.device)])
+    keys = torch.cat([torch.nonzero(keep).squeeze(1), stage.slow_offsets[slow_keys.to(cps.device)]])
+    return values[torch.sort(keys, stable=True).indices]
 
 
 def main(argv: list[str] | None = None) -> SuiteContext:
@@ -197,6 +260,35 @@ def main(argv: list[str] | None = None) -> SuiteContext:
         for name in scope_names:
             ctx.run(f"case-fold/swtorch::ascii_fold{name}", "bytes", lambda: ascii_call, device=dev)
     ctx.run("case-fold/str.casefold", "bytes", lambda: lambda: (host_text.casefold(), WorkUnits(1, n))[1])
+
+    lead, cps = corpus_codepoints(data)
+    quick_by_compat: dict = {}
+    forms: dict = {}
+    staged["normalize"] = {"lead": lead, "cps": cps, "forms": forms}
+    for form in NORM.FORMS:
+        started = time.perf_counter()
+        compat = NORM.is_compat(form)
+        if compat not in quick_by_compat:
+            quick_by_compat[compat] = quick_rows(data, compat, lead, cps)
+        stage = stage_form(form, quick_by_compat[compat], lead, cps, max_cp)
+        sync()
+        slow_rows = int((~stage.fast).sum())
+        log(f"{form}: {stage.quick.count:,} quick-check rows of {QUICK_WIDTH} B, {slow_rows:,} slow "
+            f"({100 * int(stage.quick.lengths[~stage.fast].sum()) / max(n, 1):.1f}% of the bytes): "
+            f"{stage.slow_codepoints:,} codepoints (max {stage.slow_max:#x}) in {stage.routes()}; "
+            f"staged in {time.perf_counter() - started:.2f} s")
+        forms[form] = {"stage": stage}
+        group = f"normalize-{form.lower()}"
+        ctx.group(group)
+
+        def norm_call(entry=forms[form]) -> WorkUnits:
+            entry["out"] = normalize_call(entry["stage"])
+            return WorkUnits(1, n)
+
+        for name in scope_names:
+            ctx.run(f"{group}/swtorch::utf8_norm{name}", "bytes", lambda call=norm_call: call, device=dev)
+        ctx.run(f"{group}/unicodedata.normalize", "bytes",
+                lambda f=form: lambda: (unicodedata.normalize(f, host_text), WorkUnits(1, n))[1])
 
     ctx.group("case-insensitive-compare")
     # Adjacent line pairs, at most 1,000 (reference normalization/bench.rs:249-254).

@@ -21,9 +21,17 @@ The port of the segmentation part of ``stringwars_tpu.unicode.tables``:
   the running Python, ``unicodedata.unidata_version`` (``UNIDATA_VERSION``:
   15.0.0 under Python 3.12, the version of the committed break tables).
 
+- ``decomposition_tables`` (NFD, or NFKD with ``compat``), ``ccc_table``,
+  ``composition_pairs`` and ``nfc_fast_table`` (NFC, or NFKC): the
+  normalization tables, from ``unicodedata`` at first use and kept in memory
+  only, element for element the JAX package's (the same ``_pooled`` layout,
+  primary composites by the NFC round trip, the Hangul V/T jamo marked
+  QC=Maybe). Only the codepoints that have a decomposition mapping (and the
+  Hangul syllables) are normalized one by one; every other codepoint is its
+  own decomposition.
+
 The value tuples number the classes exactly as the JAX package does, so a
-class id means the same in both packages. Decompositions, combining classes
-and compositions come with the normalization slice.
+class id means the same in both packages.
 """
 
 from __future__ import annotations
@@ -153,6 +161,90 @@ def casefold_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     for t in tables:
         t.setflags(write=False)
     return tables
+
+
+def _read_only(*arrays: np.ndarray):
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays if len(arrays) > 1 else arrays[0]
+
+
+_SBASE, _SCOUNT = 0xAC00, 11172  # the Hangul syllables (UAX#15 §3.12)
+
+
+@functools.lru_cache(maxsize=None)
+def _with_decomposition() -> np.ndarray:
+    """int64: the codepoints whose NFD or NFKD can differ from themselves:
+    those with a decomposition mapping, and the Hangul syllables."""
+    cps = [cp for cp in range(MAX_CP) if not 0xD800 <= cp <= 0xDFFF and unicodedata.decomposition(chr(cp))]
+    return np.union1d(np.asarray(cps, np.int64), np.arange(_SBASE, _SBASE + _SCOUNT, dtype=np.int64))
+
+
+
+@functools.lru_cache(maxsize=None)
+def decomposition_tables(compat: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(inline int32, multi int64, pool int32) over [0, 0x110000): the full
+    NFD (NFKD with ``compat``) of each codepoint, in ``_pooled``'s layout.
+    Read-only arrays; the same values as the JAX package's."""
+    form = "NFKD" if compat else "NFD"
+    mapping: dict[int, list[int]] = {}
+    for cp in _with_decomposition().tolist():
+        expanded = unicodedata.normalize(form, chr(cp))
+        if expanded != chr(cp):
+            mapping[cp] = [ord(c) for c in expanded]
+    return _read_only(*_pooled(mapping))
+
+
+@functools.lru_cache(maxsize=None)
+def ccc_table() -> np.ndarray:
+    """uint8[0x110000]: the canonical combining class of each codepoint."""
+    ccc = np.frombuffer(bytes(unicodedata.combining(chr(cp)) for cp in range(MAX_CP)), np.uint8).copy()
+    ccc[0xD800:0xE000] = 0
+    return _read_only(ccc)
+
+
+@functools.lru_cache(maxsize=None)
+def composition_pairs() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(starters, combiners, composed) int32: the primary composites, by
+    the NFC round trip of each canonical two-codepoint decomposition whose
+    first codepoint has ccc 0, so that the exclusions hold. The Hangul
+    syllables compose by arithmetic and are left out."""
+    ccc = ccc_table()
+    starters, combiners, composed = [], [], []
+    for cp in _with_decomposition().tolist():
+        if _SBASE <= cp < _SBASE + _SCOUNT:
+            continue
+        raw = unicodedata.decomposition(chr(cp))
+        if raw.startswith("<"):
+            continue
+        parts = [int(p, 16) for p in raw.split()]
+        if len(parts) != 2 or ccc[parts[0]] != 0:
+            continue
+        if unicodedata.normalize("NFC", chr(parts[0]) + chr(parts[1])) == chr(cp):
+            starters.append(parts[0])
+            combiners.append(parts[1])
+            composed.append(cp)
+    return _read_only(np.array(starters, np.int32), np.array(combiners, np.int32), np.array(composed, np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def nfc_fast_table(compat: bool) -> np.ndarray:
+    """bool[0x110000]: the codepoint is UAX#15 quick-check Yes for NFC (NFKC
+    with ``compat``) and has ccc 0, so a run of such codepoints is its own
+    NFC. QC=No where the form rewrites the lone codepoint; QC=Maybe for the
+    primary combiners and the Hangul V/T jamo. Surrogates are not fast."""
+    form = "NFKC" if compat else "NFC"
+    fast = ccc_table() == 0
+    fast[0xD800:0xE000] = False
+    for cp in _with_decomposition().tolist():
+        c = chr(cp)
+        if unicodedata.normalize(form, c) != c:
+            fast[cp] = False
+    _, combiners, _ = composition_pairs()
+    fast[combiners] = False
+    fast[0x1161:0x1176] = False  # Hangul V jamo (QC=Maybe)
+    fast[0x11A8:0x11C3] = False  # Hangul T jamo (QC=Maybe)
+    return _read_only(fast)
 
 
 @functools.lru_cache(maxsize=None)

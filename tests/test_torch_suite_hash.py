@@ -10,10 +10,12 @@ import torch
 from stringwars_tpu import tape as jax_tape
 from stringwars_tpu.ops import fingerprint as JF
 from stringwars_tpu.ops import hash as JH
+from stringwars_tpu.ops import xxh3 as JX
 from stringwars_tpu.ops.sha256 import prepare_sha256, sha256_digest_bytes
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.ops import hash as H
 from stringwars_tpu_torch.ops import sha256 as SHA
+from stringwars_tpu_torch.ops import xxh3 as X3
 from stringwars_tpu_torch.suites import fingerprints as fp_suite
 from stringwars_tpu_torch.suites import hash as hash_suite
 from _torch_threads import one_thread  # noqa: F401
@@ -24,6 +26,7 @@ HASH_ROWS = [
     "stateless/swtorch::xxh64<1cpu>",
     "stateless/swtorch::xxh32<1cpu>",
     "stateless/swtorch::swh64_multiseed8<1cpu>",
+    "stateless/swtorch::xxh3_64<1cpu>",
     "stateless/xxhash.xxh3_64",
     "stateless/xxhash.xxh64",
     "stateless/builtins.hash",
@@ -108,6 +111,24 @@ def test_hash_suite_sha256_row_matches_hashlib_and_jax(hash_run, corpus):
         assert got[i].tobytes() == hashlib.sha256(tokens[i]).digest()
     ref = jax_tape.bucket_by_length(jax_tape.Tape.from_buffer(corpus.read_bytes(), "words"), hash_suite.BUCKET_EDGES)[0]
     np.testing.assert_array_equal(SHA.digest_bytes(SHA.sha256(ctx.staged.buckets[0])), sha256_digest_bytes(prepare_sha256(ref)))
+
+
+def test_hash_suite_xxh3_row_matches_wheel_and_jax(hash_run, corpus):
+    """The xxh3_64 row's buckets: every token's digest equals the xxhash
+    wheel's, and the first bucket's the JAX package's over its own bucket
+    (run without jit: the same function op by op)."""
+    import jax
+    import xxhash
+
+    ctx, _ = hash_run
+    idx, digests = ctx.staged.digests(X3.xxh3_64)
+    tokens = ctx.tape.to_list()
+    assert list(idx) == list(range(len(tokens)))
+    np.testing.assert_array_equal(digests, np.array([xxhash.xxh3_64_intdigest(t) for t in tokens], dtype=np.uint64))
+    ref = jax_tape.bucket_by_length(jax_tape.Tape.from_buffer(corpus.read_bytes(), "words"), hash_suite.BUCKET_EDGES)[0]
+    with jax.disable_jit():
+        want = JX.xxh3_hash(ref).to_numpy().astype(np.uint64)
+    np.testing.assert_array_equal(X3.xxh3_64(ctx.staged.buckets[0]).numpy(), want)
 
 
 def test_collision_audit(corpus, monkeypatch, capsys):

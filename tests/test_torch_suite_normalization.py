@@ -1,9 +1,10 @@
-"""The port's normalization suite (its case-fold, compare and find groups)
-end to end on the CPU (``--device cpu``), against the JAX package's
-functions on the same corpus file."""
+"""The port's normalization suite (its case-fold, normalize, compare and
+find groups) end to end on the CPU (``--device cpu``), against the JAX
+package's functions on the same corpus file and against ``unicodedata``."""
 
 import contextlib
 import io
+import unicodedata
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,21 +12,27 @@ import pytest
 import torch
 
 from stringwars_tpu.ops import casefold as JC
+from stringwars_tpu.ops import normalize as JNORM
 from stringwars_tpu.suites import normalization as JN
 from stringwars_tpu.tape import PaddedTokens as JaxPaddedTokens
 from stringwars_tpu.tape import Tape as JaxTape
 from stringwars_tpu_torch import datasets
 from stringwars_tpu_torch.suites import normalization as suite
+from _jax_unicode_cache import private_jax_unicode_cache  # noqa: F401
 from _torch_threads import one_thread  # noqa: F401
 
 
+FORMS = ["nfc", "nfd", "nfkc", "nfkd"]
 DEVICE_ROWS = [
     "case-fold/swtorch::utf8_fold<1cpu>",
+    *[f"normalize-{form}/swtorch::utf8_norm<1cpu>" for form in FORMS],
     "case-insensitive-compare/swtorch::uncased_eq<1cpu>",
     "case-insensitive-find/swtorch::uncased_find<1cpu>",
 ]
-HOST_ROWS = ["case-fold/str.casefold", "case-insensitive-compare/casefold-eq", "case-insensitive-find/casefold-count"]
-GROUPS = ["# case-fold", "# case-insensitive-compare", "# case-insensitive-find"]
+HOST_ROWS = ["case-fold/str.casefold", *[f"normalize-{form}/unicodedata.normalize" for form in FORMS],
+             "case-insensitive-compare/casefold-eq", "case-insensitive-find/casefold-count"]
+GROUPS = ["# case-fold", *[f"# normalize-{form}" for form in FORMS], "# case-insensitive-compare",
+          "# case-insensitive-find"]
 
 
 def _run(argv):
@@ -185,3 +192,86 @@ def test_suite_without_a_card_exits_2(monkeypatch):
     with pytest.raises(SystemExit) as exit_info:
         suite.main([])
     assert exit_info.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def marked_corpus(tmp_path_factory):
+    """1 MB of ``synthetic:multilingual`` and a tail that takes every slow
+    route: combining marks in and out of order, conjoining jamo, compat
+    characters, a run of 300 marks (the wide rows) and a row seam before a
+    mark."""
+    rng = np.random.default_rng(13)
+    pieces = ["ä", "á̧", "ḍ̇", "각", "ﬃ", "①", "Å", "ǅ", "ཱི", "ȩ́", "x", "ﷺ", "가", " "]
+    tail = "".join(pieces[i] for i in rng.integers(0, len(pieces), 4000))
+    path = tmp_path_factory.mktemp("corpus") / "marked.txt"
+    path.write_bytes(datasets.synthesize("multilingual", 1 << 20) + ("\n" + "́" * 300 + "y\n" + tail).encode())
+    return path
+
+
+@pytest.fixture(scope="module")
+def normalize_run(marked_corpus):
+    return _run(["--device", "cpu", "--dataset", str(marked_corpus), "--filter", "normalize-"])
+
+
+def test_normalize_rows_print(normalize_run):
+    _, lines = normalize_run
+    for form in FORMS:
+        _row(lines, f"normalize-{form}/swtorch::utf8_norm<1cpu>")
+        _row(lines, f"normalize-{form}/unicodedata.normalize")
+
+
+@pytest.mark.parametrize("form", ["NFC", "NFD", "NFKC", "NFKD"])
+def test_normalize_row_assembles_to_unicodedata(normalize_run, marked_corpus, form):
+    """The last call's outputs, fast rows kept verbatim and the slow rows'
+    outputs in corpus order, equal ``unicodedata.normalize`` of the whole
+    corpus; the call's quick check is the staging's routing."""
+    ctx, _ = normalize_run
+    staged = ctx.staged["normalize"]
+    entry = staged["forms"][form]
+    stage, (quick, outputs) = entry["stage"], entry["out"]
+    assert torch.equal(quick, stage.fast)
+    assert stage.slow_codepoints and len(stage.buckets) == 2  # rows of 64 and the wide bucket
+    got = suite.assemble(stage, outputs, staged["lead"], staged["cps"])
+    text = marked_corpus.read_bytes().decode()
+    assert "".join(map(chr, got.tolist())) == unicodedata.normalize(form, text)
+
+
+def test_quick_rows_equal_jax_rows_where_every_cut_is_safe(normalize_run, marked_corpus):
+    """On the synthetic corpus every character boundary is safe: the
+    quick-check rows are the JAX suite's 1 KB rows there."""
+    ctx, _ = normalize_run
+    stage = ctx.staged["normalize"]["forms"]["NFC"]["stage"]
+    raw = np.frombuffer(marked_corpus.read_bytes(), np.uint8)
+    cut = len(datasets.synthesize("multilingual", 1 << 20))
+    want = JN.stream_rows(raw[:cut])
+    rows = int(np.asarray(want.lengths).size) - 1  # the last JAX row ends at the cut, the port's runs on
+    np.testing.assert_array_equal(stage.quick.lengths[:rows].numpy(), np.asarray(want.lengths)[:rows])
+    np.testing.assert_array_equal(stage.quick.data[:rows].numpy(), np.asarray(want.data)[:rows])
+
+
+def test_f13_row_seams(tmp_path):
+    """F13: the JAX routine cuts its 1 KB quick-check rows at character
+    boundaries, so a row ending in ``a`` passes the NFC quick check and is
+    kept verbatim while the next row, starting with U+0308, is normalized
+    alone: the routine's output is not the NFC of its corpus. The port cuts
+    before safe codepoints, and its output is."""
+    text = "x" * 1022 + "a\u0308b" + "y" * 200
+    raw = np.frombuffer(text.encode(), np.uint8)
+    # The JAX routine's routing (suites/normalization.py _normalize_routine).
+    toks = JN.stream_rows(raw)
+    rows_np, lengths_np = np.asarray(toks.data), np.asarray(toks.lengths)
+    fast = JNORM.rows_nfc_verbatim_host(rows_np, lengths_np, False)
+    assert fast[0] and not fast[1]
+    slow = bytes(rows_np[1, : lengths_np[1]]).decode()
+    jax_out = rows_np[0, : lengths_np[0]].tobytes().decode() + "".join(
+        map(chr, JNORM.normalize(np.array([ord(c) for c in slow], np.int32), "NFC")))
+    assert jax_out != unicodedata.normalize("NFC", text)
+    # The port's suite on the same corpus.
+    path = tmp_path / "seam.txt"
+    path.write_text(text)
+    ctx, _ = _run(["--device", "cpu", "--dataset", str(path), "--filter", "normalize-nfc/"])
+    staged = ctx.staged["normalize"]
+    stage = staged["forms"]["NFC"]["stage"]
+    assert int(stage.quick.lengths[0]) == 1022  # the row ends before the a
+    got = suite.assemble(stage, staged["forms"]["NFC"]["out"][1], staged["lead"], staged["cps"])
+    assert "".join(map(chr, got.tolist())) == unicodedata.normalize("NFC", text)
