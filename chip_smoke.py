@@ -60,10 +60,15 @@ prints no result:
    MB tape (the wrappers' aligning copy timed at 64 MB); the Threefry fill
    against the pinned ``jax.random.bits`` words; XXH3-64 at every length
    0..2,100 with junk past it, seeds 0 and nonzero, rows at byte offsets 0,
-   1, 3 and 4, and the published digest of the empty input; the three
-   normalization kernels (decompose, reorder, compose) and each form's
-   pipeline on rows of 64 and of the wide bucket (a run of 300 marks), each
-   form's output also against ``unicodedata``);
+   1, 3 and 4, and the published digest of the empty input, and over a
+   tape's spans (every length 0..2,100 and empty tokens among them, at tape
+   offsets 0..7 and from a base 3 bytes into its buffer, the last token
+   ending at the buffer's last byte); the three normalization kernels
+   (decompose, reorder, compose) and each form's pipeline on rows of 64 and
+   of the wide bucket (a run of 300 marks; runs of marks out of order
+   across positions 31|32 and 63|64 of a decomposed row, a run of 70 and a
+   marks stream: ``reorder_texts``), each form's output also against
+   ``unicodedata``);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -73,9 +78,11 @@ prints no result:
      distinct words as a DFA, four and eight words both ways (the two
      kernels must agree), the dictionary also against the plain version;
    - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
-     digests must equal ``swh64_ref``, every XXH3-64 digest the plain
-     version on the card, every SHA-256 digest the plain version on the
-     card and 10,000 sampled ones ``hashlib``;
+     digests must equal ``swh64_ref``, the ``xxh3_64`` row's digests (the
+     tape's spans) the plain version on the card and, by token index, the
+     bucketed call's (each bucket equal to the plain version), every
+     SHA-256 digest the plain version on the card and 10,000 sampled ones
+     ``hashlib``;
    - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
      documents' min-hashes must equal the numpy spec replay, and the quality
      line is read back;
@@ -146,11 +153,16 @@ prints no result:
    the ALU pipe's ceiling), ``poly1305-128MB``,
    ``aead-seal-128MB`` (the encryption suite's corpus call),
    ``sha256-words-128MB`` (the hash suite's buckets, with the kernel's SASS
-   split by pipe and the ALU pipe's ceiling), ``xxh3-words-128MB`` (the same
-   buckets) and ``fill_random-128MB``; the normalization kernels at the
+   split by pipe and the ALU pipe's ceiling), ``xxh3-words-128MB`` (the
+   hash suite's tape, tokens where they lie: the row's call),
+   ``xxh3-words-buckets-128MB`` (the same tokens in the buckets),
+   ``xxh3-1KB-lines-128MB`` (the long path, beside the XXH64 row) and
+   ``fill_random-128MB``; the normalization kernels at the
    main path's shapes (``nf_decompose-nfkd-128MB``, ``nf_reorder-nfd-128MB``,
-   ``nf_compose-nfc-of-nfd-128MB``, profiler device time) and the whole
-   ``nfc-of-nfd-128MB`` route; the
+   ``nf_compose-nfc-of-nfd-128MB``, profiler device time), reordering where
+   marks move (``nf_reorder-marks-128MB``: 32 Mi codepoints of
+   ``marks_stream`` cut by ``segment_rows``, the moved codepoints counted
+   into its bound) and the whole ``nfc-of-nfd-128MB`` route; the
    tree level also at a byte offset of 1, the class map's and ``lut_map``'s
    rows beside ``table[idx]`` where it computes the same function; and the
    similarities, encryption, hash (XXH3 too) and normalization suites'
@@ -1197,6 +1209,29 @@ def check_xxh3(dev, errors: dict) -> int:
     return checks
 
 
+def check_xxh3_spans(dev, errors: dict) -> int:
+    """XXH3-64 over a tape's spans, tokens read where they lie: every length
+    0..2,100 and 300 empty tokens among them, shuffled, after 0..7 junk bytes
+    (the tape offsets), the longest token last, ending at the buffer's last
+    byte; also from a base 3 bytes into its allocation; seeds 0 and nonzero;
+    against the plain version on the card."""
+    from stringwars_tpu_torch.ops import xxh3 as X3
+
+    rng = np.random.default_rng(31)
+    sizes = rng.permutation(np.concatenate([np.arange(XXH3_LONGEST), np.zeros(300, np.int64)]))
+    sizes = np.concatenate([sizes, [XXH3_LONGEST]])
+    checks = 0
+    for offset in range(8):
+        for base in (0, 3) if offset == 0 else (0,):
+            offsets = torch.from_numpy(offset + np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+            data = random_bytes(base + int(offsets[-1]), 40 + offset, dev)[base:]
+            for seed in XXH3_SEEDS:
+                got, want = X3.xxh3_64_spans_cuda(data, offsets, seed), X3.xxh3_64_spans_plain(data, offsets, seed)
+                errors["xxh3"] = max(errors["xxh3"], max_err(got, want))
+                checks += 1
+    return checks
+
+
 def normalize_rows_plain(rows: torch.Tensor, lengths: torch.Tensor, form: str, max_cp: int):
     """``ops/normalize.normalize_rows`` with every kernel's plain version, on
     the tensors' device (the expand kernel's where the route takes it)."""
@@ -1215,16 +1250,45 @@ def normalize_rows_plain(rows: torch.Tensor, lengths: torch.Tensor, form: str, m
     return out, counts
 
 
+# Combining marks of six classes (ccc 1, 10, 216, 220, 230, 240), none of
+# which decomposes: the marks rows and texts draw them out of order.
+REORDER_MARKS = np.array([0x0334, 0x05B0, 0x031B, 0x0316, 0x0301, 0x0345], np.int32)
+
+
+def marks_stream(n: int, seed: int) -> np.ndarray:
+    """int32[about n]: seeded ASCII starters, each followed by 0-4 marks drawn
+    from ``REORDER_MARKS`` in any order."""
+    rng = np.random.default_rng(seed)
+    starters = n // 3
+    marks = rng.integers(0, 5, starters)
+    at = np.cumsum(1 + marks) - (1 + marks)  # each starter's position
+    out = REORDER_MARKS[rng.integers(0, REORDER_MARKS.size, int(at[-1] + 1 + marks[-1]))]
+    out[at] = rng.integers(0x61, 0x7B, starters)
+    return out
+
+
+def reorder_texts(seed: int = 16) -> list[str]:
+    """Texts whose NFD rows hold runs of marks out of order where the
+    reordering kernel's passes meet: one row each, a run across positions
+    31|32 (no expansion before it) and one across 63|64 (31 letters that
+    decompose to two codepoints before it); a run of 70 marks (a row of
+    the wide bucket); and a seeded marks stream."""
+    run = "".join(map(chr, REORDER_MARKS[::-1][:4]))  # classes 240, 230, 220, 216
+    long_run = "".join(map(chr, np.random.default_rng(seed).choice(REORDER_MARKS, 70)))
+    stream = "".join(map(chr, marks_stream(6000, seed)))
+    return ["x" * 30 + "a" + run + "b" * 10, "é" * 31 + "a" + run + "b" * 10, "a" + long_run + "b", stream]
+
+
 def normalization_texts(seed: int = 15) -> list[str]:
     """Texts for the normalization kernels' checks: seeded streams of
     letters, marks in and out of order, Hangul syllables and conjoining
-    jamo, compat characters and the longest expansions, and a zalgo run of
-    300 marks (a row of the wide bucket)."""
+    jamo, compat characters and the longest expansions, a zalgo run of 300
+    marks (a row of the wide bucket), and ``reorder_texts``."""
     rng = np.random.default_rng(seed)
     pieces = ["a", "é", "é", "á̧", "ḍ̇", "q̣̇", "가", "각", "한", "ᄀ", "ᅡ", "ᆨ", "ﬃ", "①", "½",
               "Å", "Ω", "ǅ", "ཷ", "ཱི", "ﷺ", "ᾂ", "ṩ", " ", "日", "\n"]
     streams = ["".join(pieces[i] for i in rng.integers(0, len(pieces), 50_000)) for _ in range(3)]
-    return streams + ["x" + "̖́" * 150 + "a" + "̈" * 300 + "b"]
+    return streams + ["x" + "̖́" * 150 + "a" + "̈" * 300 + "b"] + reorder_texts()
 
 
 def check_normalize(dev, errors: dict) -> int:
@@ -1308,6 +1372,20 @@ def normalization_rows(row, keep: dict, launches, dev) -> None:
         lambda: NORM.reorder_rows_cuda_(src.clone(), counts), lambda: NORM.reorder_rows_plain_(src.clone(), counts),
         4 * live, bound_ms(4 * live + 4 * moved + 4 * counts.numel()), "nf_reorder", plain_samples=1,
         profiled="nf_reorder_kernel")
+    del src
+    # Text whose marks need sorting: 32 Mi codepoints of marks_stream, cut
+    # by segment_rows (NFD leaves them as they are).
+    marks = NORM.segment_rows(torch.from_numpy(marks_stream(32 << 20, 17)).to(dev), False)
+    if len(marks) != 1:
+        raise AssertionError(f"the marks stream has {len(marks)} row buckets, not 1")
+    b = marks[0]
+    live = int(b.lengths.sum())
+    moved = int((NORM.reorder_rows_cuda_(b.rows.clone(), b.lengths) != b.rows).sum())
+    row(f"nf_reorder-marks-128MB (ASCII starters, each followed by 0-4 marks of 6 classes in any order: {b.count:,} "
+        f"rows of {b.width}, {live:,} codepoints, {moved:,} moved)",
+        lambda: NORM.reorder_rows_cuda_(b.rows.clone(), b.lengths), lambda: NORM.reorder_rows_plain_(b.rows.clone(), b.lengths),
+        4 * live, bound_ms(4 * live + 4 * moved + 4 * b.count), plain_samples=1, profiled="nf_reorder_kernel")
+    del marks, b
     buckets, top = keep["nfd_rows"], keep["nfd_max"]
     b = buckets[0]
     src, counts = NORM.decompose_rows(b.rows, b.lengths, False, top)
@@ -1472,9 +1550,16 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             function = line.rsplit(" ", 1)[-1]
         elif "spill stores" in line and " 0 bytes spill stores" not in line:
             spilled.append(f"{function} ({line.strip()})")
+    own, function = {}, "?"
+    for line in ptxas:  # each function's properties (stack, spills), then its registers
+        if "Function properties for " in line or "Compiling entry function" in line:
+            function = line.rsplit(" ", 1)[-1].strip("'")
+        elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel")) and ("spill" in line or "registers" in line):
+            own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
     phase(
         "build",
-        f"{len(usage)} kernels, {len(spilled)} with spills {spilled}; ptxas: {' | '.join(usage[:12]) or 'library already built'}",
+        f"{len(usage)} kernels, {len(spilled)} with spills {spilled}; ptxas: {' | '.join(usage[:12]) or 'library already built'}; "
+        + "; ".join(f"{name}: {' | '.join(lines)}" for name, lines in own.items()),
         started,
     )
 
@@ -2038,6 +2123,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             raise AssertionError(f"Threefry words of seed {seed} at {at} differ from the pinned jax.random.bits")
     errors["threefry"] = max(errors["threefry"], max_err(M.threefry_bits_cuda(5, 32 << 20, dev), M.threefry_bits_plain(5, 32 << 20, dev)))
     xxh3_checks = check_xxh3(dev, errors)
+    xxh3_spans_checks = check_xxh3_spans(dev, errors)
     norm_checks = check_normalize(dev, errors)
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
@@ -2070,8 +2156,11 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"and AEAD), the RFC vector; {sha_checks} SHA-256 batches, {sha_oracle} digests equal "
         f"hashlib; Threefry equal to the pinned jax.random.bits; {xxh3_checks} XXH3 batches (every length 0..{XXH3_LONGEST} "
         f"with junk past it, seeds {XXH3_SEEDS}, rows at byte offsets 0, 1, 3, 4), XXH3('') the published digest; "
+        f"{xxh3_spans_checks} XXH3 span batches (every length 0..{XXH3_LONGEST} and 300 empty tokens on a tape, "
+        f"at tape offsets 0..7 and a base 3 bytes in, the last token ending at the buffer's last byte); "
         f"{norm_checks} normalization batches (the three kernels and each form's pipeline on rows of 64 and the wide "
-        f"bucket, a run of 300 marks among them), each form's output equal to unicodedata; launches {advanced}",
+        f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
+        f"marks), each form's output equal to unicodedata; launches {advanced}",
         started,
     )
 
@@ -2176,12 +2265,23 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors["sha256"] = max(errors["sha256"], err)
             if err:
                 raise AssertionError(f"SHA-256 of the {padded.count:,} tokens of width {padded.width} differ from the plain version")
-        # XXH3-64: every digest of every bucket against the plain version on the card.
+        # XXH3-64: the row's digests (the tape's spans) against the plain
+        # version on the card, and by token index against the bucketed call,
+        # whose every bucket is held to the plain version too.
+        row_digests = hash_suite.xxh3_spans(ctx.tape)
+        err = max_err(row_digests, X3.xxh3_64_spans_plain(ctx.tape.data, ctx.tape.offsets))
+        errors["xxh3"] = max(errors["xxh3"], err)
+        if err:
+            raise AssertionError(f"XXH3-64 of the tape's {ctx.tape.count:,} spans differs from the plain version")
         for padded in ctx.staged.buckets:
             err = max_err(X3.xxh3_64_cuda(padded), X3.xxh3_64_plain(padded))
             errors["xxh3"] = max(errors["xxh3"], err)
             if err:
                 raise AssertionError(f"XXH3-64 of the {padded.count:,} tokens of width {padded.width} differ from the plain version")
+        idx, bucketed = ctx.staged.digests(X3.xxh3_64)
+        if not np.array_equal(row_digests.cpu().numpy()[idx], bucketed):
+            raise AssertionError("the xxh3_64 row's digests differ from the bucketed call's by token index")
+        del row_digests
         idx, digests = ctx.staged.digests(SHA.sha256)
         sample = np.random.default_rng(19).choice(idx.size, 10_000, replace=False)
         offsets, data = ctx.tape.offsets.cpu().numpy(), ctx.tape.data.cpu().numpy()
@@ -2195,8 +2295,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         phase(
             "main path",
             f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
-            f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; every "
-            f"XXH3-64 digest equals the plain version on the card; every "
+            f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; the "
+            f"xxh3_64 row's {ctx.tape.count:,} digests (the tape's spans) equal the plain version on the card and, by "
+            f"token index, the bucketed call's, every bucket of which equals the plain version; every "
             f"SHA-256 digest equals the plain version on the card, 10,000 sampled tokens hashlib; launches of the "
             f"suite's run {launches()}",
             started,
@@ -2672,6 +2773,16 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         bound_ms(line_bytes + 8 * lines.count, 9 * words / 2),
         "xxh64",
     )
+    # XXH3's long path, a warp a token: each line read once, its length and
+    # digest, or 24 instructions a token and 64 a 64-byte stripe.
+    row(
+        "xxh3-1KB-lines-128MB",
+        lambda: X3.xxh3_64_cuda(lines),
+        lambda: X3.xxh3_64_plain(lines),
+        lines.data.numel(),
+        bound_ms(line_bytes + 8 * lines.count, (24 + 64 * -(-(1024 - 9) // 64)) * lines.count),
+        plain_samples=1,
+    )
     row(
         "xxh32-1KB-lines-128MB",
         lambda: HC.xxh32(lines, [0]),
@@ -3092,21 +3203,29 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                 bound_ms(n_tree, 9 * n_tree / 8))
     traced_call(f"sha256 call (the hash suite's checksum/swtorch::sha256 over its {len(buckets.buckets)} buckets)",
                 lambda: [SHA.sha256(p) for p in buckets.buckets], launches, {"sha256": "sha256_kernel"}, sha_bound)
-    # XXH3-64 over the same buckets. Bound: each token read once, its length
+    # XXH3-64 over the hash suite's tape, tokens where they lie (the row's
+    # call), and over its buckets. Bound: each token read once, its length
     # and digest (12 B), or the 32-bit instructions the spec needs at least:
     # 24 a token, 17 a 16-byte mix of the 17..240-byte paths, 64 a 64-byte
-    # stripe of the long path, whichever takes longer.
+    # stripe of the long path, whichever takes longer. The spans call reads
+    # 8 B of offsets a token where a length takes 4: at least 20 B a token.
     x3_ops = 0
     for p in buckets.buckets:
         n = p.lengths.to(torch.int64)
         mid = (n > 16) & (n <= 240)
         x3_ops += 24 * p.count + int((17 * (n // 16))[mid].sum()) + int((64 * ((n - 1) // 64 + 1))[n > 240].sum())
     x3_bound = bound_ms(buckets.token_bytes + 12 * buckets.tokens, x3_ops)
-    row(f"xxh3-words-128MB ({buckets.tokens:,} tokens in {len(buckets.buckets)} buckets, {x3_ops:,} operations)",
+    spans_least = bound_ms(tape.total_bytes + 8 * (tape.count + 1) + 8 * tape.count)[0]
+    row(f"xxh3-words-128MB (the tape's {tape.count:,} tokens where they lie, one launch, {x3_ops:,} operations)",
+        lambda: X3.xxh3_64_spans_cuda(tape.data, tape.offsets), lambda: X3.xxh3_64_spans_plain(tape.data, tape.offsets),
+        buckets.token_bytes, x3_bound, "xxh3", plain_samples=1,
+        note=f"; the spans call's own bytes (8 B offsets a token) take at least {spans_least:.4f} ms")
+    row(f"xxh3-words-buckets-128MB ({buckets.tokens:,} tokens in {len(buckets.buckets)} buckets, rows of "
+        + ", ".join(str(p.width) for p in buckets.buckets) + ")",
         lambda: tuple(X3.xxh3_64_cuda(p) for p in buckets.buckets), lambda: tuple(X3.xxh3_64_plain(p) for p in buckets.buckets),
-        buckets.token_bytes, x3_bound, "xxh3", plain_samples=1)
-    traced_call(f"xxh3_64 call (the hash suite's stateless/swtorch::xxh3_64 over its {len(buckets.buckets)} buckets)",
-                lambda: [X3.xxh3_64(p) for p in buckets.buckets], launches, {"xxh3": "xxh3_kernel"}, x3_bound)
+        buckets.token_bytes, x3_bound, plain_samples=1)
+    traced_call(f"xxh3_64 call (the hash suite's stateless/swtorch::xxh3_64 over the tape's {tape.count:,} tokens)",
+                lambda: hash_suite.xxh3_spans(tape), launches, {"xxh3": "xxh3_kernel"}, x3_bound)
     del buckets, tape
     fill_words = 32 << 20
     row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),

@@ -61,7 +61,7 @@ SIGNATURES = {
     "sw_chacha20_xor": (_P, _P, _N, _P, _P, _N, _P),
     "sw_poly1305": (_P, _N, _P, _N, _N, _P, _N, _N, _N, _P, _P, _P),
     "sw_sha256": (_P, _N, _N, _P, _P, _P),
-    "sw_xxh3_64": (_P, _N, _N, _P, _P, _P, _P),
+    "sw_xxh3_64": (_P, _N, _P, _P, _N, _N, _P, _P, _P),
     "sw_nf_decompose_rows": (_P, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _P),
     "sw_nf_reorder_rows": (_P, _P, _N, _N, _P, _N, _P),
     "sw_nf_compose_rows": (_P, _P, _P, _N, _N, _P, _N, _P, _N, _P, _N, _P, _N, _P),

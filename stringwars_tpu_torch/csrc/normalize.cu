@@ -20,11 +20,27 @@
 // sw_nf_reorder_rows replaces normalize.py::_canonical_reorder_rows (:298;
 // odd-even transposition passes, with a stable two-pass argsort past 64
 // passes: both give the stable sort of each run of nonzero-ccc codepoints by
-// ccc). One thread a row, in place: a stable insertion sort, a codepoint of
-// ccc c moving left past those of ccc greater than c; a codepoint of ccc 0
-// stops it. A row of text is mostly starters: one load and one ccc lookup a
-// codepoint. Bound: the bytes, 4 a live codepoint read (and written where it
-// moves). A run of k marks costs up to k^2 / 2 moves.
+// ccc). Bound: the bytes, 4 a live codepoint read, 4 a moved one written, 4
+// a count. Text is mostly starters and its marks mostly in order, so the
+// kernel first looks and then sorts only where it must. One warp a row, a
+// lane four consecutive codepoints (one 16-byte load where the row allows),
+// 128 a chunk; a warp loads a row's first two chunks at once (the next
+// row's count with them). Each lane looks up its codepoints' classes in the
+// ccc table, whose first 48 KB (every codepoint below U+C000) a block
+// stages in shared memory once; a warp with a codepoint above it reads
+// those classes through __ldg. A codepoint is out of order when its class
+// c > 0 follows a greater one (across lanes and chunks, the class before
+// carried over); a row where the warp's ballot finds none is not written.
+// A row of at most 128 codepoints that is out of order is sorted in
+// registers by the JAX function's own odd-even transposition passes
+// (neighbours in a lane by selects, across lanes by shuffles) until a pass
+// swaps nothing, and a lane writes its four codepoints back only where they
+// moved. A longer row out of order (the wide bucket's runs) is sorted in
+// place by the lane at the first codepoint of each run of nonzero classes,
+// a stable insertion sort (a codepoint of class c moving left past those of
+// a greater class), runs being disjoint. Both are exact and stable for a
+// run of any length. kRows rows a warp a step and other blocks an SM are
+// for tools/hopper_probes.py reorder.
 //
 // sw_nf_compose_rows replaces normalize.py::_compose_scan (:429) with
 // _nfc_padded's compaction (:614): a lax.scan over the whole stream carrying
@@ -86,25 +102,154 @@ nf_decompose_kernel(const int32_t* __restrict__ cps, const int32_t* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kReorderThreads = 512;
+constexpr int32_t kCccShared = 0xC000;  // bytes of the ccc table staged in shared memory
+constexpr int kReorderRows = 1;         // rows a warp looks at together
+constexpr int kReorderMinBlocks = 3;    // blocks an SM the registers must allow
+
+// Four consecutive codepoints of a row from position e (zeros at or past n);
+// kVec: one 16-byte load (the row 16-byte aligned, its width a multiple of 4).
+template <bool kVec>
+__device__ __forceinline__ int4 load4(const int32_t* row, int32_t e, int32_t n) {
+  if (kVec) return e < n ? *reinterpret_cast<const int4*>(row + e) : make_int4(0, 0, 0, 0);
+  return make_int4(e < n ? row[e] : 0, e + 1 < n ? row[e + 1] : 0, e + 2 < n ? row[e + 2] : 0, e + 3 < n ? row[e + 3] : 0);
+}
+
+// Swap the neighbours (x, c) and (y, d) where c > d > 0: one step of the
+// odd-even transposition passes.
+__device__ __forceinline__ bool exchange(int32_t& x, int32_t& c, int32_t& y, int32_t& d) {
+  const bool swap = c > d && d > 0;
+  const int32_t tx = swap ? y : x, tc = swap ? d : c;
+  y = swap ? x : y;
+  d = swap ? c : d;
+  x = tx;
+  c = tc;
+  return swap;
+}
+
+template <bool kVec, int kRows, int kMinBlocks>
+__global__ void __launch_bounds__(kReorderThreads, kMinBlocks)
 nf_reorder_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ counts, int64_t rows, int64_t width,
                   const uint8_t* __restrict__ ccc, int32_t ccc_size) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  int32_t* row = data + r * width;
-  const int64_t n = min(static_cast<int64_t>(__ldg(counts + r)), width);
-  for (int64_t i = 1; i < n; ++i) {
-    const int32_t x = row[i];
-    const int32_t c = __ldg(ccc + clamped(x, ccc_size));
-    if (c == 0) continue;
-    int64_t j = i;
-    while (j > 0) {
-      const int32_t y = row[j - 1];
-      if (__ldg(ccc + clamped(y, ccc_size)) <= c) break;
-      row[j] = y;
-      --j;
+  __shared__ __align__(16) uint8_t table[kCccShared];
+  const int32_t staged = min(ccc_size, kCccShared);
+  for (int32_t k = threadIdx.x; k < staged / 16; k += kReorderThreads) {
+    reinterpret_cast<uint4*>(table)[k] = __ldg(reinterpret_cast<const uint4*>(ccc) + k);
+  }
+  for (int32_t k = (staged & ~15) + threadIdx.x; k < staged; k += kReorderThreads) table[k] = __ldg(ccc + k);
+  __syncthreads();
+  const auto class_of = [&](int32_t cp) -> int32_t {
+    return static_cast<uint32_t>(cp) < static_cast<uint32_t>(staged) ? table[cp] : __ldg(ccc + clamped(cp, ccc_size));
+  };
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  // Classes of the four codepoints at e (0 at or past n), and whether one of
+  // them follows a greater class; `carry` is the class before the chunk, and
+  // becomes the chunk's last.
+  const auto look = [&](const int4& v, int32_t e, int32_t n, int4& c, int32_t& carry) {
+    const int32_t x0 = e < n ? v.x : 0, x1 = e + 1 < n ? v.y : 0, x2 = e + 2 < n ? v.z : 0, x3 = e + 3 < n ? v.w : 0;
+    const uint32_t top = max(max(static_cast<uint32_t>(x0), static_cast<uint32_t>(x1)),
+                             max(static_cast<uint32_t>(x2), static_cast<uint32_t>(x3)));
+    if (__any_sync(kFull, top >= static_cast<uint32_t>(staged))) {  // a codepoint past the staged table
+      c = make_int4(class_of(x0), class_of(x1), class_of(x2), class_of(x3));
+    } else {
+      c = make_int4(table[x0], table[x1], table[x2], table[x3]);
     }
-    if (j != i) row[j] = x;
+    int32_t before = __shfl_up_sync(kFull, c.w, 1);
+    if (lane == 0) before = carry;
+    carry = __shfl_sync(kFull, c.w, 31);
+    return (c.x > 0 && before > c.x) || (c.y > 0 && c.x > c.y) || (c.z > 0 && c.y > c.z) || (c.w > 0 && c.z > c.w);
+  };
+  // A row of n codepoints whose first 256 are v (0..127) and v2 (128..255).
+  const auto reorder_row = [&](int32_t* row, int32_t n, int4 v, int4 v2) {
+    int4 c, more;
+    int32_t carry = 0;
+    bool unsorted = __any_sync(kFull, look(v, 4 * lane, n, c, carry));
+    if (n > 128 && !unsorted) unsorted = __any_sync(kFull, look(v2, 128 + 4 * lane, n, more, carry));
+    for (int32_t base = 256; base < n && !unsorted; base += 128) {
+      unsorted = __any_sync(kFull, look(load4<kVec>(row, base + 4 * lane, n), base + 4 * lane, n, more, carry));
+    }
+    if (!unsorted) return;
+    if (n <= 128) {  // the row is in registers: odd-even transposition passes
+      bool moved = false;
+      for (;;) {
+        bool swapped = exchange(v.x, c.x, v.y, c.y);
+        swapped |= exchange(v.z, c.z, v.w, c.w);
+        swapped |= exchange(v.y, c.y, v.z, c.z);
+        const int32_t next_x = __shfl_down_sync(kFull, v.x, 1), next_c = __shfl_down_sync(kFull, c.x, 1);
+        const int32_t prev_x = __shfl_up_sync(kFull, v.w, 1), prev_c = __shfl_up_sync(kFull, c.w, 1);
+        const bool with_next = lane < 31 && c.w > next_c && next_c > 0;
+        const bool with_prev = lane > 0 && prev_c > c.x && c.x > 0;
+        if (with_next) {
+          v.w = next_x;
+          c.w = next_c;
+        }
+        if (with_prev) {
+          v.x = prev_x;
+          c.x = prev_c;
+        }
+        swapped |= with_next || with_prev;
+        moved |= swapped;
+        if (!__any_sync(kFull, swapped)) break;
+      }
+      const int32_t e = 4 * lane;
+      if (moved) {
+        if (kVec) {
+          *reinterpret_cast<int4*>(row + e) = v;
+        } else {
+          if (e < n) row[e] = v.x;
+          if (e + 1 < n) row[e + 1] = v.y;
+          if (e + 2 < n) row[e + 2] = v.z;
+          if (e + 3 < n) row[e + 3] = v.w;
+        }
+      }
+      return;
+    }
+    carry = 0;
+    for (int32_t base = 0; base < n; base += 32) {
+      const int32_t e = base + lane;
+      const int32_t cl = e < n ? class_of(row[e]) : 0;
+      int32_t before = __shfl_up_sync(kFull, cl, 1);
+      if (lane == 0) before = carry;
+      carry = __shfl_sync(kFull, cl, 31);
+      __syncwarp();
+      if (cl > 0 && before == 0) {  // the first codepoint of a run: sort the run
+        for (int32_t i = e + 1; i < n; ++i) {
+          const int32_t x = row[i];
+          const int32_t cx = class_of(x);
+          if (cx == 0) break;
+          int32_t j = i;
+          for (; j > e; --j) {
+            const int32_t y = row[j - 1];
+            if (class_of(y) <= cx) break;
+            row[j] = y;
+          }
+          if (j != i) row[j] = x;
+        }
+      }
+      __syncwarp();
+    }
+  };
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kReorderThreads / 32);
+  int64_t r = static_cast<int64_t>(blockIdx.x) * (kReorderThreads / 32) + (threadIdx.x >> 5);
+  int32_t count[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) count[q] = r + q * warps < rows ? __ldg(counts + r + q * warps) : 0;
+  for (; r < rows; r += kRows * warps) {
+    int32_t n[kRows];
+    int4 v[kRows], v2[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int64_t rq = r + q * warps;
+      n[q] = rq < rows ? min(count[q], static_cast<int32_t>(width)) : 0;
+      v[q] = load4<kVec>(data + rq * width, 4 * lane, n[q]);
+      v2[q] = load4<kVec>(data + rq * width, 128 + 4 * lane, n[q]);
+      count[q] = rq + kRows * warps < rows ? __ldg(counts + rq + kRows * warps) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (r + q * warps < rows) reorder_row(data + (r + q * warps) * width, n[q], v[q], v2[q]);
+    }
   }
 }
 
@@ -173,12 +318,20 @@ extern "C" int sw_nf_decompose_rows(const void* cps, const void* lengths, int64_
 }
 
 // data: int32[rows, width], reordered in place; counts: int32[rows]; ccc:
-// uint8[ccc_size].
+// uint8[ccc_size], 16-byte aligned (a codepoint past it takes its last entry).
 extern "C" int sw_nf_reorder_rows(void* data, const void* counts, int64_t rows, int64_t width, const void* ccc,
                                   int64_t ccc_size, void* stream) {
-  if (rows <= 0 || width <= 0 || ccc_size <= 0 || ccc_size >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (rows + swt::kThreads - 1) / swt::kThreads;
-  swt::nf_reorder_kernel<<<static_cast<unsigned>(blocks), swt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (rows <= 0 || width <= 0 || width >= (int64_t{1} << 31) || ccc_size <= 0 || ccc_size >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per_block = swt::kReorderThreads / 32 * swt::kReorderRows;
+  // Rows of another width or alignment (none on the suites' paths) are read
+  // 4 bytes a load, with the registers of 2 blocks an SM.
+  const auto kernel = width % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0
+                          ? swt::nf_reorder_kernel<true, swt::kReorderRows, swt::kReorderMinBlocks>
+                          : swt::nf_reorder_kernel<false, swt::kReorderRows, 2>;
+  const int grid = swt::resident_grid(kernel, 0, (rows + per_block - 1) / per_block, swt::kReorderThreads);
+  kernel<<<grid, swt::kReorderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(data), static_cast<const int32_t*>(counts), rows, width, static_cast<const uint8_t*>(ccc),
       static_cast<int32_t>(ccc_size));
   return static_cast<int>(cudaGetLastError());

@@ -19,8 +19,11 @@ its own:
 - **reorder** (``reorder_rows_``): the canonical ordering of UAX#15 D109,
   a stable sort of each run of nonzero-ccc codepoints by ccc. The JAX
   function runs odd-even transposition passes and, past 64 passes, two
-  stable argsorts; both give that sort. Here ``nf_reorder`` sorts each row
-  by insertion, one thread a row;
+  stable argsorts; both give that sort. Here ``nf_reorder`` looks at each
+  row with one warp, four codepoints a lane, and leaves a row in order as
+  it is (no write); a row out of order is sorted in registers by the same
+  odd-even passes where it holds at most 128 codepoints, else by the lane
+  at each run's first codepoint, by insertion;
 - **compose** (``compose_rows_``): the UAX#15 composition walk of
   ``_compose_scan`` (a carried starter and the ccc of the last kept
   codepoint, Hangul L+V and LV+T by arithmetic, primary composites through

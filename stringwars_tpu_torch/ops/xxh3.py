@@ -1,27 +1,32 @@
-"""Exact XXH3-64 of every token of a padded batch (family K3, the
+"""Exact XXH3-64 of every token of a tape or a padded batch (family K3, the
 reference's headline hash).
 
 The port of ``stringwars_tpu.ops.xxh3``, digest for digest: XXH3-64
 (xxHash v0.8) with a seed, over the four length paths of the spec (0-16,
 17-128, 129-240, and above 240 bytes with 1,024-byte blocks, scrambles and
 the overlapping last stripe). The JAX package computes on u32 lane pairs
-(``ops/wideint.py``) over a stripe-major layout plus a staged window of
-each token's last 64 bytes (``prepare3``): both are the TPU's layout. Here
-the rows of a ``PaddedTokens`` batch are read where they lie, at any byte
-offset, in native 64-bit arithmetic.
+(``ops/wideint.py``) over a stripe-major layout of padded rows plus a staged
+window of each token's last 64 bytes (``prepare3``): both are the TPU's
+layout. Here the tokens are read where they lie, at any byte offset, in
+native 64-bit arithmetic, and the tape's own spans are an entry of their
+own:
 
 - ``secret_words(seed)``: the key words every path reads, derived once per
   seed on the host from the public 192-byte ``KSECRET`` (the short and
   middle paths use ``KSECRET`` with the seed added inline, the long path
   the seeded secret ``secret64[2i] += seed; secret64[2i+1] -= seed``);
-- ``xxh3_64_plain``: the plain torch version, int64 arithmetic (the 64 x 64
-  -> 128-bit products from 32-bit halves, logical shifts masked), each
-  length path over the tokens that take it;
-- ``xxh3_64_cuda``: the kernel ``csrc/xxh3.cu``, one thread a token;
-- ``xxh3_64`` / ``xxh3_hash``: the kernel for a CUDA tensor, the plain
-  version for a CPU tensor.
+- ``xxh3_64_plain`` / ``xxh3_64_spans_plain``: the plain torch version,
+  int64 arithmetic (the 64 x 64 -> 128-bit products from 32-bit halves,
+  logical shifts masked), each length path over the tokens that take it
+  (the spans padded by ``tape._pad_spans``, path by path);
+- ``xxh3_64_cuda`` / ``xxh3_64_spans_cuda``: the kernel ``csrc/xxh3.cu``,
+  one kernel for both layouts (row ``r`` of a batch at byte ``r * width``):
+  a lane a token up to 240 bytes, a warp a longer one;
+- ``xxh3_64`` / ``xxh3_hash`` (a ``PaddedTokens`` batch) and
+  ``xxh3_64_spans`` (a tape's ``data`` and ``offsets``): the kernel for a
+  CUDA tensor, the plain version for a CPU tensor.
 
-Digests are ``uint64[batch]``, as ``ops/hash.py`` returns XXH64's.
+Digests are ``uint64``, one a token, as ``ops/hash.py`` returns XXH64's.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import functools
 import torch
 
 from stringwars_tpu_torch import build
-from stringwars_tpu_torch.tape import PaddedTokens
+from stringwars_tpu_torch.tape import PaddedTokens, _pad_spans
 
 # Launches of csrc/xxh3.cu since process start (or the last reset).
 LAUNCHES = {"xxh3": 0}
@@ -61,8 +66,8 @@ KSECRET = bytes.fromhex(
 EMPTY_DIGEST = 0x2D06800538D394C2  # XXH3-64 of the empty input, seed 0 (xxHash's own test vector)
 
 # The key words of ``secret_words``, in order: their count per group.
-# flips: the 0..16-byte paths' five bitflips (the empty input's with the
-# seed folded in); mid: (k[16i] + seed,
+# flips: the empty input's digest under the seed, then the 1..16-byte
+# paths' four bitflips; mid: (k[16i] + seed,
 # k[16i + 8] - seed) for i < 8; mid3: the same at 16j + 3 for j < 7; last:
 # at 119; stripes: the seeded secret's 24 aligned words; tail: its words at
 # 121 + 8i (the last stripe); merge: at 11 + 8i (the merge).
@@ -72,6 +77,14 @@ KEY_WORDS = sum(count for _, count in KEY_GROUPS)
 
 def _le(raw: bytes, offset: int, size: int = 8) -> int:
     return int.from_bytes(raw[offset : offset + size], "little")
+
+
+def _avalanche_xxh64_int(h: int) -> int:
+    h ^= h >> 33
+    h = (h * _P64_2) & _M64
+    h ^= h >> 29
+    h = (h * _P64_3) & _M64
+    return h ^ (h >> 32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -89,7 +102,7 @@ def secret_words(seed: int) -> tuple[int, ...]:
     swap = int.from_bytes((seed & _M32).to_bytes(4, "little"), "big")
     seed48 = seed ^ (swap << 32)
     flips = [
-        seed ^ _le(k, 56) ^ _le(k, 64),
+        _avalanche_xxh64_int(seed ^ _le(k, 56) ^ _le(k, 64)),
         ((_le(k, 0, 4) ^ _le(k, 4, 4)) + seed) & _M64,
         ((_le(k, 8) ^ _le(k, 16)) - seed48) & _M64,
         ((_le(k, 24) ^ _le(k, 32)) + seed) & _M64,
@@ -192,7 +205,7 @@ def _mix16(reader: _Reader, offset: torch.Tensor, key_lo: int, key_hi: int) -> t
 def _len_0to16(reader: _Reader, n: torch.Tensor, key: dict) -> torch.Tensor:
     flips = key["flips"]
     zero = torch.zeros_like(n)
-    h0 = _avalanche_xxh64(torch.full_like(n, _s64(flips[0])))
+    h0 = torch.full_like(n, _s64(flips[0]))
     # 1..3 bytes
     c1 = reader.read(zero, 1)
     c2 = reader.read(n >> 1, 1)
@@ -283,17 +296,41 @@ def _keys(seed: int) -> dict:
     return key
 
 
+# Each length path: its shortest and longest token (None: no limit), its function.
+_PATHS = ((0, 16, _len_0to16), (17, 128, _len_17to128), (129, 240, _len_129to240), (241, None, _len_long))
+
+
+def _path_tokens(n: torch.Tensor, lo: int, hi: int | None) -> torch.Tensor:
+    take = (n >= lo) & (n <= hi) if hi is not None else n >= lo
+    return torch.nonzero(take).squeeze(1)
+
+
 def xxh3_64_plain(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
     """uint64[B]: XXH3-64 of every token under ``seed``, in torch ops."""
     key = _keys(int(seed))
     n = tokens.lengths.to(torch.int64)
     out = torch.zeros_like(n)
-    paths = ((0, 16, _len_0to16), (17, 128, _len_17to128), (129, 240, _len_129to240), (241, None, _len_long))
-    for lo, hi, fn in paths:
-        take = (n >= lo) & (n <= hi) if hi is not None else n >= lo
-        idx = torch.nonzero(take).squeeze(1)
+    for lo, hi, fn in _PATHS:
+        idx = _path_tokens(n, lo, hi)
         if idx.numel():
             out[idx] = fn(_Reader(tokens.data[idx]), n[idx], key)
+    return out.view(torch.uint64)
+
+
+def xxh3_64_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: XXH3-64 under ``seed`` of every token ``data[offsets[t] :
+    offsets[t + 1]]``, in torch ops: each length path's tokens padded to
+    that path's longest (``tape._pad_spans``), then ``xxh3_64_plain``'s
+    arithmetic."""
+    key = _keys(int(seed))
+    starts = offsets[:-1].to(torch.int64)
+    n = offsets[1:].to(torch.int64) - starts
+    out = torch.zeros_like(n)
+    for lo, hi, fn in _PATHS:
+        idx = _path_tokens(n, lo, hi)
+        if idx.numel():
+            rows = _pad_spans(data, starts[idx], n[idx], align=8).data
+            out[idx] = fn(_Reader(rows), n[idx], key)
     return out.view(torch.uint64)
 
 
@@ -317,21 +354,39 @@ def _key_array(seed: int):
     return (ctypes.c_uint64 * KEY_WORDS)(*secret_words(seed))
 
 
-def xxh3_64_cuda(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
-    """``xxh3_64_plain`` by the CUDA kernel, on the device; lengths must not
-    exceed the width (``PaddedTokens`` clamps them)."""
-    _check_tokens(tokens)
-    out = torch.empty(tokens.count, dtype=torch.uint64, device=tokens.data.device)
-    if tokens.count:
+def _launch(data: torch.Tensor, end: int, offsets, lengths, width: int, count: int, seed: int) -> torch.Tensor:
+    out = torch.empty(count, dtype=torch.uint64, device=data.device)
+    if count:
         lib = build.library()
-        with torch.cuda.device(tokens.data.device):
+        with torch.cuda.device(data.device):
             code = lib.sw_xxh3_64(
-                tokens.data.data_ptr(), tokens.count, tokens.width, tokens.lengths.data_ptr(),
-                _key_array(int(seed) & _M64), out.data_ptr(), build.stream_of(tokens.data),
+                data.data_ptr(), end, offsets.data_ptr() if offsets is not None else None,
+                lengths.data_ptr() if lengths is not None else None, width, count, _key_array(int(seed) & _M64), out.data_ptr(),
+                build.stream_of(data),
             )
         build.check(code, "xxh3")
         LAUNCHES["xxh3"] += 1
     return out
+
+
+def xxh3_64_cuda(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
+    """``xxh3_64_plain`` by the CUDA kernel, on the device (row ``r`` read at
+    byte ``r * width``); lengths must not exceed the width (``PaddedTokens``
+    clamps them)."""
+    _check_tokens(tokens)
+    return _launch(tokens.data, tokens.data.numel(), None, tokens.lengths, tokens.width, tokens.count, seed)
+
+
+def xxh3_64_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """``xxh3_64_spans_plain`` by the CUDA kernel, on the device, in one
+    launch. Contract (the tape's): ``offsets`` nondecreasing, within
+    ``[0, data.numel()]``; the kernel reads no byte outside ``data``."""
+    build.require_cuda_bytes(data, "xxh3")
+    if offsets.dtype != torch.int64 or offsets.dim() != 1 or offsets.numel() < 1 or not offsets.is_contiguous():
+        raise ValueError(f"xxh3: offsets must be a contiguous int64[count + 1] tensor, got {offsets.dtype}{tuple(offsets.shape)}")
+    if offsets.device != data.device:
+        raise ValueError(f"xxh3: offsets on {offsets.device}, data on {data.device}")
+    return _launch(data, data.numel(), offsets, None, 0, offsets.numel() - 1, seed)
 
 
 def xxh3_64(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
@@ -341,6 +396,17 @@ def xxh3_64(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
     if tokens.data.device.type == "cpu":
         return xxh3_64_plain(tokens, seed)
     raise ValueError(f"xxh3_64 runs on a CUDA or CPU tensor, not {tokens.data.device}")
+
+
+def xxh3_64_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: exact XXH3-64 under ``seed`` of every token ``data[offsets[t]
+    : offsets[t + 1]]`` (a ``Tape``'s ``data`` and ``offsets``), read where it
+    lies; an empty token gets the empty input's digest."""
+    if data.device.type == "cuda":
+        return xxh3_64_spans_cuda(data, offsets, seed)
+    if data.device.type == "cpu":
+        return xxh3_64_spans_plain(data, offsets, seed)
+    raise ValueError(f"xxh3_64_spans runs on a CUDA or CPU tensor, not {data.device}")
 
 
 def xxh3_hash(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:

@@ -13,7 +13,10 @@ run the same corpus under the same deadline pacing as the reference's
 Python suite; a row whose module is missing is SKIPPED. The checksum
 group's ``swtorch::sha256`` row hashes every token of the same buckets per
 call (``ops/sha256.py``). The ``swtorch::xxh3_64`` row is XXH3-64 (seed 0,
-the reference's headline hash) over the same buckets (``ops/xxh3.py``).
+the reference's headline hash) of every token where it lies on the tape, in
+one launch a call (``ops/xxh3.xxh3_64_spans``; ``xxh3_spans`` is the call):
+no buckets, the same work units (an empty token gets the empty digest and
+counts for nothing); the digest of token ``t`` is entry ``t``.
 """
 
 from __future__ import annotations
@@ -80,17 +83,29 @@ def device_routine(staged: HashBuckets, fn):
     return routine
 
 
+def xxh3_spans(tape: Tape) -> torch.Tensor:
+    """uint64[count]: the ``xxh3_64`` row's call, XXH3-64 (seed 0) of every
+    token of the tape where it lies, by token index."""
+    return X3.xxh3_64_spans(tape.data, tape.offsets)
+
+
 def bench_device_hashes(ctx: SuiteContext, staged: HashBuckets) -> None:
     variants = {
         "swh64": functools.partial(H.swh64, seed=0),
         "xxh64": H.xxh64,
         "xxh32": H.xxh32,
         "swh64_multiseed8": functools.partial(H.swh64_multiseed, seeds=MULTISEEDS),
-        "xxh3_64": X3.xxh3_64,
     }
+    tape, units = ctx.tape, staged.units
+
+    def spans_routine() -> WorkUnits:
+        xxh3_spans(tape)
+        return units
+
     for scope in ctx.scopes:
         for op, fn in variants.items():
             ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda fn=fn: device_routine(staged, fn), device=scope.device)
+        ctx.run(f"stateless/swtorch::xxh3_64{scope.name}", "bytes", lambda: spans_routine, device=scope.device)
 
 
 class HostCopy:
@@ -201,7 +216,8 @@ def report_collisions(staged: HashBuckets, host: HostCopy) -> None:
 
 def main(argv: list[str] | None = None) -> SuiteContext:
     """Run the suite; returns its context, whose ``staged`` holds the
-    device buckets (``HashBuckets``)."""
+    device buckets (``HashBuckets``; ``xxh3_spans(ctx.tape)`` is the
+    ``xxh3_64`` row's call, by token index)."""
     ctx = setup_suite(
         "Hash throughput suite (CUDA kernels + host baselines)",
         default_tokens="words",

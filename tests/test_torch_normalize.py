@@ -251,6 +251,39 @@ def test_segment_rows_cut_before_safe_codepoints():
             assert torch.equal(row[:length], cps[first : first + length]) and not row[length:].any()
 
 
+@pytest.mark.parametrize("compat", [False, True], ids=["nfd", "nfkd"])
+def test_reorder_across_passes_equals_jax(compat):
+    """The chip check's reordering texts (``chip_smoke.reorder_texts``): runs
+    of marks out of order across positions 31|32 and 63|64 of a decomposed
+    row, a run of 70 marks (a row of the wide bucket) and a seeded marks
+    stream. The plain reordering of the decomposed rows equals the JAX
+    ``_canonical_reorder_rows`` on the same rows (run without jit), and the
+    rows assembled equal ``unicodedata``."""
+    from chip_smoke import reorder_texts
+
+    form = "NFKD" if compat else "NFD"
+    late_at = []
+    for text in reorder_texts():
+        cps = torch.tensor([ord(c) for c in text], dtype=torch.int32)
+        max_cp = int(cps.max())
+        ccc_rules = JN._decomp_rules(compat, max_cp)[4]
+        buckets = N.segment_rows(cps, compat)
+        outputs = []
+        for b in buckets:
+            out, counts = N.decompose_rows_plain(b.rows, b.lengths, N.decomp_tables(compat, max_cp))
+            c = N._ccc_on(out.device)[out.to(torch.int64)].to(torch.int32)
+            late = (c[:, 1:] > 0) & (c[:, :-1] > c[:, 1:])
+            late_at.append(set((torch.nonzero(late)[:, 1] + 1).tolist()))
+            with jax.disable_jit():
+                want = np.asarray(JN._canonical_reorder_rows(jnp.asarray(out.numpy()), ccc_rules))
+            got = N.reorder_rows_plain_(out.clone(), counts)
+            np.testing.assert_array_equal(got.numpy(), want)
+            outputs.append((got, counts))
+        values, keys = N.gather_outputs(buckets, outputs)
+        assert "".join(map(chr, values[torch.sort(keys, stable=True).indices].tolist())) == unicodedata.normalize(form, text)
+    assert 32 in late_at[0] and 64 in late_at[1] and max(late_at[2]) > 64
+
+
 def test_cuda_wrappers_need_a_card_tensor():
     rows = torch.zeros((2, 64), dtype=torch.int32)
     counts = torch.zeros(2, dtype=torch.int32)

@@ -114,21 +114,24 @@ def test_hash_suite_sha256_row_matches_hashlib_and_jax(hash_run, corpus):
 
 
 def test_hash_suite_xxh3_row_matches_wheel_and_jax(hash_run, corpus):
-    """The xxh3_64 row's buckets: every token's digest equals the xxhash
-    wheel's, and the first bucket's the JAX package's over its own bucket
-    (run without jit: the same function op by op)."""
+    """The xxh3_64 row hashes the tape's tokens where they lie: every
+    token's digest, by token index, equals the xxhash wheel's and the
+    bucketed call's, and the first bucket's tokens the JAX package's over
+    its own bucket (run without jit: the same function op by op)."""
     import jax
     import xxhash
 
     ctx, _ = hash_run
-    idx, digests = ctx.staged.digests(X3.xxh3_64)
+    row = hash_suite.xxh3_spans(ctx.tape).numpy()
     tokens = ctx.tape.to_list()
+    np.testing.assert_array_equal(row, np.array([xxhash.xxh3_64_intdigest(t) for t in tokens], dtype=np.uint64))
+    idx, digests = ctx.staged.digests(X3.xxh3_64)
     assert list(idx) == list(range(len(tokens)))
-    np.testing.assert_array_equal(digests, np.array([xxhash.xxh3_64_intdigest(t) for t in tokens], dtype=np.uint64))
+    np.testing.assert_array_equal(row[idx], digests)
     ref = jax_tape.bucket_by_length(jax_tape.Tape.from_buffer(corpus.read_bytes(), "words"), hash_suite.BUCKET_EDGES)[0]
     with jax.disable_jit():
         want = JX.xxh3_hash(ref).to_numpy().astype(np.uint64)
-    np.testing.assert_array_equal(X3.xxh3_64(ctx.staged.buckets[0]).numpy(), want)
+    np.testing.assert_array_equal(row[ctx.staged.indices[0].numpy()], want)
 
 
 def test_collision_audit(corpus, monkeypatch, capsys):

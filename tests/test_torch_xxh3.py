@@ -1,7 +1,8 @@
 """The port's XXH3-64 (``ops/xxh3.py``) on the CPU: its plain version against
 the ``xxhash`` wheel and the JAX package's ``xxh3_hash`` (run without jit:
 the same function, op by op, which spares its minutes-long compile of the
-unrolled stripe loop) at every length 0..2,100, seeds 0 and nonzero."""
+unrolled stripe loop) at every length 0..2,100, seeds 0 and nonzero, over
+padded rows and over a tape's spans (``xxh3_64_spans``) at offsets 0..7."""
 
 import numpy as np
 import pytest
@@ -35,15 +36,60 @@ def _wheel(data, lengths, seed):
                     dtype=np.uint64)
 
 
+@pytest.fixture(scope="module")
+def jax_digests(every_length):
+    """seed -> the JAX package's digests of ``every_length``'s rows."""
+    data, lengths, width = every_length
+    out = {}
+    with jax.disable_jit():
+        for seed in SEEDS:
+            tokens = JaxPaddedTokens(data=jnp.asarray(data), lengths=jnp.asarray(lengths), width=width)
+            out[seed] = JX.xxh3_hash(tokens, seed).to_numpy().astype(np.uint64)
+    return out
+
+
 @pytest.mark.parametrize("seed", SEEDS)
-def test_every_length_equals_wheel_and_jax(every_length, seed):
+def test_every_length_equals_wheel_and_jax(every_length, jax_digests, seed):
     data, lengths, width = every_length
     tokens = PaddedTokens.from_numpy(data, lengths, width)
     got = X.xxh3_64(tokens, seed).numpy()
     np.testing.assert_array_equal(got, _wheel(data, lengths, seed))
-    with jax.disable_jit():
-        want = JX.xxh3_hash(JaxPaddedTokens(data=jnp.asarray(data), lengths=jnp.asarray(lengths), width=width), seed)
-    np.testing.assert_array_equal(got, want.to_numpy().astype(np.uint64))
+    np.testing.assert_array_equal(got, jax_digests[seed])
+
+
+def spans_tape(data: np.ndarray, lengths: np.ndarray, offset: int, seed: int = 16):
+    """(tape bytes, int64 offsets, row of each token): the tokens of rows
+    ``data[i, :lengths[i]]`` laid end to end after ``offset`` junk bytes, an
+    empty token after every seventh, shuffled; the last token ends at the
+    buffer's last byte (the longest, so that it is never empty)."""
+    rng = np.random.default_rng(seed + offset)
+    order = rng.permutation(lengths.size)
+    order = np.concatenate([order[order != lengths.argmax()], [lengths.argmax()]])
+    rows = []
+    for k, i in enumerate(order):
+        rows.append(int(i))
+        if k % 7 == 6 and k != order.size - 1:
+            rows.append(-1)
+    rows = np.array(rows)
+    sizes = np.where(rows >= 0, lengths[np.maximum(rows, 0)], 0).astype(np.int64)
+    offsets = offset + np.concatenate([[0], np.cumsum(sizes)])
+    tape = [rng.integers(0, 256, offset, dtype=np.uint8)]
+    tape += [data[i, : lengths[i]] for i in rows if i >= 0]
+    return np.concatenate(tape), offsets, rows
+
+
+@pytest.mark.parametrize("offset", range(8))
+def test_spans_equal_wheel_and_jax(every_length, jax_digests, offset):
+    """The tape's own form, tokens read where they lie: every length
+    0..2,100 with empty tokens among them, at tape offsets 0..7."""
+    data, lengths, _ = every_length
+    tape, offsets, rows = spans_tape(data, lengths, offset)
+    assert offsets[-1] == tape.size and (rows == -1).any()
+    tokens = [data[i, : lengths[i]].tobytes() if i >= 0 else b"" for i in rows]
+    for seed in SEEDS:
+        got = X.xxh3_64_spans(torch.from_numpy(tape), torch.from_numpy(offsets), seed).numpy()
+        np.testing.assert_array_equal(got, np.array([xxhash.xxh3_64_intdigest(t, seed) for t in tokens], np.uint64))
+        np.testing.assert_array_equal(got, jax_digests[seed][np.where(rows >= 0, rows, 0)])
 
 
 @pytest.mark.parametrize("offset", range(16))
@@ -92,3 +138,11 @@ def test_cuda_wrapper_needs_a_card_tensor():
         X.xxh3_64_cuda(tokens)
     with pytest.raises(ValueError):
         X.xxh3_64(PaddedTokens(data=tokens.data.to("meta"), lengths=tokens.lengths.to("meta"), width=8))
+
+
+def test_spans_cuda_wrapper_needs_a_card_tensor():
+    data, offsets = torch.zeros(8, dtype=torch.uint8), torch.tensor([0, 3, 8])
+    with pytest.raises(ValueError):
+        X.xxh3_64_spans_cuda(data, offsets)
+    with pytest.raises(ValueError):
+        X.xxh3_64_spans(data.to("meta"), offsets.to("meta"))

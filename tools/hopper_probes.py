@@ -1,4 +1,4 @@
-"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick and Shift-And kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3 and reordering kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
@@ -7,6 +7,8 @@
     python3 tools/hopper_probes.py poly
     python3 tools/hopper_probes.py ac [--other-tree DIR]
     python3 tools/hopper_probes.py shiftand [--other-tree DIR]
+    python3 tools/hopper_probes.py xxh3
+    python3 tools/hopper_probes.py reorder
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -90,6 +92,31 @@ subcommand measures:
   (launches, device ms, busy share) and, with ``--other-tree``, its p50 on
   that tree's library against this tree's in one process (A B B A, host
   clock and a synchronize, median of 200 calls). Then the SASS splits.
+- ``xxh3``: the hash suite's tape (128 MB of ``synthetic:english-words``,
+  words) and its buckets, and 131,072 lines of 1,015 B in rows of 1 KiB
+  (``chip_smoke.py``'s ``xxh3-*-128MB`` rows): the earlier one-thread-a-token
+  kernel (``tools/hopper_probes/xxh3_variants.cu``) over the buckets and
+  the lines, the package's kernel over the tape's spans, the buckets and
+  the lines, and at 3 to 6 blocks an SM; each first held to the package's
+  digests (by token index), then timed by CUDA events in both orders and
+  by ``torch.profiler`` device time a call. Then the quick step (tokens of
+  0..16 bytes) taken apart on the tape: whole, its loads alone, its
+  hashing alone (words made from the offsets), the offsets alone, the
+  hashing with no loads at all, each also with two tokens a lane; and the
+  package kernel's SASS, written to ``_build/xxh3_sass.txt``.
+- ``reorder``: the canonical reordering of ``chip_smoke.py``'s
+  ``nf_reorder-marks-128MB`` rows (32 Mi codepoints of ``marks_stream`` cut
+  by ``segment_rows``) and ``nf_reorder-nfd-128MB`` rows (the NFD slow rows
+  of 128 MB of ``synthetic:multilingual``, decomposed as the suite
+  decomposes them; the corpus is synthesized by a child process meanwhile)
+  by the earlier one-thread-a-row kernel
+  (``tools/hopper_probes/reorder_variants.cu``) and the package's
+  warp-a-row kernel, also at other settings (16- or 4-byte loads, rows a
+  warp, blocks an SM), each held to ``reorder_rows_plain_``, timed by
+  ``torch.profiler`` device time a launch (each call sorts a fresh copy)
+  and, on the NFD rows, where nothing moves, also by CUDA events in both
+  orders on the rows in place; and the kernel's loads alone (1, 2 or 4
+  rows a warp, a row's second chunk with its first or after it).
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -120,13 +147,18 @@ from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC  # noqa: E402
 from stringwars_tpu_torch.ops import bpe as BPE  # noqa: E402
 from stringwars_tpu_torch.ops import bpe_cuda as BPC  # noqa: E402
 from stringwars_tpu_torch.ops import chacha as CC  # noqa: E402
+from stringwars_tpu_torch.ops import expand as EX  # noqa: E402
 from stringwars_tpu_torch.ops import myers as MY  # noqa: E402
 from stringwars_tpu_torch.ops import myers_cuda as MYC  # noqa: E402
 from stringwars_tpu_torch.ops import shiftand as SA  # noqa: E402
 from stringwars_tpu_torch.ops import shiftand_cuda as SAC  # noqa: E402
+from stringwars_tpu_torch.ops import normalize as NORM  # noqa: E402
 from stringwars_tpu_torch.ops import similarity as S  # noqa: E402
+from stringwars_tpu_torch.ops import xxh3 as X3  # noqa: E402
 from stringwars_tpu_torch.suites import encryption as ES  # noqa: E402
 from stringwars_tpu_torch.suites import find as FS  # noqa: E402
+from stringwars_tpu_torch.suites import hash as HS  # noqa: E402
+from stringwars_tpu_torch.suites import normalization as NS  # noqa: E402
 from stringwars_tpu_torch.suites import tokenization as TS  # noqa: E402
 
 PROBES = ROOT / "tools" / "hopper_probes"
@@ -816,16 +848,222 @@ def shiftand(args) -> None:
         print(f"shiftand SASS, {label}: {per_byte_pipes(mangled, lib_path, lambda c: c.get('LDS', 0))}")
 
 
+# xxh3_variants.cu's settings of the package's kernel: blocks an SM.
+XXH3_SETTINGS = {0: "3 blocks an SM", 1: "4 blocks an SM", 2: "5 blocks an SM", 3: "6 blocks an SM"}
+# reorder_variants.cu's settings: (16-byte loads, rows a warp, blocks an SM).
+REORDER_SETTINGS = {0: "(16 B, 1, 3)", 1: "(16 B, 1, 4)", 2: "(16 B, 2, 3)", 3: "(16 B, 2, 4)", 4: "(4 B, 1, 4)"}
+
+
+def xxh3(args) -> None:
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_xxh3_variants.so"
+    print(f"xxh3_variants.cu built: {finish(nvcc_shared(PROBES / 'xxh3_variants.cu', so), 'xxh3_variants.cu')}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    lib.xxh3_parent_run.argtypes = (_P, _N, _N, _P, _P, _P, _P)
+    lib.xxh3_variant_run.argtypes = (_N, _P, _N, _P, _P, _N, _N, _P, _P, _P)
+    lib.xxh3_short_run.argtypes = (_N, _N, _P, _N, _P, _N, _P, _P, _P)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def variant(v: int, data: torch.Tensor, offsets=None, padded=None) -> torch.Tensor:
+        count = offsets.numel() - 1 if offsets is not None else padded.count
+        out = torch.empty(count, dtype=torch.uint64, device=dev)
+        code = lib.xxh3_variant_run(v, data.data_ptr(), data.numel(), offsets.data_ptr() if offsets is not None else None,
+                                    padded.lengths.data_ptr() if padded is not None else None,
+                                    padded.width if padded is not None else 0, count, X3._key_array(0), out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"xxh3_variant_run {v}: CUDA error {code}")
+        return out
+
+    def parent(tokens: T.PaddedTokens) -> torch.Tensor:
+        out = torch.empty(tokens.count, dtype=torch.uint64, device=dev)
+        code = lib.xxh3_parent_run(tokens.data.data_ptr(), tokens.count, tokens.width, tokens.lengths.data_ptr(),
+                                   X3._key_array(0), out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"xxh3_parent_run: CUDA error {code}")
+        return out
+
+    tape = datasets.load_tape(None, tokens_mode="words", size_limit="128mb", device=dev)
+    buckets = HS.HashBuckets.stage(tape)
+    spans = X3.xxh3_64_spans_cuda(tape.data, tape.offsets).view(torch.int64)
+    for idx, padded in zip(buckets.indices, buckets.buckets):
+        want = spans[idx]
+        if not (torch.equal(parent(padded).view(torch.int64), want) and torch.equal(X3.xxh3_64_cuda(padded).view(torch.int64), want)):
+            raise AssertionError(f"XXH3 of the bucket of width {padded.width}: the kernels disagree")
+    lines = T.PaddedTokens(CS.random_bytes(131072 * 1024, 8, dev).view(131072, 1024),
+                           torch.full((131072,), 1024 - 9, dtype=torch.int32, device=dev), 1024)
+    if not torch.equal(parent(lines).view(torch.int64), X3.xxh3_64_cuda(lines).view(torch.int64)):
+        raise AssertionError("XXH3 of the 1 KiB lines: the kernels disagree")
+    for v in XXH3_SETTINGS:
+        if not (torch.equal(variant(v, tape.data, offsets=tape.offsets).view(torch.int64), spans)
+                and torch.equal(variant(v, lines.data, padded=lines).view(torch.int64), X3.xxh3_64_cuda(lines).view(torch.int64))):
+            raise AssertionError(f"XXH3 setting {XXH3_SETTINGS[v]}: the digests differ")
+    bound = CS.bound_ms(buckets.token_bytes + 12 * buckets.tokens)[0]
+    line_bound = CS.bound_ms(lines.count * (1024 - 9 + 4) + 8 * lines.count)[0]
+    cells = {
+        "words": (bound, {
+            "the package's kernel, the tape's spans (the row's call)": (lambda: X3.xxh3_64_spans_cuda(tape.data, tape.offsets),
+                                                                        "xxh3_kernel"),
+            "the package's kernel, the buckets": (lambda: [X3.xxh3_64_cuda(p) for p in buckets.buckets], "xxh3_kernel"),
+            "the earlier kernel, the buckets": (lambda: [parent(p) for p in buckets.buckets], "parent_xxh3_kernel"),
+            **{f"the package's kernel at {name}, the tape's spans": (
+                lambda v=v: variant(v, tape.data, offsets=tape.offsets), "xxh3_kernel") for v, name in XXH3_SETTINGS.items()},
+        }),
+        "1KB-lines": (line_bound, {
+            "the package's kernel": (lambda: X3.xxh3_64_cuda(lines), "xxh3_kernel"),
+            "the earlier kernel": (lambda: parent(lines), "parent_xxh3_kernel"),
+            **{f"the package's kernel at {name}": (lambda v=v: variant(v, lines.data, padded=lines), "xxh3_kernel")
+               for v, name in XXH3_SETTINGS.items()},
+        }),
+    }
+    short_out = torch.zeros(tape.count, dtype=torch.uint64, device=dev)
+
+    def short(mode: int, per: int = 1):
+        def run():
+            code = lib.xxh3_short_run(mode, per, tape.data.data_ptr(), tape.data.numel(), tape.offsets.data_ptr(), tape.count,
+                                      X3._key_array(0), short_out.data_ptr(), stream)
+            if code:
+                raise RuntimeError(f"xxh3_short_run {mode}: CUDA error {code}")
+        return run
+
+    lengths = tape.offsets[1:] - tape.offsets[:-1]
+    quick = (lengths <= 16) & (torch.arange(tape.count, device=dev) < tape.count - 64)
+    for per in (1, 2):
+        short_out.zero_()
+        short(0, per)()
+        if not torch.equal(short_out.view(torch.int64)[quick], spans[quick]):
+            raise AssertionError(f"the probe's quick path ({per} a lane) differs from the package's digests")
+    cells["words"][1].update({
+        "probe: the 0..16-byte path alone": (short(0), "short_kernel"),
+        "probe: the 0..16-byte path alone, 2 tokens a lane": (short(0, 2), "short_kernel"),
+        "probe: its loads alone (no hashing)": (short(1), "short_kernel"),
+        "probe: its hashing alone (no word loads)": (short(2), "short_kernel"),
+        "probe: its hashing alone, 2 tokens a lane": (short(2, 2), "short_kernel"),
+        "probe: the offsets alone (lengths written)": (short(3), "short_kernel"),
+        "probe: the hashing alone with no loads at all": (short(4), "short_kernel"),
+        "probe: the hashing alone with no loads at all, 2 tokens a lane": (short(4, 2), "short_kernel"),
+    })
+    sass = CS.sass_dump(str(build.library_path()))
+    if sass:
+        (build.BUILD_DIR / "xxh3_sass.txt").write_text("".join("Function : " + part for part in sass.split("Function : ")[1:]
+                                                               if "xxh3_kernel" in part.split("\n", 1)[0]))
+    print(f"xxh3 words: {tape.count:,} tokens, {buckets.token_bytes:,} B, buckets "
+          + ", ".join(f"{p.count:,}x{p.width}" for p in buckets.buckets), flush=True)
+    for cell, (cell_bound, calls) in cells.items():
+        for name, times in both_orders({name: fn for name, (fn, _) in calls.items()}).items():
+            fn, kernel = calls[name]
+            traced = CS.device_ms(fn, kernel, calls=20, per_call=True)
+            traced_text = f"{traced:.4f}" if traced is not None else "not measured"
+            print(f"xxh3 {cell}-128MB, {name}: {', '.join(f'{t:.4f}' for t in times)} ms by CUDA events, "
+                  f"{traced_text} ms device a call; bound {cell_bound:.4f} ms (bytes)", flush=True)
+
+
+def reorder(args) -> None:
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    corpus = build.BUILD_DIR / "probe-multilingual-128mb.txt"
+    child = CS.start_corpus(corpus)
+    try:
+        reorder_cells(dev, child, corpus)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        corpus.unlink(missing_ok=True)
+        corpus.with_name(corpus.name + ".part").unlink(missing_ok=True)
+
+
+def reorder_cells(dev, child: subprocess.Popen, corpus: Path) -> None:
+    so = build.BUILD_DIR / "probe_reorder_variants.so"
+    print(f"reorder_variants.cu built: {finish(nvcc_shared(PROBES / 'reorder_variants.cu', so), 'reorder_variants.cu')}",
+          flush=True)
+    lib = ctypes.CDLL(str(so))
+    lib.reorder_parent_run.argtypes = (_P, _P, _N, _N, _P, _N, _P)
+    lib.reorder_variant_run.argtypes = (_N, _P, _P, _N, _N, _P, _N, _P)
+    lib.reorder_loads_run.argtypes = (_N, _P, _P, _N, _N, _P)
+    ccc = NORM._ccc_on(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def variant(v: int):
+        def run(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+            code = lib.reorder_variant_run(v, rows.data_ptr(), counts.data_ptr(), rows.shape[0], rows.shape[1], ccc.data_ptr(),
+                                           ccc.numel(), stream)
+            if code:
+                raise RuntimeError(f"reorder_variant_run {v}: CUDA error {code}")
+            return rows
+        return run
+
+    def parent(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+        code = lib.reorder_parent_run(rows.data_ptr(), counts.data_ptr(), rows.shape[0], rows.shape[1], ccc.data_ptr(),
+                                      ccc.numel(), stream)
+        if code:
+            raise RuntimeError(f"reorder_parent_run: CUDA error {code}")
+        return rows
+
+    kernels = {"the package's kernel": (NORM.reorder_rows_cuda_, "nf_reorder_kernel"),
+               "the earlier kernel": (parent, "parent_reorder_kernel"),
+               **{f"the package's kernel at {name}": (variant(v), "nf_reorder_kernel") for v, name in REORDER_SETTINGS.items()}}
+
+    def cell(name: str, rows: torch.Tensor, counts: torch.Tensor) -> None:
+        want = NORM.reorder_rows_plain_(rows.clone(), counts)
+        live = int(counts.sum())
+        moved = int((want != rows).sum())
+        bound = CS.bound_ms(4 * live + 4 * moved + 4 * counts.numel())[0]
+        for label, (fn, _) in kernels.items():
+            if not torch.equal(fn(rows.clone(), counts), want):
+                raise AssertionError(f"reorder {name}: {label} differs from reorder_rows_plain_")
+        print(f"reorder {name}: {rows.shape[0]:,} rows of {rows.shape[1]}, {live:,} codepoints, {moved:,} moved; "
+              f"bound {bound:.4f} ms (bytes)", flush=True)
+        for label, (fn, kernel) in list(kernels.items()) + list(kernels.items())[::-1]:
+            traced = CS.device_ms(lambda: fn(rows.clone(), counts), kernel, calls=20)
+            print(f"reorder {name}, {label}: {traced:.4f} ms device a launch" if traced is not None
+                  else f"reorder {name}, {label}: not measured", flush=True)
+        over = counts > 128
+        print(f"reorder {name}: {int(over.sum()):,} rows over 128 codepoints, {int(counts[over].sum()):,} of their codepoints",
+              flush=True)
+        if rows.shape[1] % 4 == 0:
+            for v, label in {0: "1 row a warp", 1: "2 rows", 2: "2 rows, both chunks at once", 3: "4 rows, both chunks"}.items():
+                def run(v=v):
+                    code = lib.reorder_loads_run(v, rows.data_ptr(), counts.data_ptr(), rows.shape[0], rows.shape[1], stream)
+                    if code:
+                        raise RuntimeError(f"reorder_loads_run {v}: CUDA error {code}")
+                traced = CS.device_ms(run, "loads_kernel", calls=20)
+                print(f"reorder {name}, probe: the loads alone, {label}: "
+                      + (f"{traced:.4f} ms device a launch" if traced is not None else "not measured"), flush=True)
+        if not moved:  # the rows are their own output: time the launches in place
+            for label, times in both_orders({label: (lambda fn=fn: fn(rows, counts)) for label, (fn, _) in kernels.items()}).items():
+                print(f"reorder {name}, {label}, in place: {', '.join(f'{t:.4f}' for t in times)} ms by CUDA events", flush=True)
+
+    marks = NORM.segment_rows(torch.from_numpy(CS.marks_stream(32 << 20, 17)).to(dev), False)[0]
+    cell("marks-128MB", marks.rows, marks.lengths)
+    del marks
+    if child.wait():
+        raise RuntimeError(f"synthesizing the multilingual corpus failed (exit code {child.returncode})")
+    raw = corpus.read_bytes()
+    data = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+    lead, cps = NS.corpus_codepoints(data)
+    stage = NS.stage_form("NFD", NS.quick_rows(data, False, lead, cps), lead, cps, NS.corpus_max_cp(raw.decode()))
+    b = stage.buckets[0]
+    if NORM.decompose_route(False, stage.slow_max, b.width) == "expand":
+        fused, max_exp = NORM._decomp_fused_tables(False, stage.slow_max)
+        src, counts = EX.expand_compact_rows(b.rows, b.lengths, fused, max_exp, b.width, False)
+    else:
+        src, counts = NORM.decompose_rows_cuda(b.rows, b.lengths, NORM.decomp_tables(False, stage.slow_max))
+    print(f"reorder nfd: the slow rows' ceiling {stage.slow_max:#x}", flush=True)
+    cell("nfd-128MB", src, counts)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand"))
+    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("hopper_probes: no CUDA device", file=sys.stderr)
         return 2
     print(card_line(), flush=True)
-    {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand}[args.probe](args)
+    {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand, "xxh3": xxh3,
+     "reorder": reorder}[args.probe](args)
     return 0
 
 
