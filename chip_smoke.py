@@ -10,7 +10,9 @@ prints no result:
 2. build: the CUDA kernels from ``stringwars_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel);
 3. kernels: each kernel against its plain torch version on the card, exact
-   (the hashes also against the published digests of the empty input; the
+   (the hashes also against the published digests of the empty input, and
+   the per-token hashes' padded entry points over rows of 130 B, each row at
+   its own byte offset; the
    Myers and alignment kernels over pattern lengths 0..1023 against texts of
    0..1100 B in the byte, DNA and codepoint alphabets, global and local,
    the Myers kernel also at the edges of its lane groups and bands (lengths
@@ -63,12 +65,15 @@ prints no result:
    1, 3 and 4, and the published digest of the empty input, and over a
    tape's spans (every length 0..2,100 and empty tokens among them, at tape
    offsets 0..7 and from a base 3 bytes into its buffer, the last token
-   ending at the buffer's last byte); the three normalization kernels
+   ending at the buffer's last byte); XXH64, swh64, XXH32 and swh64 under 8
+   seeds over the same tapes' spans (seeds 0, 32-bit and 64-bit); the
+   three normalization kernels
    (decompose, reorder, compose) and each form's pipeline on rows of 64 and
    of the wide bucket (a run of 300 marks; runs of marks out of order
    across positions 31|32 and 63|64 of a decomposed row, a run of 70 and a
-   marks stream: ``reorder_texts``), each form's output also against
-   ``unicodedata``);
+   marks stream: ``reorder_texts``; composition's chains through Hangul
+   jamo and the class-0 second elements, and blocked marks:
+   ``compose_texts``), each form's output also against ``unicodedata``);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -80,9 +85,14 @@ prints no result:
    - ``suites.hash.main`` on 128 MB of words; the first 8 tokens' swh64
      digests must equal ``swh64_ref``, the ``xxh3_64`` row's digests (the
      tape's spans) the plain version on the card and, by token index, the
-     bucketed call's (each bucket equal to the plain version), every
-     SHA-256 digest the plain version on the card and 10,000 sampled ones
-     ``hashlib``;
+     bucketed call's (each bucket equal to the plain version), the swh64,
+     xxh64, xxh32 and swh64_multiseed8 rows' digests (the tape's spans) their
+     plain versions on the card and, by token index, the padded entry
+     points' over the buckets, every SHA-256 digest the plain version on the card
+     and 10,000 sampled ones ``hashlib``;
+   - the headline hashes: ``bench.py``'s swh64 row and the campaign's xxh64
+     and xxh32 rows (1 KB lines) through the padded entry points, each equal
+     to the spans form over the same lines end to end;
    - ``suites.fingerprints.main`` on ``synthetic:long-lines``; the first
      documents' min-hashes must equal the numpy spec replay, and the quality
      line is read back;
@@ -156,13 +166,20 @@ prints no result:
    split by pipe and the ALU pipe's ceiling), ``xxh3-words-128MB`` (the
    hash suite's tape, tokens where they lie: the row's call),
    ``xxh3-words-buckets-128MB`` (the same tokens in the buckets),
-   ``xxh3-1KB-lines-128MB`` (the long path, beside the XXH64 row) and
+   ``xxh3-1KB-lines-128MB`` (the long path, beside the XXH64 row),
+   ``{swh64,xxh64,xxh32,swh64_multiseed8}-words-128MB`` (the hash suite's
+   rows' calls: the tape's spans, one launch) beside
+   ``*-words-buckets-128MB`` (the padded entry points over the buckets),
+   ``{swh64,xxh64,xxh32}-1KB-lines-spans-128MB`` (the lines end to end,
+   beside the padded ``*-1KB-lines-128MB`` rows; these six by profiler
+   device time) and
    ``fill_random-128MB``; the normalization kernels at the
    main path's shapes (``nf_decompose-nfkd-128MB``, ``nf_reorder-nfd-128MB``,
    ``nf_compose-nfc-of-nfd-128MB``, profiler device time), reordering where
    marks move (``nf_reorder-marks-128MB``: 32 Mi codepoints of
    ``marks_stream`` cut by ``segment_rows``, the moved codepoints counted
-   into its bound) and the whole ``nfc-of-nfd-128MB`` route; the
+   into its bound), composition there (``nf_compose-marks-128MB``) and the
+   whole ``nfc-of-nfd-128MB`` route; the
    tree level also at a byte offset of 1, the class map's and ``lut_map``'s
    rows beside ``table[idx]`` where it computes the same function; and the
    similarities, encryption, hash (XXH3 too) and normalization suites'
@@ -480,6 +497,24 @@ def lowercase(n: int, seed: int, dev) -> torch.Tensor:
 def random_bytes(n: int, seed: int, dev) -> torch.Tensor:
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=g)
+
+
+def kb_lines(dev):
+    """131,072 lines of 1 KiB (1,015 B each: ``tools/tpu_campaign.py:191-199``)
+    as padded rows, and the same lines end to end as a tape (its data and
+    offsets, each line 1,015 B after the one before)."""
+    from stringwars_tpu_torch import tape as T
+
+    count, line = 131072, 1024 - 9
+    lines = T.PaddedTokens(random_bytes(count * 1024, 8, dev).view(count, 1024),
+                           torch.full((count,), line, dtype=torch.int32, device=dev), 1024)
+    return lines, lines.data[:, :line].reshape(-1), torch.arange(count + 1, dtype=torch.int64, device=dev) * line
+
+
+def signed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as the signed integer type of its width: torch indexes no
+    unsigned 32- or 64-bit tensor on the card."""
+    return t.view({torch.uint64: torch.int64, torch.uint32: torch.int32}.get(t.dtype, t.dtype))
 
 
 def reset(*counters: dict) -> None:
@@ -1232,6 +1267,58 @@ def check_xxh3_spans(dev, errors: dict) -> int:
     return checks
 
 
+HASH_SPAN_SEEDS = (0, 0x9E3779B9, 0xDEADBEEFCAFEBABE)  # 0, a 32-bit seed, a full 64-bit seed
+
+
+def hash_spans_calls():
+    """name -> (spans form on the card, its plain version): the per-token
+    hashes over a tape's spans, each under a seed (``swh64_multiseed8``:
+    eight seeds from it)."""
+    from stringwars_tpu_torch.ops import hash as H
+    from stringwars_tpu_torch.ops import hash_cuda as HC
+
+    def seeds8(seed):
+        return [(seed + j) & ((1 << 64) - 1) for j in range(8)]
+
+    return {
+        "xxh64": (HC.xxh64_spans_cuda, H.xxh64_spans_plain),
+        "swh64": (HC.swh64_spans_cuda, H.swh64_spans_plain),
+        "xxh32": (HC.xxh32_spans_cuda, H.xxh32_spans_plain),
+        "swh64_multiseed8": (lambda d, o, s: HC.swh64_multiseed_spans_cuda(d, o, seeds8(s)),
+                             lambda d, o, s: H.swh64_multiseed_spans_plain(d, o, seeds8(s))),
+    }
+
+
+def check_hash_spans(dev, errors: dict) -> int:
+    """XXH64, swh64, XXH32 and swh64 under 8 seeds over a tape's spans,
+    tokens read where they lie: every length 0..2,100 and 300 empty tokens
+    among them, shuffled, after 0..7 junk bytes (the tape offsets), the
+    longest token last, ending at the buffer's last byte; also from a base 3
+    bytes into its allocation; seeds 0, 32-bit and 64-bit (all three at
+    offset 0, one at each other offset in turn); against the plain version
+    on the card."""
+    rng = np.random.default_rng(41)
+    sizes = rng.permutation(np.concatenate([np.arange(XXH3_LONGEST), np.zeros(300, np.int64)]))
+    sizes = np.concatenate([sizes, [XXH3_LONGEST]])
+    checks = 0
+    for offset in range(8):
+        for base in (0, 3) if offset == 0 else (0,):
+            offsets = torch.from_numpy(offset + np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+            data = random_bytes(base + int(offsets[-1]), 50 + offset, dev)[base:]
+            # Every seed at offset 0 (both bases); one a tape offset past it, in turn.
+            seeds = HASH_SPAN_SEEDS if offset == 0 else HASH_SPAN_SEEDS[offset % 3 : offset % 3 + 1]
+            for name, (kernel, plain) in hash_spans_calls().items():
+                for seed in seeds:
+                    errors[SPAN_COUNTERS[name]] = max(errors[SPAN_COUNTERS[name]],
+                                                      max_err(kernel(data, offsets, seed), plain(data, offsets, seed)))
+                    checks += 1
+    return checks
+
+
+# The launch counter of each spans call (ops/hash_cuda.LAUNCHES).
+SPAN_COUNTERS = {"xxh64": "xxh64_spans", "swh64": "swh64_spans", "xxh32": "xxh32_spans", "swh64_multiseed8": "swh64_spans"}
+
+
 def normalize_rows_plain(rows: torch.Tensor, lengths: torch.Tensor, form: str, max_cp: int):
     """``ops/normalize.normalize_rows`` with every kernel's plain version, on
     the tensors' device (the expand kernel's where the route takes it)."""
@@ -1279,16 +1366,43 @@ def reorder_texts(seed: int = 16) -> list[str]:
     return ["x" * 30 + "a" + run + "b" * 10, "é" * 31 + "a" + run + "b" * 10, "a" + long_run + "b", stream]
 
 
+# Each class-0 second element of a primary composite besides the Hangul V
+# and T jamo (Unicode 15), after a first element it composes with.
+COMPOSE_PAIRS = ((0x09C7, 0x09BE), (0x09C7, 0x09D7), (0x0B47, 0x0B3E), (0x0B47, 0x0B56), (0x0B47, 0x0B57),
+                 (0x0BC6, 0x0BBE), (0x0B92, 0x0BD7), (0x0CC6, 0x0CC2), (0x0CBF, 0x0CD5), (0x0CC6, 0x0CD6),
+                 (0x0D46, 0x0D3E), (0x0D46, 0x0D57), (0x0DD9, 0x0DCF), (0x0DD9, 0x0DDF), (0x1025, 0x102E),
+                 (0x1B05, 0x1B35), (0x11131, 0x11127), (0x11347, 0x1133E), (0x11347, 0x11357), (0x114B9, 0x114B0),
+                 (0x114B9, 0x114BA), (0x114B9, 0x114BD), (0x115B8, 0x115AF), (0x11935, 0x11930))
+
+
+def compose_texts() -> dict[str, str]:
+    """Texts where composition's segments interact: Hangul L V, L V T, LV +
+    T and a T after an LVT; each class-0 second element after its first
+    element; the chain U+0CC6 U+0CC2 U+0CD5 (U+0CCB's decomposition, also
+    across the composition kernel's 128-codepoint chunks); two marks of one
+    class (the second blocked); a class-0 combiner after a mark that
+    composed away and after one that did not; a text that begins with a
+    mark."""
+    return {
+        "hangul": "\u1100\u1161 \u1100\u1161\u11a8 \uac00\u11a8 \uac01\u11a8 \u1100\u1161\u11a8\u11a8 " + "각" * 50,
+        "second-elements": " ".join(chr(a) + chr(b) for a, b in COMPOSE_PAIRS),
+        "chains": "\u0cc6\u0cc2\u0cd5 " + "ೋ" * 60 + " \u0dd9\u0dcf\u0dca",
+        "blocking": "a\u0346\u0301 a\u0301\u0301 \u0dd9\u0dca\u0dcf \u0dd9\u0334\u0dcf \u1100\u0334\u1161 \u0cc6\u0334\u0cc2",
+        "leading-mark": "\u0301a\u0301\u0316 \u11a8\u1161",
+    }
+
+
 def normalization_texts(seed: int = 15) -> list[str]:
     """Texts for the normalization kernels' checks: seeded streams of
     letters, marks in and out of order, Hangul syllables and conjoining
     jamo, compat characters and the longest expansions, a zalgo run of 300
-    marks (a row of the wide bucket), and ``reorder_texts``."""
+    marks (a row of the wide bucket), ``reorder_texts`` and
+    ``compose_texts``."""
     rng = np.random.default_rng(seed)
     pieces = ["a", "é", "é", "á̧", "ḍ̇", "q̣̇", "가", "각", "한", "ᄀ", "ᅡ", "ᆨ", "ﬃ", "①", "½",
               "Å", "Ω", "ǅ", "ཷ", "ཱི", "ﷺ", "ᾂ", "ṩ", " ", "日", "\n"]
     streams = ["".join(pieces[i] for i in rng.integers(0, len(pieces), 50_000)) for _ in range(3)]
-    return streams + ["x" + "̖́" * 150 + "a" + "̈" * 300 + "b"] + reorder_texts()
+    return streams + ["x" + "̖́" * 150 + "a" + "̈" * 300 + "b"] + reorder_texts() + list(compose_texts().values())
 
 
 def check_normalize(dev, errors: dict) -> int:
@@ -1385,7 +1499,20 @@ def normalization_rows(row, keep: dict, launches, dev) -> None:
         f"rows of {b.width}, {live:,} codepoints, {moved:,} moved)",
         lambda: NORM.reorder_rows_cuda_(b.rows.clone(), b.lengths), lambda: NORM.reorder_rows_plain_(b.rows.clone(), b.lengths),
         4 * live, bound_ms(4 * live + 4 * moved + 4 * b.count), plain_samples=1, profiled="nf_reorder_kernel")
-    del marks, b
+    # Its output composed: U+0301 and U+031B compose with the ASCII letters,
+    # the other marks block them or not by class.
+    reordered = NORM.reorder_rows_cuda_(b.rows.clone(), b.lengths)
+    away = live - int(NORM.compose_rows_cuda_(reordered.clone(), b.lengths).sum())
+
+    def compose_marks(compose):
+        rows = reordered.clone()
+        return rows, compose(rows, b.lengths)
+
+    row(f"nf_compose-marks-128MB (nf_reorder-marks-128MB's output composed: {b.count:,} rows of {b.width}, {live:,} "
+        f"codepoints, {away:,} composed away)",
+        lambda: compose_marks(NORM.compose_rows_cuda_), lambda: compose_marks(NORM.compose_rows_plain_), 4 * live,
+        bound_ms(8 * live + 8 * b.count), plain_samples=1, profiled="nf_compose_kernel")
+    del marks, b, reordered
     buckets, top = keep["nfd_rows"], keep["nfd_max"]
     b = buckets[0]
     src, counts = NORM.decompose_rows(b.rows, b.lengths, False, top)
@@ -1439,7 +1566,9 @@ def make_row(timings: dict):
             else:
                 calls_text += f", calls back to back {ms:.4f} ms"
                 ms = traced
-        plain_ms = time_ms(plain, samples=plain_samples, warm=min(WARM, plain_samples))
+        # The equality check's call above warms the plain version: a row timed
+        # once (the slow plain versions) takes no other warm-up call.
+        plain_ms = time_ms(plain, samples=plain_samples, warm=0 if plain_samples == 1 else WARM)
         library_ms = time_ms(library) if library else None
         bound_value, bound_by = bound
         if key:
@@ -1554,7 +1683,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     for line in ptxas:  # each function's properties (stack, spills), then its registers
         if "Function properties for " in line or "Compiling entry function" in line:
             function = line.rsplit(" ", 1)[-1].strip("'")
-        elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel")) and ("spill" in line or "registers" in line):
+        elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel", "nf_compose_kernel", "xxh64_kernelILi1ELb1",
+                                          "xxh32_kernelILi1ELb0ELb1", "xxh32_kernelILi1ELb1ELb1",
+                                          "xxh32_kernelILi8ELb1ELb1")) and (
+                "spill" in line or "registers" in line):
             own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
     phase(
         "build",
@@ -1568,7 +1700,15 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     names = list(launches())
     errors = {name: 0 for name in names}
     before = launches()
+    parts, lap_at = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:  # the seconds of each part of the phase, for its line
+        now = time.perf_counter()
+        parts[part] = round(now - lap_at[0], 1)
+        lap_at[0] = now
+
     checked, worst = check_find(dev, errors)
+    lap("find")
     rng = np.random.default_rng(1)
     n = 64 << 20
     bytes_hay = random_bytes(n + 16, 2, dev)
@@ -1587,14 +1727,17 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         raise AssertionError("bytesum of 256 MB of 0xFF is not 255 * n")
     del bytes_hay, ones
 
-    # Hashes: tokens of 0..130 B (16-byte rows and 4-byte rows), and one
-    # token set spread over every bucket of the hash suite.
+    lap("byteset, bytesum")
+    # Hashes: tokens of 0..130 B (rows of 192, 132 and 130 B: every row of
+    # the last at its own byte offset), and one token set spread over every
+    # bucket of the hash suite.
     sweep = [bytes(rng.integers(0, 256, k, dtype=np.uint8)) for k in range(131)]
     spread = [bytes(rng.integers(0, 256, int(k), dtype=np.uint8)) for k in rng.integers(1, 5000, 600)]
     layouts = [T.PaddedTokens.from_tape(T.Tape.from_tokens(sweep), align=a).to(dev) for a in (64, 4)]
     layouts += T.bucket_by_length(T.Tape.from_tokens(spread, device=dev), hash_suite.BUCKET_EDGES)
+    rows130 = T.PaddedTokens.from_tape(T.Tape.from_tokens(sweep), align=1).to(dev)  # not for SHA-256: width % 4
     seed_sets = ([0], [12345], [0xDEADBEEFCAFEBABE], list(range(8)), list(range(16)))
-    for padded in layouts:
+    for padded in layouts + [rows130]:
         for seeds in seed_sets:
             errors["xxh64"] = max(errors["xxh64"], max_err(HC.xxh64(padded, seeds), H.xxh64_plain(padded, seeds)))
             errors["swh64"] = max(errors["swh64"], max_err(HC.swh64(padded, seeds), H.swh64_plain(padded, seeds)))
@@ -1618,7 +1761,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     tree_levels = 5 + len(tree_cases)
     del tree_buf, tree_cases
 
+    lap("per-token hashes, tree level")
     fp_checked = check_fingerprint(dev, errors)
+    lap("fingerprint")
 
     lut = torch.from_numpy(M.invert_case_lut()).to(dev)
     for view in (big[: 64 << 20], big[3 : (64 << 20) + 8], big[15:1000], big[:7]):
@@ -1705,7 +1850,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         if got != [want, want]:
             raise AssertionError(f"small case {case}: {patterns} over {len(text)} B: kernels {got}, brute force {want}")
         mp_oracle += 1
+    lap("LUT, multi-pattern")
     unaligned_checked = check_unaligned(dev, errors)
+    lap("unaligned views")
 
     # Edit distances and alignment scores: pattern lengths across the word
     # edges against texts of 0..1100 B (empty sides included) in three
@@ -1751,6 +1898,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             dp_outs[(set_name, fn)] = got.cpu().numpy()
     dp_nbits = {name: mb.nbits for name, (mb, _) in dp_sets.items()}
     myers_edge_checks = check_myers_edges(dev, errors)
+    lap("edit distance, alignment")
     # A sample of 64 pairs against the brute-force oracles on the host.
     small = [i for i, (m, n) in enumerate(pair_lens) if m * n <= 4000]
     oracle_checked = 0
@@ -2010,6 +2158,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     if table_big.hashed().kicks == 0:
         raise AssertionError("the 30,000-merge table's build moved no entry: its cuckoo kicks are unchecked")
     bpe_edge_checks = check_bpe_edges(dev, errors)
+    lap("oracles, scans, segmentation, folds, BPE")
     del bpe_cases, table512, table_big
     # ChaCha20: lengths 0..1 MiB + 13 at the counters 0, 1 and 0xFFFFFFF0
     # (the counter wraps), views at offsets 1..15 (the 4-byte and byte
@@ -2122,16 +2271,20 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         if got[at : at + len(words)].tolist() != list(words):
             raise AssertionError(f"Threefry words of seed {seed} at {at} differ from the pinned jax.random.bits")
     errors["threefry"] = max(errors["threefry"], max_err(M.threefry_bits_cuda(5, 32 << 20, dev), M.threefry_bits_plain(5, 32 << 20, dev)))
+    lap("ChaCha20, Poly1305, SHA-256, Threefry")
     xxh3_checks = check_xxh3(dev, errors)
     xxh3_spans_checks = check_xxh3_spans(dev, errors)
+    hash_spans_checks = check_hash_spans(dev, errors)
+    lap("XXH3, spans")
     norm_checks = check_normalize(dev, errors)
+    lap("normalization")
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
     phase(
         "kernels",
         f"equal to plain on the card ({checked} needle scans (the worst case's {WORST_NEEDLES} needles a * k "
-        f"held to its closed form), 3 sets, 4 bytesums, {len(layouts)} hash layouts x "
+        f"held to its closed form), 3 sets, 4 bytesums, {len(layouts) + 1} hash layouts (rows of 130 B among them) x "
         f"{len(seed_sets)} seed sets, {tree_levels} tree levels (base offsets 0..15), {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
         f"none), 4 LUT views, 4 DP batches of "
         f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {myers_edge_checks} Myers batches at the edges of its "
@@ -2158,9 +2311,12 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"with junk past it, seeds {XXH3_SEEDS}, rows at byte offsets 0, 1, 3, 4), XXH3('') the published digest; "
         f"{xxh3_spans_checks} XXH3 span batches (every length 0..{XXH3_LONGEST} and 300 empty tokens on a tape, "
         f"at tape offsets 0..7 and a base 3 bytes in, the last token ending at the buffer's last byte); "
+        f"{hash_spans_checks} span batches of XXH64, swh64, XXH32 and swh64 under 8 seeds (the same tapes, seeds "
+        f"{[hex(x) for x in HASH_SPAN_SEEDS]}); "
         f"{norm_checks} normalization batches (the three kernels and each form's pipeline on rows of 64 and the wide "
         f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
-        f"marks), each form's output equal to unicodedata; launches {advanced}",
+        f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; launches {advanced}; "
+        f"seconds by part {parts}",
         started,
     )
 
@@ -2244,7 +2400,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
 
     def hash_path() -> None:
         started = time.perf_counter()
-        ctx, _ = run_suite(
+        ctx, lines = run_suite(
             hash_suite.main,
             ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1"],
             [f"stateless/swtorch::{op}<1gpu>" for op in ("swh64", "xxh64", "xxh32", "swh64_multiseed8", "xxh3_64")]
@@ -2268,7 +2424,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         # XXH3-64: the row's digests (the tape's spans) against the plain
         # version on the card, and by token index against the bucketed call,
         # whose every bucket is held to the plain version too.
-        row_digests = hash_suite.xxh3_spans(ctx.tape)
+        row_digests = hash_suite.spans_call(ctx.tape, "xxh3_64")
         err = max_err(row_digests, X3.xxh3_64_spans_plain(ctx.tape.data, ctx.tape.offsets))
         errors["xxh3"] = max(errors["xxh3"], err)
         if err:
@@ -2282,6 +2438,24 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         if not np.array_equal(row_digests.cpu().numpy()[idx], bucketed):
             raise AssertionError("the xxh3_64 row's digests differ from the bucketed call's by token index")
         del row_digests
+        # The other four stateless rows the same way: each row's call (the
+        # tape's spans) against its plain version on the card, and by token
+        # index against the padded entry point over the buckets.
+        bucketed_calls = {"swh64": lambda p: HC.swh64(p, [0])[0], "xxh64": lambda p: HC.xxh64(p, [0])[0],
+                          "xxh32": lambda p: HC.xxh32(p, [0])[0],
+                          "swh64_multiseed8": lambda p: HC.swh64(p, list(hash_suite.MULTISEEDS))}
+        spans_plain = {op: plain for op, (_, plain) in hash_spans_calls().items()}
+        for op, padded_call in bucketed_calls.items():
+            got = hash_suite.spans_call(ctx.tape, op)
+            want = spans_plain[op](ctx.tape.data, ctx.tape.offsets, 0)
+            err = max_err(got, want)
+            errors[SPAN_COUNTERS[op]] = max(errors[SPAN_COUNTERS[op]], err)
+            if err:
+                raise AssertionError(f"{op} of the tape's {ctx.tape.count:,} spans differs from the plain version by {err}")
+            for i, padded in zip(ctx.staged.indices, ctx.staged.buckets):
+                if not torch.equal(signed(got)[..., i], signed(padded_call(padded))):
+                    raise AssertionError(f"the {op} row's digests differ from the bucketed call's (width {padded.width}) by token index")
+            del got, want
         idx, digests = ctx.staged.digests(SHA.sha256)
         sample = np.random.default_rng(19).choice(idx.size, 10_000, replace=False)
         offsets, data = ctx.tape.offsets.cpu().numpy(), ctx.tape.data.cpu().numpy()
@@ -2297,11 +2471,32 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             f"hash suite: {ctx.staged.tokens:,} tokens, {ctx.staged.token_bytes:,} B in "
             f"{len(ctx.staged.buckets)} buckets on {ctx.tape.device}; first 8 swh64 digests equal swh64_ref; the "
             f"xxh3_64 row's {ctx.tape.count:,} digests (the tape's spans) equal the plain version on the card and, by "
-            f"token index, the bucketed call's, every bucket of which equals the plain version; every "
+            f"token index, the bucketed call's, every bucket of which equals the plain version; the swh64, xxh64, "
+            f"xxh32 and swh64_multiseed8 rows' digests (the tape's spans, one launch a call) equal their plain versions "
+            f"on the card and, by token index, the padded entry points' over the buckets; every "
             f"SHA-256 digest equals the plain version on the card, 10,000 sampled tokens hashlib; launches of the "
-            f"suite's run {launches()}",
+            f"suite's run {launches()}; the stateless rows: "
+            + " | ".join(" ".join(line.split()) for line in lines if line.startswith("stateless/swtorch::")),
             started,
         )
+
+    def headline_hash_path() -> None:
+        """``bench.py``'s swh64 row (``bench.py:55``: swh64 over 1 KB lines)
+        and the campaign's xxh64 and xxh32 rows on the same lines, through
+        the padded entry points (``ops/hash.swh64``, ``xxh64``, ``xxh32``),
+        each equal to the spans form over the same lines end to end."""
+        started = time.perf_counter()
+        lines, tape_lines, line_offsets = kb_lines(dev)
+        spans = {"swh64": H.swh64_spans(tape_lines, line_offsets), "xxh64": H.xxh64_spans(tape_lines, line_offsets),
+                 "xxh32": H.xxh32_spans(tape_lines, line_offsets)}
+        HC.LAUNCHES.update(xxh64_spans=0, swh64_spans=0, xxh32_spans=0)  # the comparison's launches, not the path's
+        got = {"swh64": H.swh64(lines), "xxh64": H.xxh64(lines), "xxh32": H.xxh32(lines)}
+        for op, digests in got.items():
+            if not torch.equal(digests, spans[op]):
+                raise AssertionError(f"{op} of the 1 KB lines: the padded call differs from the spans form")
+        phase("main path", f"headline hashes: swh64, xxh64 and xxh32 of {lines.count:,} lines of {lines.width} B "
+              f"({int(lines.lengths[0])} B each) through the padded entry points, each equal to the spans form over "
+              f"the same lines end to end; launches {launches()}", started)
 
     def fingerprints_path() -> None:
         started = time.perf_counter()
@@ -2705,7 +2900,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
-    path(["xxh64", "xxh64_tree", "swh64", "xxh32", "bytesum", "sha256", "xxh3"], hash_path)
+    path(["xxh64_spans", "swh64_spans", "xxh32_spans", "xxh64_tree", "bytesum", "sha256", "xxh3"], hash_path)
+    path(["swh64", "xxh64", "xxh32"], headline_hash_path)
     path(["fingerprint"], fingerprints_path)
     path(["xxh64", "fingerprint", "lut_translate"], entry_path)
     path(["myers", "affine", "linear"], similarities_path)
@@ -2746,17 +2942,17 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     )
     del set_hay, probe
 
-    # 131072 lines of 1 KiB, 1015 bytes each (tools/tpu_campaign.py:191-199).
-    lines = T.PaddedTokens(
-        random_bytes(131072 * 1024, 8, dev).view(131072, 1024),
-        torch.full((131072,), 1024 - 9, dtype=torch.int32, device=dev),
-        1024,
-    )
+    # 131072 lines of 1 KiB, 1015 bytes each (tools/tpu_campaign.py:191-199),
+    # and the same lines end to end (the spans form's rows).
+    lines, tape_lines, line_offsets = kb_lines(dev)
     line_bytes = lines.count * (1024 - 9 + 4)  # each token's bytes and its length read once
     words = lines.count * (1024 - 9) / 4  # u32 words hashed
     # Per word and XXH32 lane: a multiply-add, a rotate, a multiply; swh64's
     # second lane XORs the word first. An XXH64 round on 8 bytes: a 64-bit
     # multiply-add (4), a 64-bit rotate (2), a 64-bit multiply (3).
+    # The per-token hashes' rows here and their spans rows below: profiler
+    # device time a launch (one a call), the CUDA-event time of calls back to
+    # back beside it.
     row(
         "swh64-1KB-lines-128MB",
         lambda: HC.swh64(lines, [0]),
@@ -2764,6 +2960,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lines.data.numel(),
         bound_ms(line_bytes + 8 * lines.count, 7 * words),
         "swh64",
+        profiled="xxh32_kernel",
     )
     row(
         "xxh64-1KB-lines-128MB",
@@ -2772,6 +2969,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lines.data.numel(),
         bound_ms(line_bytes + 8 * lines.count, 9 * words / 2),
         "xxh64",
+        profiled="xxh64_kernel",
     )
     # XXH3's long path, a warp a token: each line read once, its length and
     # digest, or 24 instructions a token and 64 a 64-byte stripe.
@@ -2790,7 +2988,19 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lines.data.numel(),
         bound_ms(line_bytes + 4 * lines.count, 3 * words),
         "xxh32",
+        profiled="xxh32_kernel",
     )
+    # The spans form over the same lines end to end, each line 1,015 B after
+    # the one before (unaligned: a group of four lanes a line), beside the
+    # padded rows above. Its bound reads 8 B of offsets a line.
+    spans_bytes = line_bytes + 4 * lines.count
+    for op, ops_per_word, digest in (("swh64", 7, 8), ("xxh64", 4.5, 8), ("xxh32", 3, 4)):
+        kernel, plain = hash_spans_calls()[op]
+        row(f"{op}-1KB-lines-spans-128MB (the lines end to end, one launch)",
+            lambda kernel=kernel: kernel(tape_lines, line_offsets, 0), lambda plain=plain: plain(tape_lines, line_offsets, 0),
+            lines.data.numel(), bound_ms(spans_bytes + digest * lines.count, ops_per_word * words), plain_samples=1,
+            profiled="xxh64_kernel" if op == "xxh64" else "xxh32_kernel")
+    del tape_lines, line_offsets
     row(
         "swh64-multiseed16-1KB-lines-128MB",
         lambda: HC.swh64(lines, list(range(16))),
@@ -3225,7 +3435,32 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         lambda: tuple(X3.xxh3_64_cuda(p) for p in buckets.buckets), lambda: tuple(X3.xxh3_64_plain(p) for p in buckets.buckets),
         buckets.token_bytes, x3_bound, plain_samples=1)
     traced_call(f"xxh3_64 call (the hash suite's stateless/swtorch::xxh3_64 over the tape's {tape.count:,} tokens)",
-                lambda: hash_suite.xxh3_spans(tape), launches, {"xxh3": "xxh3_kernel"}, x3_bound)
+                lambda: hash_suite.spans_call(tape, "xxh3_64"), launches, {"xxh3": "xxh3_kernel"}, x3_bound)
+    # The other four stateless rows' calls: the tape's spans in one launch,
+    # beside the padded entry points over the buckets. Bound: each token read once,
+    # its length (4 B) and its digests, or the instructions (per 4-byte word:
+    # 3 an XXH32 lane, 7 for swh64's two, 4.5 XXH64's; and a finish a token
+    # and lane: 20 XXH64, 15 XXH32, 35 swh64), whichever takes longer; the
+    # spans call's own bytes (8 B offsets a token) beside it.
+    n_words = sum(int(((p.lengths.to(torch.int64) + 3) // 4).sum()) for p in buckets.buckets)
+    seeds8 = list(hash_suite.MULTISEEDS)
+    for op, digest, per_word, per_token, padded_call, padded_plain in (
+            ("swh64", 8, 7, 35, lambda p: HC.swh64(p, [0]), lambda p: H.swh64_plain(p, [0])),
+            ("xxh64", 8, 4.5, 20, lambda p: HC.xxh64(p, [0]), lambda p: H.xxh64_plain(p, [0])),
+            ("xxh32", 4, 3, 15, lambda p: HC.xxh32(p, [0]), lambda p: H.xxh32_plain(p, [0])),
+            ("swh64_multiseed8", 64, 8 * 7, 8 * 35, lambda p: HC.swh64(p, seeds8), lambda p: H.swh64_plain(p, seeds8))):
+        kernel, plain = hash_spans_calls()[op]
+        h_bound = bound_ms(buckets.token_bytes + (4 + digest) * buckets.tokens, per_word * n_words + per_token * buckets.tokens)
+        least = bound_ms(tape.total_bytes + 8 * (tape.count + 1) + digest * tape.count)[0]
+        row(f"{op}-words-128MB (the hash suite's stateless/swtorch::{op} call: the tape's {tape.count:,} tokens where they "
+            f"lie, one launch)", lambda kernel=kernel: kernel(tape.data, tape.offsets, 0),
+            lambda plain=plain: plain(tape.data, tape.offsets, 0), buckets.token_bytes, h_bound,
+            None if op == "swh64_multiseed8" else SPAN_COUNTERS[op], plain_samples=1,
+            note=f"; the spans call's own bytes (8 B offsets a token) take at least {least:.4f} ms")
+        row(f"{op}-words-buckets-128MB (the padded entry point over the {len(buckets.buckets)} buckets)",
+            lambda padded_call=padded_call: tuple(padded_call(p) for p in buckets.buckets),
+            lambda padded_plain=padded_plain: tuple(padded_plain(p) for p in buckets.buckets),
+            buckets.token_bytes, h_bound, plain_samples=1)
     del buckets, tape
     fill_words = 32 << 20
     row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),
@@ -3243,6 +3478,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "xxh64_tree": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:357"),
         "swh64": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:504"),
         "xxh32": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:179"),
+        "xxh64_spans": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash_pallas.py:74"),
+        "swh64_spans": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:504"),
+        "xxh32_spans": ("stringwars_tpu_torch/csrc/hash.cu", "stringwars_tpu/ops/hash.py:179"),
         "fingerprint": ("stringwars_tpu_torch/csrc/fingerprint.cu", "stringwars_tpu/ops/fingerprint.py:119"),
         "lut_translate": ("stringwars_tpu_torch/csrc/lut.cu", "stringwars_tpu/ops/memops.py:35"),
         "myers": ("stringwars_tpu_torch/csrc/myers.cu", "stringwars_tpu/ops/myers_pallas.py:49"),

@@ -43,6 +43,8 @@ SIGNATURES = {
     "sw_xxh64": (_P, _N, _N, _P, _P, _N, _P, _P),
     "sw_xxh64_tree": (_P, _N, _N, _N, _P, _P),
     "sw_xxh32": (_P, _N, _N, _P, _P, _N, ctypes.c_int, _P, _P),
+    "sw_xxh64_spans": (_P, _N, _P, _N, _P, _N, _P, _P),
+    "sw_xxh32_spans": (_P, _N, _P, _N, _P, _N, ctypes.c_int, _P, _P),
     "sw_fingerprint": (_P, _N, _N, _P, _P, _P, _P, _N, _P, _P, _P),
     "sw_lut_translate": (_P, _N, _P, _P, _P),
     "sw_myers": (_P, _N, _P, _N, _P, _P, _N, _N, _N, _N, _N, _P, _P, _P),
@@ -182,6 +184,16 @@ def require_cuda_bytes(tensor: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected uint8, got {tensor.dtype}")
     if not tensor.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def require_spans(data: torch.Tensor, offsets: torch.Tensor, what: str) -> None:
+    """The checks a spans wrapper makes on a tape's ``data`` and ``offsets``
+    (token ``t`` is ``data[offsets[t] : offsets[t + 1]]``)."""
+    require_cuda_bytes(data, what)
+    if offsets.dtype != torch.int64 or offsets.dim() != 1 or offsets.numel() < 1 or not offsets.is_contiguous():
+        raise ValueError(f"{what}: offsets must be a contiguous int64[count + 1] tensor, got {offsets.dtype}{tuple(offsets.shape)}")
+    if offsets.device != data.device:
+        raise ValueError(f"{what}: offsets on {offsets.device}, data on {data.device}")
 
 
 def aligned_bytes(tensor: torch.Tensor, n: int) -> torch.Tensor:

@@ -8,27 +8,48 @@
 // forms, and the level-0 pass of tree_hash64 (_tree_level :357).
 //
 // What bounds them on an H100: one read of the token bytes (131072 tokens of
-// 1 KiB are 134 MB, about 40 us at 3.35 TB/s); the arithmetic is a few
-// integer operations per 4- or 8-byte word. The design:
+// 1 KiB are 134 MB, about 40 us at 3.35 TB/s; the hash suite's 20.9 M words
+// of 5.4 bytes on average are 113 MB and 167 MB of offsets); the arithmetic
+// is a few integer operations per 4- or 8-byte word. The design:
 //
-// - One thread hashes one token (a row of a padded [rows, stride] matrix),
-//   the whole hash in one pass: stripes, merge, tail and avalanche, with no
-//   split into kernel and epilogue. Native 64-bit integers replace the TPU's
-//   u32 pairs. The tree level, few long chunks, gives each chunk four
-//   threads, one per XXH64 lane (xxh64_tree_kernel says why).
-// - Token-major rows, not the TPU's stripe-major [W4, B] transpose: a thread
-//   reads its row 32 bytes at a time as two 16-byte loads, so every load
-//   instruction of a warp fetches 32 whole 32-byte sectors and no byte is
-//   fetched from device memory twice; no transposed copy of the corpus is
-//   made. (The stripe-major layout would coalesce each load across the warp,
-//   but costs a 2x-corpus staging pass; a later PR can measure the trade.)
+// - One kernel for both layouts a caller holds: a padded [count, width]
+//   matrix (rows: token t is lengths[t] bytes at t * width) and a tape
+//   (spans: token t is data[offsets[t], offsets[t + 1]), read where it lies,
+//   with no padded copy). Only span() in token_walk tells them apart, as in
+//   xxh3.cu; the read path and the cores (rounds, merge, finish, swh64's
+//   second lane) are the same. Native 64-bit integers replace the TPU's u32
+//   pairs, and each hash is whole in one pass (stripes, merge, tail and
+//   avalanche), with no split into kernel and epilogue.
+// - A token of under 32 bytes (no XXH64 stripe; at most one XXH32 stripe)
+//   is one lane's, and a warp's lanes take 32 tokens that follow one another:
+//   on a tape the warp reads one contiguous stretch. A lane reads the
+//   aligned 8-byte words that hold its token and cuts its eight tail words
+//   out of them with funnel shifts (spans.cuh): no byte loads, whatever the
+//   alignment. The next step's spans are loaded before this step's words. On
+//   the hash suite's words the step issues as long as its bytes take, so a
+//   step whose short tokens are all under 16 bytes (nearly every step there)
+//   takes a path that reads at most three words and tells the finish its
+//   length is under 16: no 16..31-byte tail step is issued.
+// - A token of 32 bytes or more is a group's of four lanes, one per
+//   accumulator lane (independent until the merge, as in the tree level),
+//   eight tokens a warp at once: lane i reads word i of each stripe (8 bytes
+//   for XXH64, 4 for XXH32), so a group's load is one stripe, contiguous,
+//   and a warp's load eight stripes. An unaligned token's words are cut from
+//   two aligned words, the next one borrowed from the neighbouring lane by a
+//   shuffle; a few stripes are loaded before the first is used. One lane a
+//   long token (lanes 1 KB apart on 1 KB lines, each reading its words one
+//   by one) would load four times the instructions for the same bytes and
+//   leave each token's rounds to one lane's chain.
+// - A token whose words might reach past either end of the buffer (the
+//   first and last few) reads them guarded (spans.cuh); the others read them
+//   unguarded. No byte outside the buffer is read.
 // - k seeds per token in one pass (at most 8 per launch, more in groups):
-//   each stripe is loaded once and feeds every seed's accumulators.
-// - Tails read exactly the token's bytes, zero-padded to 4-byte words as
-//   XXH32/XXH64 and swh64_ref specify. A padded row may be read up to its
-//   stride; a tree chunk never past the buffer's end, so the flat tape needs
-//   no padding copy.
+//   each word is loaded once and feeds every seed's accumulators.
+// - The tree level, few long chunks, gives each chunk four threads, one per
+//   XXH64 lane, its bytes staged through shared memory (xxh64_tree_kernel
+//   says why).
 #include "common.cuh"
+#include "spans.cuh"
 
 namespace swt {
 
@@ -53,6 +74,15 @@ struct Seeds {
   uint64_t v[kMaxSeeds];
 };
 
+// seeds.v[j] for a j known only at run time, without local memory.
+template <int K>
+__device__ __forceinline__ uint64_t seed_at(const Seeds& seeds, int j) {
+  uint64_t v = seeds.v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) v = j == k ? seeds.v[k] : v;
+  return v;
+}
+
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
@@ -65,42 +95,8 @@ __device__ __forceinline__ uint32_t pick(const uint32_t (&t)[N], int i) {
   return v;
 }
 
-// 32 bytes at p as eight little-endian words: two 16-byte loads when the
-// rows are 16-byte aligned, byte loads otherwise.
-template <bool kVec>
-__device__ __forceinline__ void load32(const uint8_t* p, uint32_t (&w)[8]) {
-  if (kVec) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p + 16));
-    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      w[j] = uint32_t(p[4 * j]) | uint32_t(p[4 * j + 1]) << 8 | uint32_t(p[4 * j + 2]) << 16 |
-             uint32_t(p[4 * j + 3]) << 24;
-    }
-  }
-}
-
-// The r < 32 tail bytes at p as eight zero-padded words. `avail` bytes from
-// p may be read (at least r).
-template <bool kVec>
-__device__ __forceinline__ void load_tail(const uint8_t* p, int r, int64_t avail, uint32_t (&t)[8]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) t[j] = 0;
-  if (r == 0) return;
-  if (kVec && avail >= 32) {
-    load32<true>(p, t);
-  } else if (kVec && r <= 16 && avail >= 16) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    t[0] = a.x; t[1] = a.y; t[2] = a.z; t[3] = a.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      if (i < r) t[i >> 2] |= uint32_t(p[i]) << (8 * (i & 3));
-    }
-  }
+// Zeroes the bytes of the eight words past the first r.
+__device__ __forceinline__ void clip_words(uint32_t (&t)[8], int r) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int valid = min(max(r - 4 * j, 0), 4);
@@ -108,19 +104,174 @@ __device__ __forceinline__ void load_tail(const uint8_t* p, int r, int64_t avail
   }
 }
 
-// Row `row` of a padded matrix: its start, its length (clamped to the
-// stride) and how far it may be read (the stride).
-struct Token {
-  const uint8_t* p;
-  int64_t len;
-  int64_t limit;
-};
+// -- the read path --------------------------------------------------------------
 
-__device__ __forceinline__ Token token_at(const uint8_t* data, int64_t row, int64_t stride,
-                                          const int32_t* lengths) {
-  const int64_t given = lengths[row];
-  const int64_t len = given < 0 ? 0 : (given > stride ? stride : given);
-  return {data + row * stride, len, stride};
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kGroupBytes = 32;  // a token this long or longer is a group's
+
+// The n < 32 bytes of a token at p as eight zero-padded little-endian words,
+// cut from the aligned 8-byte words that hold them.
+template <bool kGuard>
+__device__ __forceinline__ void short_words(uintptr_t p, int n, const Extent& x, uint32_t (&t)[8]) {
+  const int off = static_cast<int>(p & 7);
+  const uintptr_t w = p - off;
+  uint64_t a[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) a[j] = 8 * j < off + n ? word<kGuard>(w + 8 * j, x) : 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int left = n - 8 * j;  // the token's bytes in these 8
+    const uint64_t keep = left >= 8 ? ~uint64_t{0} : (left > 0 ? (uint64_t{1} << (8 * left)) - 1 : 0);
+    const uint64_t v = funnel(a[j], a[j + 1], off) & keep;
+    t[2 * j] = static_cast<uint32_t>(v);
+    t[2 * j + 1] = static_cast<uint32_t>(v >> 32);
+  }
+}
+
+// short_words of a token of n < 16 bytes, read unguarded: at most three
+// aligned words, the upper four words zero.
+__device__ __forceinline__ void small_words(uintptr_t p, int n, const Extent& x, uint32_t (&t)[8]) {
+  const int off = static_cast<int>(p & 7);
+  const uintptr_t w = p - off;
+  uint64_t a[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) a[j] = 8 * j < off + n ? word<false>(w + 8 * j, x) : 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int left = n - 8 * j;
+    const uint64_t keep = left >= 8 ? ~uint64_t{0} : (left > 0 ? (uint64_t{1} << (8 * left)) - 1 : 0);
+    const uint64_t v = funnel(a[j], a[j + 1], off) & keep;
+    t[2 * j] = static_cast<uint32_t>(v);
+    t[2 * j + 1] = static_cast<uint32_t>(v >> 32);
+  }
+#pragma unroll
+  for (int j = 4; j < 8; ++j) t[j] = 0;
+}
+
+template <typename Word, bool kGuard>
+__device__ __forceinline__ Word group_word(uintptr_t w, const Extent& x) {
+  if constexpr (sizeof(Word) == 8) {
+    return word<kGuard>(w, x);
+  } else {
+    return word32<kGuard>(w, x);
+  }
+}
+
+// A group of four lanes walks the `stripes` 4-word stripes of a token at p:
+// lane i = lane & 3 passes word i of each stripe to step, in order. Words
+// are Word-sized (XXH64: 8 bytes, XXH32: 4) and read aligned: lane i loads
+// the aligned word under its value, and an unaligned token's value is cut
+// from it and the next one, lane i + 1's (lane 3: lane 0's of the next
+// stripe, or a load of its own after the last of a batch). kU stripes are
+// loaded before the first is used. `most` (the warp's largest stripe count)
+// paces every lane through the shuffles.
+template <typename Word, int kU, bool kGuard, class Step>
+__device__ __forceinline__ void group_stripes(uintptr_t p, uint32_t stripes, uint32_t most, int lane, const Extent& x,
+                                              Step step) {
+  constexpr int kB = sizeof(Word);
+  const int i = lane & 3, lead = lane & ~3;
+  const int sh = static_cast<int>(p & (kB - 1));
+  const uintptr_t base = p - sh + kB * i;  // lane i's aligned word of stripe 0
+  const bool shifted = __any_sync(kFull, sh != 0);
+  for (uint32_t s = 0; s < most; s += kU) {
+    Word a[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {  // lane 0 also lends the word after the last stripe to lane 3
+      const bool take = s + u < stripes || (i == 0 && sh && stripes && s + u == stripes);
+      a[u] = take ? group_word<Word, kGuard>(base + 4 * kB * (s + u), x) : Word(0);
+    }
+    const Word after = i == 3 && sh && s + kU <= stripes ? group_word<Word, kGuard>(base - 3 * kB + 4 * kB * (s + kU), x) : Word(0);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      Word v = a[u];
+      if (shifted) {
+        const Word down = __shfl_down_sync(kFull, a[u], 1);
+        const Word next = __shfl_sync(kFull, a[u + 1 < kU ? u + 1 : u], lead);
+        v = funnel(a[u], i < 3 ? down : (u + 1 < kU ? next : after), sh);
+      }
+      if (s + u < stripes) step(v);
+    }
+  }
+}
+
+// The r < 32 bytes at p (a long token's tail) as eight zero-padded words in
+// every lane of the group: lane i reads bytes 8i..8i + 7.
+template <bool kGuard>
+__device__ __forceinline__ void group_tail(uintptr_t p, int r, int lane, const Extent& x, uint32_t (&t)[8]) {
+  const int i = lane & 3, off = static_cast<int>(p & 7);
+  const uintptr_t w = p - off + 8 * i;
+  const uint64_t a = 8 * i < r ? word<kGuard>(w, x) : 0;
+  const uint64_t b = 8 * i < r && off ? word<kGuard>(w + 8, x) : 0;
+  const uint64_t v = funnel(a, b, off);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t vk = __shfl_sync(kFull, v, (lane & ~3) + k);
+    t[2 * k] = static_cast<uint32_t>(vk);
+    t[2 * k + 1] = static_cast<uint32_t>(vk >> 32);
+  }
+  clip_words(t, r);
+}
+
+// The walk over the tokens of either layout. Spans (kSpans): token t is
+// data[offsets[t], offsets[t + 1]). Rows: token t is lengths[t] bytes
+// (clamped to [0, width]) at t * width. Either way the buffer is data[0,
+// end). A warp takes 32 tokens a step (grid-stride); short_fn(t, p, n,
+// guard, small) hashes a lane's token of under kGroupBytes (guard:
+// warp-uniform, some token of the step reads a word outside the buffer;
+// small: warp-uniform, every short token of the step is under 16 bytes),
+// and long_fn(t, p, n, has, guard, lane) is called by every lane eight
+// times at most a step, each group of four lanes taking the next long token
+// (has: one is left for the group; guard: warp-uniform).
+template <bool kSpans, class ShortFn, class LongFn>
+__device__ __forceinline__ void token_walk(const uint8_t* data, int64_t end, const int64_t* __restrict__ offsets,
+                                           const int32_t* __restrict__ lengths, int64_t width, int64_t count,
+                                           ShortFn short_fn, LongFn long_fn) {
+  const int lane = threadIdx.x & 31, group = lane >> 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const Extent x{reinterpret_cast<uintptr_t>(data), reinterpret_cast<uintptr_t>(data) + static_cast<uintptr_t>(end)};
+  // [start, stop) of token f + lane (past the count: empty); a warp-wide call.
+  const auto span = [&](int64_t f, int64_t& start, int64_t& stop) {
+    const int64_t t = f + lane;
+    if constexpr (kSpans) {
+      const bool whole = f + 32 <= count;
+      start = whole || t <= count ? __ldg(offsets + t) : 0;
+      stop = __shfl_down_sync(kFull, start, 1);
+      if (lane == 31 && (whole || t < count)) stop = __ldg(offsets + t + 1);
+      if (!whole && t >= count) stop = start;
+    } else {
+      const int32_t len = t < count ? __ldg(lengths + t) : 0;
+      start = t * width;
+      stop = start + (len < 0 ? 0 : (len > width ? width : len));
+    }
+  };
+  int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+  int64_t start = 0, stop = 0;
+  if (first < count) span(first, start, stop);
+  for (; first < count; first += stride) {
+    int64_t next_start = 0, next_stop = 0;
+    if (first + stride < count) span(first + stride, next_start, next_stop);
+    const int64_t t = first + lane;
+    const uintptr_t p = x.lo + static_cast<uintptr_t>(start);
+    const int64_t n = stop - start;
+    const bool is_long = t < count && n >= kGroupBytes;
+    const bool is_short = t < count && !is_long;
+    const bool guard = __any_sync(kFull, is_short && !inside(p, static_cast<uint64_t>(n), x));  // the buffer's ends only
+    const bool small = __all_sync(kFull, !is_short || n < 16);
+    if (is_short) short_fn(t, p, static_cast<int>(n), guard, small);
+    for (unsigned longs = __ballot_sync(kFull, is_long); longs;) {
+      unsigned rest = longs;
+      for (int k = 0; k < group; ++k) rest &= rest - 1;  // the group's: the (group + 1)-th long token left
+      const bool has = rest != 0;
+      const int src = has ? __ffs(rest) - 1 : 0;
+      const uintptr_t q = __shfl_sync(kFull, p, src);
+      const int64_t m = __shfl_sync(kFull, n, src);
+      for (int k = 0; k < 8; ++k) longs &= longs - 1;
+      const bool long_guard = __any_sync(kFull, has && !inside(q, static_cast<uint64_t>(m), x));
+      long_fn(first + src, q, has ? m : 0, has, long_guard, lane);
+    }
+    start = next_start;
+    stop = next_stop;
+  }
 }
 
 // -- XXH64 --------------------------------------------------------------------
@@ -174,39 +325,78 @@ __device__ __forceinline__ uint64_t finish64(const uint64_t (&acc)[4], uint64_t 
   return h;
 }
 
-template <int K, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-xxh64_kernel(const uint8_t* __restrict__ data, int64_t rows, int64_t stride, const int32_t* __restrict__ lengths,
-             Seeds seeds, uint64_t* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= rows) return;
-  const Token tok = token_at(data, row, stride, lengths);
+__device__ __forceinline__ void init64(uint64_t (&acc)[4], uint64_t s) {
+  acc[0] = s + kP64_1 + kP64_2;
+  acc[1] = s + kP64_2;
+  acc[2] = s;
+  acc[3] = s - kP64_1;
+}
 
-  uint64_t acc[K][4];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const uint64_t s = seeds.v[j];
-    acc[j][0] = s + kP64_1 + kP64_2;
-    acc[j][1] = s + kP64_2;
-    acc[j][2] = s;
-    acc[j][3] = s - kP64_1;
-  }
-  const int64_t stripes = tok.len >> 5;
-#pragma unroll 4
-  for (int64_t s = 0; s < stripes; ++s) {
+// Token t of either layout (token_walk) under K seeds, into out[K, count].
+// kMinBlocks: blocks an SM the registers must allow.
+template <int K, bool kSpans, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+xxh64_kernel(const uint8_t* __restrict__ data, int64_t end, const int64_t* __restrict__ offsets,
+             const int32_t* __restrict__ lengths, int64_t width, int64_t count, Seeds seeds, uint64_t* __restrict__ out) {
+  const Extent x{reinterpret_cast<uintptr_t>(data), reinterpret_cast<uintptr_t>(data) + static_cast<uintptr_t>(end)};
+  const auto short_fn = [=](int64_t t, uintptr_t p, int n, bool guard, bool small) {
     uint32_t w[8];
-    load32<kVec>(tok.p + 32 * s, w);
+    const uint64_t none[4] = {0, 0, 0, 0};  // no stripe below 32 bytes
+    if (small && !guard) {  // n < 16, as the finish is told: no 16..31-byte tail step
+      small_words(p, n, x, w);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint64_t lane = uint64_t(w[2 * i]) | uint64_t(w[2 * i + 1]) << 32;
-#pragma unroll
-      for (int j = 0; j < K; ++j) acc[j][i] = round64(acc[j][i], lane);
+      for (int j = 0; j < K; ++j) out[j * count + t] = finish64(none, seeds.v[j], n & 15, w);
+      return;
     }
-  }
-  uint32_t t[8];
-  load_tail<kVec>(tok.p + 32 * stripes, static_cast<int>(tok.len & 31), tok.limit - 32 * stripes, t);
+    if (guard) {
+      short_words<true>(p, n, x, w);
+    } else {
+      short_words<false>(p, n, x, w);
+    }
 #pragma unroll
-  for (int j = 0; j < K; ++j) out[j * rows + row] = finish64(acc[j], seeds.v[j], tok.len, t);
+    for (int j = 0; j < K; ++j) out[j * count + t] = finish64(none, seeds.v[j], n, w);
+  };
+  const auto long_fn = [&](int64_t t, uintptr_t q, int64_t m, bool has, bool guard, int lane) {
+    const int i = lane & 3;
+    uint64_t acc[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      uint64_t a[4];
+      init64(a, seeds.v[j]);
+      acc[j] = i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+    }
+    const uint32_t stripes = static_cast<uint32_t>(m >> 5);
+    const uint32_t most = __reduce_max_sync(kFull, stripes);
+    const auto step = [&](uint64_t v) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc[j] = round64(acc[j], v);
+    };
+    uint32_t w[8];
+    if (guard) {
+      group_stripes<uint64_t, 4, true>(q, stripes, most, lane, x, step);
+      group_tail<true>(q + 32 * static_cast<uintptr_t>(stripes), static_cast<int>(m & 31), lane, x, w);
+    } else {
+      group_stripes<uint64_t, 4, false>(q, stripes, most, lane, x, step);
+      group_tail<false>(q + 32 * static_cast<uintptr_t>(stripes), static_cast<int>(m & 31), lane, x, w);
+    }
+    // The digests: lane i of the group finishes seeds i, i + 4, ..., so that
+    // its four lanes share the K finishes.
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) {
+      uint64_t accs[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int j = 4 * q; j < 4 * q + 4 && j < K; ++j) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint64_t v = __shfl_sync(kFull, acc[j], (lane & ~3) + k);
+          if ((j & 3) == i) accs[k] = v;
+        }
+      }
+      const int j = 4 * q + i;
+      if (has && j < K) out[j * count + t] = finish64(accs, seed_at<K>(seeds, j), m, w);
+    }
+  };
+  token_walk<kSpans>(data, end, offsets, lengths, width, count, short_fn, long_fn);
 }
 
 // -- the tree level -----------------------------------------------------------
@@ -246,7 +436,7 @@ xxh64_kernel(const uint8_t* __restrict__ data, int64_t rows, int64_t stride, con
 //   that lie inside [data, data + n). The at most 15 bytes at the buffer's
 //   head and tail outside them are written into their slots from global
 //   memory by one thread (patch_slice), in the two slices that hold them;
-//   each chunk's tail past its last whole stripe is read by load_tail.
+//   each chunk's tail past its last whole stripe is read by group_tail.
 //   Nothing past n is read. Chunks whose offset is not a multiple of 8
 //   read each word as two aligned 8-byte shared loads and a funnel shift
 //   (kAligned8 false: the tree-hash64-level0-128MB-offset1 row); the
@@ -439,11 +629,10 @@ xxh64_tree_kernel(TreeGrid g, uint64_t* __restrict__ out) {
   uint64_t accs[4];
   const unsigned quad = threadIdx.x & ~3u & 31u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) accs[i] = __shfl_sync(0xffffffffu, acc, quad + i);
-  if (!live || lane != 0) return;
-  uint32_t t[8];
-  load_tail<false>(g.data + row * g.chunk + body, static_cast<int>(len & 31), len - body, t);  // never past n
-  out[row] = finish64(accs, 0, len, t);
+  for (int i = 0; i < 4; ++i) accs[i] = __shfl_sync(kFull, acc, quad + i);
+  uint32_t t[8];  // the chunk's tail, read by its four lanes (dead ones read nothing), never past n
+  group_tail<true>(base + (live ? row * g.chunk + body : 0), static_cast<int>(len & 31), threadIdx.x, Extent{base, base + g.n}, t);
+  if (live && lane == 0) out[row] = finish64(accs, 0, len, t);
 }
 
 // -- the XXH32 core: xxh32 (one lane) and swh64 (two lanes) --------------------
@@ -487,99 +676,139 @@ __device__ __forceinline__ uint32_t avalanche_swh(uint32_t h) {
 
 // L lanes per seed: lane 0 is XXH32 under the seed's low word; for swh64,
 // lane 1 runs over data words ^ kSwhXor under (seed >> 32) ^ kSwhGold.
-template <int K, bool kSwh, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-xxh32_kernel(const uint8_t* __restrict__ data, int64_t rows, int64_t stride, const int32_t* __restrict__ lengths,
-             Seeds seeds, void* __restrict__ out) {
-  constexpr int L = kSwh ? 2 : 1;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= rows) return;
-  const Token tok = token_at(data, row, stride, lengths);
+template <bool kSwh>
+__device__ __forceinline__ uint32_t lane_seed32(uint64_t seed, int l) {
+  return l == 0 ? static_cast<uint32_t>(seed) : static_cast<uint32_t>(seed >> 32) ^ kSwhGold;
+}
 
-  uint32_t seed32[K][L];
-  uint32_t acc[K][L][4];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const uint32_t s = l == 0 ? static_cast<uint32_t>(seeds.v[j]) : static_cast<uint32_t>(seeds.v[j] >> 32) ^ kSwhGold;
-      seed32[j][l] = s;
-      acc[j][l][0] = s + kP32_1 + kP32_2;
-      acc[j][l][1] = s + kP32_2;
-      acc[j][l][2] = s;
-      acc[j][l][3] = s - kP32_1;
-    }
+__device__ __forceinline__ void init32(uint32_t (&acc)[4], uint32_t s) {
+  acc[0] = s + kP32_1 + kP32_2;
+  acc[1] = s + kP32_2;
+  acc[2] = s;
+  acc[3] = s - kP32_1;
+}
+
+// One seed's digest from its lanes' accumulators and the tail words: XXH32
+// (lane 0) or swh64 (both lanes), stored at out[at].
+template <bool kSwh>
+__device__ __forceinline__ void store32(const uint32_t (&lo_acc)[4], const uint32_t (&hi_acc)[4], uint64_t seed, int64_t len,
+                                        const uint32_t (&tail)[4], void* out, int64_t at) {
+  const uint32_t lo_lane = finish32(lo_acc, lane_seed32<kSwh>(seed, 0), len, tail, 0u);
+  if (kSwh) {
+    const uint32_t hi_lane = finish32(hi_acc, lane_seed32<kSwh>(seed, 1), len, tail, kSwhXor);
+    const uint32_t hi = avalanche_swh(hi_lane + rotl32(lo_lane, 16) * kP32_3);
+    const uint32_t lo = avalanche_swh(lo_lane ^ (rotl32(hi_lane, 13) * kP32_4));
+    static_cast<uint64_t*>(out)[at] = uint64_t(hi) << 32 | lo;
+  } else {
+    static_cast<uint32_t*>(out)[at] = lo_lane;
   }
-  auto stripe = [&](uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3) {
-    const uint32_t w[4] = {w0, w1, w2, w3};
+}
+
+// The tokens as xxh64_kernel's; out: [K, count] of uint32 (XXH32) or
+// uint64 (swh64).
+template <int K, bool kSwh, bool kSpans, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+xxh32_kernel(const uint8_t* __restrict__ data, int64_t end, const int64_t* __restrict__ offsets,
+             const int32_t* __restrict__ lengths, int64_t width, int64_t count, Seeds seeds, void* __restrict__ out) {
+  constexpr int L = kSwh ? 2 : 1;
+  const Extent x{reinterpret_cast<uintptr_t>(data), reinterpret_cast<uintptr_t>(data) + static_cast<uintptr_t>(end)};
+  // A token of n < 32 bytes (at most one stripe), one seed at a time.
+  const auto short_fn = [=](int64_t t, uintptr_t p, int n, bool guard, bool small) {
+    uint32_t w[8];
+    if (small && !guard) {  // n < 16, as the finish is told: no stripe
+      small_words(p, n, x, w);
+      const uint32_t tail[4] = {w[0], w[1], w[2], w[3]};
+      const uint32_t none[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const uint32_t x = l == 0 ? 0u : kSwhXor;
+      for (int j = 0; j < K; ++j) store32<kSwh>(none, none, seeds.v[j], n & 15, tail, out, j * count + t);
+      return;
+    }
+    if (guard) {
+      short_words<true>(p, n, x, w);
+    } else {
+      short_words<false>(p, n, x, w);
+    }
+    const bool odd = (n & 16) != 0;  // one whole stripe, then the tail in w[4..7]
+    uint32_t tail[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 4; ++i) tail[i] = odd ? w[4 + i] : w[i];
 #pragma unroll
-        for (int j = 0; j < K; ++j) acc[j][l][i] = round32(acc[j][l][i], w[i] ^ x);
+    for (int j = 0; j < K; ++j) {
+      uint32_t acc[L][4];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        init32(acc[l], lane_seed32<kSwh>(seeds.v[j], l));
+        if (odd) {
+          const uint32_t xv = l == 0 ? 0u : kSwhXor;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[l][i] = round32(acc[l][i], w[i] ^ xv);
+        }
       }
+      store32<kSwh>(acc[0], acc[L - 1], seeds.v[j], n, tail, out, j * count + t);
     }
   };
-  const int64_t pairs = tok.len >> 5;  // two 16-byte stripes per 32-byte load
-#pragma unroll 2
-  for (int64_t s = 0; s < pairs; ++s) {
-    uint32_t w[8];
-    load32<kVec>(tok.p + 32 * s, w);
-    stripe(w[0], w[1], w[2], w[3]);
-    stripe(w[4], w[5], w[6], w[7]);
-  }
-  uint32_t t[8];
-  load_tail<kVec>(tok.p + 32 * pairs, static_cast<int>(tok.len & 31), tok.limit - 32 * pairs, t);
-  const bool odd = (tok.len & 16) != 0;  // one more whole stripe, then the tail in t[4..7]
-  if (odd) stripe(t[0], t[1], t[2], t[3]);
-  uint32_t tail[4];
+  const auto long_fn = [&](int64_t t, uintptr_t q, int64_t m, bool has, bool guard, int lane) {
+    const int i = lane & 3;
+    uint32_t acc[K][L];  // accumulator lane i of each seed and lane
 #pragma unroll
-  for (int i = 0; i < 4; ++i) tail[i] = odd ? t[4 + i] : t[i];
-
+    for (int j = 0; j < K; ++j) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const uint32_t lo_lane = finish32(acc[j][0], seed32[j][0], tok.len, tail, 0u);
-    if (kSwh) {
-      const uint32_t hi_lane = finish32(acc[j][L - 1], seed32[j][L - 1], tok.len, tail, kSwhXor);
-      const uint32_t hi = avalanche_swh(hi_lane + rotl32(lo_lane, 16) * kP32_3);
-      const uint32_t lo = avalanche_swh(lo_lane ^ (rotl32(hi_lane, 13) * kP32_4));
-      static_cast<uint64_t*>(out)[j * rows + row] = uint64_t(hi) << 32 | lo;
-    } else {
-      static_cast<uint32_t*>(out)[j * rows + row] = lo_lane;
+      for (int l = 0; l < L; ++l) {
+        uint32_t a[4];
+        init32(a, lane_seed32<kSwh>(seeds.v[j], l));
+        acc[j][l] = i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+      }
     }
-  }
+    const uint32_t stripes = static_cast<uint32_t>(m >> 4);
+    const uint32_t most = __reduce_max_sync(kFull, stripes);
+    const auto step = [&](uint32_t v) {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const uint32_t xv = v ^ (l == 0 ? 0u : kSwhXor);
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[j][l] = round32(acc[j][l], xv);
+      }
+    };
+    uint32_t w[8];
+    if (guard) {
+      group_stripes<uint32_t, 8, true>(q, stripes, most, lane, x, step);
+      group_tail<true>(q + 16 * static_cast<uintptr_t>(stripes), static_cast<int>(m & 15), lane, x, w);
+    } else {
+      group_stripes<uint32_t, 8, false>(q, stripes, most, lane, x, step);
+      group_tail<false>(q + 16 * static_cast<uintptr_t>(stripes), static_cast<int>(m & 15), lane, x, w);
+    }
+    const uint32_t tail[4] = {w[0], w[1], w[2], w[3]};
+    // The digests: lane i of the group finishes seeds i, i + 4, ...
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) {
+      uint32_t accs[L][4] = {};
+#pragma unroll
+      for (int j = 4 * q; j < 4 * q + 4 && j < K; ++j) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint32_t v = __shfl_sync(kFull, acc[j][l], (lane & ~3) + k);
+            if ((j & 3) == i) accs[l][k] = v;
+          }
+        }
+      }
+      const int j = 4 * q + i;
+      if (has && j < K) store32<kSwh>(accs[0], accs[L - 1], seed_at<K>(seeds, j), m, tail, out, j * count + t);
+    }
+  };
+  token_walk<kSpans>(data, end, offsets, lengths, width, count, short_fn, long_fn);
 }
 
 // -- launch -------------------------------------------------------------------
 
+// Blocks an SM the registers must allow, for one or two seeds and for more
+// (tools/hopper_probes.py spans times other settings).
+constexpr int kMinBlocksFew = 5;
+constexpr int kMinBlocksMany = 3;
+
 template <int K>
-void launch_xxh64(const uint8_t* data, int64_t rows, int64_t stride, const int32_t* lengths, const Seeds& seeds,
-                  uint64_t* out, cudaStream_t stream, bool vec) {
-  const int blocks = static_cast<int>((rows + kThreads - 1) / kThreads);
-  if (vec) {
-    xxh64_kernel<K, true><<<blocks, kThreads, 0, stream>>>(data, rows, stride, lengths, seeds, out);
-  } else {
-    xxh64_kernel<K, false><<<blocks, kThreads, 0, stream>>>(data, rows, stride, lengths, seeds, out);
-  }
-}
-
-template <int K, bool kSwh>
-void launch_xxh32(const uint8_t* data, int64_t rows, int64_t stride, const int32_t* lengths, const Seeds& seeds,
-                  void* out, cudaStream_t stream, bool vec) {
-  const int blocks = static_cast<int>((rows + kThreads - 1) / kThreads);
-  if (vec) {
-    xxh32_kernel<K, kSwh, true><<<blocks, kThreads, 0, stream>>>(data, rows, stride, lengths, seeds, out);
-  } else {
-    xxh32_kernel<K, kSwh, false><<<blocks, kThreads, 0, stream>>>(data, rows, stride, lengths, seeds, out);
-  }
-}
-
-// Rows start 16-byte aligned: the stripes are read as 16-byte vectors.
-inline bool rows_aligned(const void* data, int64_t stride) {
-  return (reinterpret_cast<uintptr_t>(data) & 15) == 0 && (stride & 15) == 0;
-}
+constexpr int min_blocks() { return K <= 2 ? kMinBlocksFew : kMinBlocksMany; }
 
 // Seeds [first, first + count) of `seeds`, for one launch.
 inline Seeds seed_group(const uint64_t* seeds, int64_t first, int count) {
@@ -588,38 +817,69 @@ inline Seeds seed_group(const uint64_t* seeds, int64_t first, int count) {
   return g;
 }
 
-}  // namespace swt
+// The hashes a launch computes.
+enum class Hash { kXxh64, kXxh32, kSwh64 };
 
-#define SWT_SEED_SWITCH(count, CALL) \
-  switch (count) {                   \
-    case 1: CALL(1); break;          \
-    case 2: CALL(2); break;          \
-    case 3: CALL(3); break;          \
-    case 4: CALL(4); break;          \
-    case 5: CALL(5); break;          \
-    case 6: CALL(6); break;          \
-    case 7: CALL(7); break;          \
-    default: CALL(8); break;         \
+// One launch over the tokens of either layout (token_walk; offsets null:
+// rows) under K seeds: a resident grid of warps striding over the tokens.
+template <int K>
+void launch(Hash hash, const uint8_t* data, int64_t end, const int64_t* offsets, const int32_t* lengths, int64_t width,
+            int64_t count, const Seeds& seeds, void* out, cudaStream_t stream) {
+  const auto run = [&](auto kernel, auto* digests) {
+    const int grid = resident_grid(kernel, 0, (count + kThreads - 1) / kThreads);
+    kernel<<<grid, kThreads, 0, stream>>>(data, end, offsets, lengths, width, count, seeds, digests);
+  };
+  constexpr int kMin = min_blocks<K>();
+  const bool spans = offsets != nullptr;
+  if (hash == Hash::kXxh64) {
+    run(spans ? xxh64_kernel<K, true, kMin> : xxh64_kernel<K, false, kMin>, static_cast<uint64_t*>(out));
+  } else if (hash == Hash::kSwh64) {
+    run(spans ? xxh32_kernel<K, true, true, kMin> : xxh32_kernel<K, true, false, kMin>, out);
+  } else {
+    run(spans ? xxh32_kernel<K, false, true, kMin> : xxh32_kernel<K, false, false, kMin>, out);
   }
+}
 
-// XXH64 of the rows of a padded matrix (row stride `stride`, int32 lengths)
-// under k seeds (a host array), into out[k, rows].
-extern "C" int sw_xxh64(const void* data, int64_t rows, int64_t stride, const void* lengths, const void* seeds,
-                        int64_t k, void* out, void* stream) {
+// Every group of 8 seeds of k, one launch each; out [k, count] of 8-byte
+// (XXH64, swh64) or 4-byte (XXH32) digests.
+inline int hash_tokens(Hash hash, const void* data, int64_t end, const void* offsets, const void* lengths, int64_t width,
+                       int64_t count, const void* seeds, int64_t k, void* out, void* stream) {
+  if (count <= 0 || end < 0 || k <= 0 || seeds == nullptr || (offsets == nullptr) == (lengths == nullptr) ||
+      (offsets == nullptr && (width <= 0 || end != count * width))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* bytes = static_cast<const uint8_t*>(data);
+  const auto* spans = static_cast<const int64_t*>(offsets);
   const auto* lens = static_cast<const int32_t*>(lengths);
   const auto* all = static_cast<const uint64_t*>(seeds);
-  auto* digests = static_cast<uint64_t*>(out);
-  const bool vec = swt::rows_aligned(data, stride);
-  for (int64_t first = 0; first < k; first += swt::kMaxSeeds) {
-    const int count = static_cast<int>(k - first < swt::kMaxSeeds ? k - first : swt::kMaxSeeds);
-    const swt::Seeds group = swt::seed_group(all, first, count);
-    uint64_t* dst = digests + first * rows;
-#define SWT_CALL(K) swt::launch_xxh64<K>(bytes, rows, stride, lens, group, dst, static_cast<cudaStream_t>(stream), vec)
-    SWT_SEED_SWITCH(count, SWT_CALL)
-#undef SWT_CALL
+  const int64_t item = hash == Hash::kXxh32 ? 4 : 8;
+  const auto s = static_cast<cudaStream_t>(stream);
+  for (int64_t first = 0; first < k; first += kMaxSeeds) {
+    const int n = static_cast<int>(k - first < kMaxSeeds ? k - first : kMaxSeeds);
+    const Seeds group = seed_group(all, first, n);
+    void* dst = static_cast<uint8_t*>(out) + first * count * item;
+    switch (n) {
+      case 1: launch<1>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 2: launch<2>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 3: launch<3>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 4: launch<4>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 5: launch<5>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 6: launch<6>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      case 7: launch<7>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+      default: launch<8>(hash, bytes, end, spans, lens, width, count, group, dst, s); break;
+    }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace swt
+
+// XXH64 of the rows of a padded matrix (data uint8[rows, stride], int32
+// lengths clamped to [0, stride]) under k seeds (a host array), into
+// out[k, rows].
+extern "C" int sw_xxh64(const void* data, int64_t rows, int64_t stride, const void* lengths, const void* seeds,
+                        int64_t k, void* out, void* stream) {
+  return swt::hash_tokens(swt::Hash::kXxh64, data, rows * stride, nullptr, lengths, stride, rows, seeds, k, out, stream);
 }
 
 // The tree level: XXH64 (seed 0) of each `chunk`-byte piece of n flat bytes,
@@ -657,25 +917,25 @@ extern "C" int sw_xxh64_tree(const void* data, int64_t chunks, int64_t chunk, in
 // (swh = 1: out uint64[k, rows]) of the rows of a padded matrix.
 extern "C" int sw_xxh32(const void* data, int64_t rows, int64_t stride, const void* lengths, const void* seeds,
                         int64_t k, int swh, void* out, void* stream) {
-  const auto* bytes = static_cast<const uint8_t*>(data);
-  const auto* lens = static_cast<const int32_t*>(lengths);
-  const auto* all = static_cast<const uint64_t*>(seeds);
-  const bool vec = swt::rows_aligned(data, stride);
-  const int64_t item = swh ? 8 : 4;
-  for (int64_t first = 0; first < k; first += swt::kMaxSeeds) {
-    const int count = static_cast<int>(k - first < swt::kMaxSeeds ? k - first : swt::kMaxSeeds);
-    const swt::Seeds group = swt::seed_group(all, first, count);
-    void* dst = static_cast<uint8_t*>(out) + first * rows * item;
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (swh) {
-#define SWT_CALL(K) swt::launch_xxh32<K, true>(bytes, rows, stride, lens, group, dst, s, vec)
-      SWT_SEED_SWITCH(count, SWT_CALL)
-#undef SWT_CALL
-    } else {
-#define SWT_CALL(K) swt::launch_xxh32<K, false>(bytes, rows, stride, lens, group, dst, s, vec)
-      SWT_SEED_SWITCH(count, SWT_CALL)
-#undef SWT_CALL
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return swt::hash_tokens(swh ? swt::Hash::kSwh64 : swt::Hash::kXxh32, data, rows * stride, nullptr, lengths, stride, rows,
+                          seeds, k, out, stream);
+}
+
+// The spans form: token t is data[offsets[t], offsets[t + 1]) of the
+// buffer's `end` bytes (offsets int64[count + 1], nondecreasing, within
+// [0, end]); XXH64 under k seeds (a host array) into out uint64[k, count].
+// No byte outside the buffer is read.
+extern "C" int sw_xxh64_spans(const void* data, int64_t end, const void* offsets, int64_t count, const void* seeds,
+                              int64_t k, void* out, void* stream) {
+  if (offsets == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return swt::hash_tokens(swt::Hash::kXxh64, data, end, offsets, nullptr, 0, count, seeds, k, out, stream);
+}
+
+// The spans form of sw_xxh32: XXH32 (swh = 0: out uint32[k, count]) or
+// swh64 (swh = 1: out uint64[k, count]).
+extern "C" int sw_xxh32_spans(const void* data, int64_t end, const void* offsets, int64_t count, const void* seeds,
+                              int64_t k, int swh, void* out, void* stream) {
+  if (offsets == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return swt::hash_tokens(swh ? swt::Hash::kSwh64 : swt::Hash::kXxh32, data, end, offsets, nullptr, 0, count, seeds, k, out,
+                          stream);
 }

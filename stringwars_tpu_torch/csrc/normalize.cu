@@ -45,15 +45,49 @@
 // sw_nf_compose_rows replaces normalize.py::_compose_scan (:429) with
 // _nfc_padded's compaction (:614): a lax.scan over the whole stream carrying
 // (starter, last ccc), then a segment pass resolving each starter slot and a
-// scatter to compact. One thread a row, in place: the walk carries the
-// starter, the slot where it was written and the ccc of the last kept
-// codepoint; a codepoint not blocked from the starter (the last ccc 0 or
+// scatter to compact. The walk it runs: a codepoint not blocked from the
+// last starter (nothing kept since the starter, or the last kept class
 // below its own) that composes with it (Hangul L+V and LV+T by arithmetic,
 // else the primary composite of the dense [n_s, n_c] table at the two
-// codepoints' ranks) replaces the starter in its slot and is dropped; every
-// other codepoint is kept at the row's next slot. Writes never pass the
-// read position, so the row is its own output; the slots past the kept
-// count are zeroed. Bound: the bytes, 4 a live codepoint read and written.
+// codepoints' ranks) replaces the starter and is dropped; every other
+// codepoint is kept, a class-0 one becoming the starter. Bound: the bytes,
+// 4 a live codepoint read and written, 4 a count read and a kept count
+// written. In place, kComposeLanes lanes a row (a warp takes four rows):
+// - a lane takes four consecutive codepoints (one 16-byte load where the row
+//   allows), 32 a chunk of a row, and looks up their classes in a class
+//   table whose first 48 KB (every codepoint below U+C000) the block stages
+//   in shared memory, as nf_reorder does; a warp with a codepoint above it
+//   reads those classes through __ldg. The table is the ccc table with every
+//   class-0 second element of a primary composite marked kCombiner (the
+//   Hangul V and T jamo and 24 others in Unicode 15:
+//   ops/normalize.compose_classes).
+// - the walk resets at every other class-0 codepoint (a reset point): it
+//   becomes the starter, and nothing before it can compose with anything
+//   after it. So a row splits into chains, each a reset point and what
+//   follows up to the next: a segment (a starter and its marks) and the
+//   segments after it led by a combiner, whose leading starter may compose
+//   into the chain's starter (L V T; U+0CC6 U+0CC2 U+0CD5). A reset point
+//   followed by another is a chain that composes nothing. The others are
+//   listed by their rank in the chunk (ballots), and the row's lane j walks
+//   chains j, j + kComposeLanes, ... sequentially from the chunk's copy in
+//   shared memory: the walk is as long as the longest chain, not a lane's
+//   four positions and what follows them.
+// - a walk marks each dropped codepoint's class in the copy and writes each
+//   composed starter over the starter's place in it; the lanes then write
+//   the kept codepoints at the exclusive sum of the kept counts before them,
+//   behind every codepoint the row's lanes have read (a chunk with nothing
+//   dropped and nothing dropped before it is not written). The chain that
+//   reaches a chunk's end is carried into the next chunk (its starter, the
+//   row position it was written to, the last kept class), where it is walked
+//   on; a composition into a starter of an earlier chunk is written to the
+//   row directly. The slots past the kept count are zeroed.
+// - Chosen on an H100 (tools/hopper_probes.py compose, PERF.md): a warp a
+//   row spends its instructions on ballots, scans and idle lanes over the
+//   corpus' rows of about 64 codepoints (0.887 ms on nfc-of-nfd, 0.59 of it
+//   with no chain walked); half a warp 0.500, a quarter 0.484. A walk that
+//   took a lane's four positions and what follows them, speculative
+//   composites looked up for every position at once, and the next row
+//   loaded a row ahead were each slower or no faster.
 #include "common.cuh"
 
 namespace swt {
@@ -253,48 +287,219 @@ nf_reorder_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ counts
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kComposeThreads = 512;
+constexpr int kComposeMinBlocks = 2;   // blocks an SM the registers must allow
+constexpr int kComposeLanes = 8;       // lanes a row: a warp takes 32 / kComposeLanes rows at once
+constexpr uint8_t kCombiner = 255;     // class-table mark of a class-0 second element
+constexpr uint8_t kDropped = 254;      // a dropped codepoint's class in a warp's copy
+constexpr int kComposeWarps = kComposeThreads / 32;
+// Dynamic shared memory: the staged class table, then each warp's copy of
+// its chunks (128 codepoints, their classes, the first position of each
+// chain).
+constexpr size_t kComposeWarpBytes = 128 * 6;
+constexpr size_t kComposeShared = kCccShared + kComposeWarps * kComposeWarpBytes;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kComposeThreads, kComposeMinBlocks)
 nf_compose_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ counts, int32_t* __restrict__ kept,
-                  int64_t rows, int64_t width, const uint8_t* __restrict__ ccc, int32_t ccc_size,
+                  int64_t rows, int64_t width, const uint8_t* __restrict__ classes, int32_t classes_size,
                   const int32_t* __restrict__ s_rank, int32_t s_size, const int32_t* __restrict__ c_rank, int32_t c_size,
                   const int32_t* __restrict__ dense, int32_t n_c) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  int32_t* row = data + r * width;
-  const int64_t n = min(static_cast<int64_t>(__ldg(counts + r)), width);
-  int32_t starter = -1, last_cc = 0;
-  int64_t slot = 0, out = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    const int32_t cp = row[i];
-    const int32_t c = __ldg(ccc + clamped(cp, ccc_size));
-    int32_t composed = -1;
-    if (starter >= 0 && (last_cc == 0 || last_cc < c)) {
-      if (starter >= kLBase && starter < kLBase + kLCount && cp >= kVBase && cp < kVBase + kVCount) {
-        composed = kSBase + ((starter - kLBase) * kVCount + (cp - kVBase)) * kTCount;
-      } else if (starter >= kSBase && starter < kSBase + kSCount && (starter - kSBase) % kTCount == 0 && cp > kTBase &&
-                 cp < kTBase + kTCount) {
-        composed = starter + (cp - kTBase);
-      } else {
-        const int32_t pair = __ldg(dense + __ldg(s_rank + clamped(starter, s_size)) * n_c + __ldg(c_rank + clamped(cp, c_size)));
-        if (pair > 0) composed = pair;
-      }
-    }
-    if (composed >= 0) {
-      starter = composed;
-      row[slot] = composed;
-    } else {
-      if (c == 0) {
-        starter = cp;
-        slot = out;
-        last_cc = 0;
-      } else {
-        last_cc = c;
-      }
-      row[out++] = cp;
-    }
+  constexpr int kLanes = kComposeLanes;
+  constexpr int kChunk = 4 * kLanes;  // codepoints a row's lanes take at once: four a lane
+  constexpr int kRowsAWarp = 32 / kLanes;
+  extern __shared__ __align__(16) uint8_t shared[];
+  uint8_t* table = shared;
+  const int32_t staged = min(classes_size, kCccShared);
+  for (int32_t k = threadIdx.x; k < staged / 16; k += kComposeThreads) {
+    reinterpret_cast<uint4*>(table)[k] = __ldg(reinterpret_cast<const uint4*>(classes) + k);
   }
-  for (int64_t i = out; i < n; ++i) row[i] = 0;
-  kept[r] = static_cast<int32_t>(out);
+  for (int32_t k = (staged & ~15) + threadIdx.x; k < staged; k += kComposeThreads) table[k] = __ldg(classes + k);
+  __syncthreads();
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane / kLanes, hl = lane % kLanes;  // the lane's row of the warp, and its place in the row's lanes
+  const unsigned below_lane = (1u << hl) - 1u, above_lane = ~((2u << hl) - 1u);
+  // A warp-wide ballot's bits of the lane's row.
+  const auto mine = [&](unsigned ballot) -> unsigned {
+    return (ballot >> (kLanes * sub)) & ((1u << kLanes) - 1u);
+  };
+  const int off = kChunk * sub;  // the row's place in the warp's copies
+  int32_t* cps = reinterpret_cast<int32_t*>(shared + kCccShared + warp * kComposeWarpBytes);  // the chunks' codepoints
+  uint8_t* cls = reinterpret_cast<uint8_t*>(cps + 128);  // their classes
+  uint8_t* chain_from = cls + 128;  // each chain's first position, in order
+  const auto class_of = [&](int32_t cp) -> uint32_t {
+    return static_cast<uint32_t>(cp) < static_cast<uint32_t>(staged) ? table[cp] : __ldg(classes + clamped(cp, classes_size));
+  };
+  const int32_t e = 4 * hl;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kComposeWarps * kRowsAWarp;
+  for (int64_t first = (static_cast<int64_t>(blockIdx.x) * kComposeWarps + warp) * kRowsAWarp; first < rows; first += stride) {
+    const int64_t r = first + sub;
+    int32_t* row = data + r * width;
+    const int32_t n = r < rows ? static_cast<int32_t>(min(static_cast<int64_t>(__ldg(counts + r)), width)) : 0;
+    // The walk's state carried into the next chunk: the starter (-1: none
+    // yet), the row position it was written to, the last kept class.
+    int32_t starter = -1, slot = -1, last_cc = 0;
+    int32_t out = 0;  // codepoints kept so far
+    for (int32_t base = 0; __any_sync(kFull, base < n); base += kChunk) {  // the warp's rows, chunk by chunk
+      const int32_t nc = max(min(n - base, kChunk), 0);
+      const int4 v = load4<kVec>(row + base, e, nc);
+      const int32_t vals[4] = {v.x, v.y, v.z, v.w};
+      uint32_t c[4];
+      const uint32_t top = max(max(static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y)),
+                               max(static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)));
+      if (__any_sync(kFull, top >= static_cast<uint32_t>(staged))) {  // a codepoint past the staged table
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c[k] = class_of(vals[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c[k] = table[vals[k]];
+      }
+      reinterpret_cast<int4*>(cps + off)[hl] = v;
+      reinterpret_cast<uint32_t*>(cls + off)[hl] = c[0] | c[1] << 8 | c[2] << 16 | c[3] << 24;
+      // Chains: a reset point followed by a codepoint that is none (a reset
+      // point followed by another composes with nothing), and position 0
+      // when it is none (the chain carried in); each ends before the next
+      // reset point. A lane lists the chains that begin in its four
+      // positions, at their rank among the chunk's.
+      bool reset[4], live[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        live[k] = e + k < nc;
+        reset[k] = live[k] && c[k] == 0;
+      }
+      // Whether position e + 4 (the next lane's first) is live and no reset point.
+      const bool next_mark = __shfl_down_sync(kFull, static_cast<int>(live[0] && !reset[0]), 1, kLanes) && hl < kLanes - 1;
+      bool begins[4];
+      int32_t count = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool mark_after = k < 3 ? live[k + 1] && !reset[k + 1] : next_mark;
+        begins[k] = (reset[k] && mark_after) || (e + k == 0 && live[k] && !reset[k]);
+        count += begins[k];
+      }
+      const unsigned b0 = mine(__ballot_sync(kFull, count & 1)), b1 = mine(__ballot_sync(kFull, count & 2)),
+                     b2 = mine(__ballot_sync(kFull, count & 4));
+      int32_t rank = __popc(b0 & below_lane) + 2 * __popc(b1 & below_lane) + 4 * __popc(b2 & below_lane);
+      const int32_t chains = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (begins[k]) chain_from[off + rank++] = static_cast<uint8_t>(e + k);
+      }
+      __syncwarp();
+      // The walk: the row's lane j takes its chains j, j + kLanes, ...; the
+      // chain that reaches the chunk's end leaves its state to the next.
+      int32_t w_starter = -1, w_spos = -1, w_last = 0;
+      bool w_has = false;
+      for (int32_t j = hl; j < chains; j += kLanes) {
+        const int32_t from = chain_from[off + j];
+        int32_t st, spos, lc, pos;
+        if (from == 0 && cls[off] != 0) {  // the chain carried in
+          st = starter;
+          spos = -1;
+          lc = last_cc;
+          pos = 0;
+        } else {
+          st = cps[off + from];
+          spos = from;
+          lc = 0;
+          pos = from + 1;
+        }
+        for (; pos < nc; ++pos) {
+          const uint32_t k = cls[off + pos];
+          if (k == 0) break;  // the next reset point: the chain's end
+          const int32_t cp = cps[off + pos];
+          const bool combiner = k == kCombiner;
+          const int32_t cc = combiner ? 0 : static_cast<int32_t>(k);
+          int32_t composed = -1;
+          if (st >= 0 && (lc == 0 || lc < cc)) {  // not blocked: the primary composite, if any
+            if (combiner) {  // Hangul V and T are combiners; L+V and LV+T compose by arithmetic
+              if (st >= kLBase && st < kLBase + kLCount && cp >= kVBase && cp < kVBase + kVCount) {
+                composed = kSBase + ((st - kLBase) * kVCount + (cp - kVBase)) * kTCount;
+              } else if (st >= kSBase && st < kSBase + kSCount && (st - kSBase) % kTCount == 0 && cp > kTBase &&
+                         cp < kTBase + kTCount) {
+                composed = st + (cp - kTBase);
+              }
+            }
+            if (composed < 0) {
+              const int32_t pair = __ldg(dense + __ldg(s_rank + clamped(st, s_size)) * n_c + __ldg(c_rank + clamped(cp, c_size)));
+              composed = pair > 0 ? pair : -1;
+            }
+          }
+          if (composed >= 0) {
+            st = composed;
+            cls[off + pos] = kDropped;
+            if (spos >= 0) {
+              cps[off + spos] = composed;
+            } else {
+              row[slot] = composed;  // the carried starter, written in an earlier chunk
+            }
+          } else if (combiner) {  // a class-0 codepoint kept: the new starter
+            st = cp;
+            spos = pos;
+            lc = 0;
+          } else {
+            lc = cc;
+          }
+        }
+        if (pos == nc) {
+          w_starter = st;
+          w_spos = spos;
+          w_last = lc;
+          w_has = true;
+        }
+      }
+      const unsigned carrier = mine(__ballot_sync(kFull, w_has));  // else the chunk ends at a reset point
+      const int src = carrier ? sub * kLanes + __ffs(carrier) - 1 : lane;
+      w_starter = __shfl_sync(kFull, w_starter, src);
+      w_spos = __shfl_sync(kFull, w_spos, src);
+      w_last = __shfl_sync(kFull, w_last, src);
+      __syncwarp();
+      // Compaction: each kept codepoint at `out` plus the kept ones before it.
+      const int4 w = reinterpret_cast<const int4*>(cps + off)[hl];
+      const uint32_t k4 = reinterpret_cast<const uint32_t*>(cls + off)[hl];
+      const int32_t now[4] = {w.x, w.y, w.z, w.w};
+      bool keep[4];
+      int32_t kept_here = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        keep[k] = live[k] && ((k4 >> (8 * k)) & 0xFF) != kDropped;
+        kept_here += keep[k];
+      }
+      const unsigned k0 = mine(__ballot_sync(kFull, kept_here & 1)), k1 = mine(__ballot_sync(kFull, kept_here & 2)),
+                     k2 = mine(__ballot_sync(kFull, kept_here & 4));
+      const int32_t before = __popc(k0 & below_lane) + 2 * __popc(k1 & below_lane) + 4 * __popc(k2 & below_lane);
+      const int32_t total = __popc(k0) + 2 * __popc(k1) + 4 * __popc(k2);
+      if (out != base || total != nc) {
+        int32_t at = out + before;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (keep[k]) row[at++] = now[k];
+        }
+      }
+      // The state carried on, the starter's row position among it.
+      int32_t below = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) below += keep[k] && e + k < w_spos;
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1) below += __shfl_xor_sync(kFull, below, o);
+      if (nc > 0) {
+        if (carrier) {
+          starter = w_starter;
+          last_cc = w_last;
+          if (w_spos >= 0) slot = out + below;
+        } else {  // the chunk ends at a reset point, kept: the starter
+          starter = cps[off + nc - 1];
+          slot = out + total - 1;
+          last_cc = 0;
+        }
+      }
+      out += total;
+      __syncwarp();
+    }
+    for (int32_t d = out + hl; d < n; d += kLanes) row[d] = 0;
+    if (hl == 0 && r < rows) kept[r] = out;
+  }
 }
 
 }  // namespace swt
@@ -338,19 +543,27 @@ extern "C" int sw_nf_reorder_rows(void* data, const void* counts, int64_t rows, 
 }
 
 // data: int32[rows, width], composed in place; counts: int32[rows]; kept:
-// int32[rows] out; ccc: uint8[ccc_size]; s_rank, c_rank: int32 rank maps;
-// dense: int32[n_s * n_c] primary composites by rank.
-extern "C" int sw_nf_compose_rows(void* data, const void* counts, void* kept, int64_t rows, int64_t width, const void* ccc,
-                                  int64_t ccc_size, const void* s_rank, int64_t s_size, const void* c_rank, int64_t c_size,
+// int32[rows] out; classes: uint8[classes_size], 16-byte aligned, the ccc
+// table with the class-0 second elements marked kCombiner (a codepoint past
+// it takes its last entry); s_rank, c_rank: int32 rank maps; dense:
+// int32[n_s * n_c] primary composites by rank.
+extern "C" int sw_nf_compose_rows(void* data, const void* counts, void* kept, int64_t rows, int64_t width, const void* classes,
+                                  int64_t classes_size, const void* s_rank, int64_t s_size, const void* c_rank, int64_t c_size,
                                   const void* dense, int64_t n_c, void* stream) {
-  if (rows <= 0 || width <= 0 || ccc_size <= 0 || s_size <= 0 || c_size <= 0 || n_c <= 0 || ccc_size >= (int64_t{1} << 31) ||
-      s_size >= (int64_t{1} << 31) || c_size >= (int64_t{1} << 31)) {
+  if (rows <= 0 || width <= 0 || classes_size <= 0 || s_size <= 0 || c_size <= 0 || n_c <= 0 || width >= (int64_t{1} << 31) ||
+      classes_size >= (int64_t{1} << 31) || s_size >= (int64_t{1} << 31) || c_size >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t blocks = (rows + swt::kThreads - 1) / swt::kThreads;
-  swt::nf_compose_kernel<<<static_cast<unsigned>(blocks), swt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // Rows of another width or alignment are read 4 bytes a load.
+  const auto kernel = width % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0
+                          ? swt::nf_compose_kernel<true>
+                          : swt::nf_compose_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(swt::kComposeShared));
+  const int64_t rows_a_block = swt::kComposeWarps * (32 / swt::kComposeLanes);
+  const int grid = swt::resident_grid(kernel, swt::kComposeShared, (rows + rows_a_block - 1) / rows_a_block, swt::kComposeThreads);
+  kernel<<<grid, swt::kComposeThreads, swt::kComposeShared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(data), static_cast<const int32_t*>(counts), static_cast<int32_t*>(kept), rows, width,
-      static_cast<const uint8_t*>(ccc), static_cast<int32_t>(ccc_size), static_cast<const int32_t*>(s_rank),
+      static_cast<const uint8_t*>(classes), static_cast<int32_t>(classes_size), static_cast<const int32_t*>(s_rank),
       static_cast<int32_t>(s_size), static_cast<const int32_t*>(c_rank), static_cast<int32_t>(c_size),
       static_cast<const int32_t*>(dense), static_cast<int32_t>(n_c));
   return static_cast<int>(cudaGetLastError());

@@ -49,6 +49,7 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "spans.cuh"
 
 namespace swt {
 
@@ -66,42 +67,6 @@ constexpr uint64_t kP32_1 = 2654435761ull, kP32_2 = 2246822519ull, kP32_3 = 3266
 constexpr uint64_t kP64_1 = 0x9E3779B185EBCA87ull, kP64_2 = 0xC2B2AE3D27D4EB4Full, kP64_3 = 0x165667B19E3779F9ull;
 constexpr uint64_t kP64_4 = 0x85EBCA77C2B2AE63ull, kP64_5 = 0x27D4EB2F165667C5ull;
 constexpr unsigned kFull = 0xffffffffu;
-
-// The readable bytes [lo, hi).
-struct Extent {
-  uintptr_t lo, hi;
-};
-
-// Whether the aligned words a token at p of n bytes reads, [p & ~7, (p & ~7)
-// + n + 16), lie inside the extent: then it reads them unguarded.
-__device__ __forceinline__ bool inside(uintptr_t p, uint64_t n, const Extent& x) {
-  const uintptr_t w = p & ~uintptr_t{7};
-  return w >= x.lo && w + n + 16 <= x.hi;
-}
-
-// The 8-byte word at the aligned address w, little-endian; guarded, bytes
-// outside the extent read as 0.
-template <bool kGuard>
-__device__ __forceinline__ uint64_t word(uintptr_t w, const Extent& x) {
-  if (!kGuard || (w >= x.lo && w + 8 <= x.hi)) return __ldg(reinterpret_cast<const unsigned long long*>(w));
-  uint64_t v = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (w + k >= x.lo && w + k < x.hi) v |= static_cast<uint64_t>(__ldg(reinterpret_cast<const uint8_t*>(w + k))) << (8 * k);
-  }
-  return v;
-}
-
-// The 8 bytes that start s bytes (0..7) into the 16 bytes a:b.
-__device__ __forceinline__ uint64_t funnel(uint64_t a, uint64_t b, int s) {
-  const bool high = s >= 4;
-  const uint32_t x0 = high ? static_cast<uint32_t>(a >> 32) : static_cast<uint32_t>(a);
-  const uint32_t x1 = high ? static_cast<uint32_t>(b) : static_cast<uint32_t>(a >> 32);
-  const uint32_t x2 = high ? static_cast<uint32_t>(b >> 32) : static_cast<uint32_t>(b);
-  const unsigned shift = (8 * s) & 31;
-  return static_cast<uint64_t>(__funnelshift_r(x0, x1, shift)) |
-         (static_cast<uint64_t>(__funnelshift_r(x1, x2, shift)) << 32);
-}
 
 __device__ __forceinline__ uint64_t bswap64(uint64_t x) {
   const uint32_t lo = static_cast<uint32_t>(x), hi = static_cast<uint32_t>(x >> 32);

@@ -10,6 +10,10 @@ The port of ``stringwars_tpu.ops.hash``, digest for digest:
   ``swh64_multiseed`` under k seeds.
 - ``tree_hash64`` — XXH64 (seed 0) of every 64 KiB chunk of a buffer, then
   of the little-endian digest tape, until one digest remains.
+- ``xxh64_spans`` / ``xxh32_spans`` / ``swh64_spans`` /
+  ``swh64_multiseed_spans`` — the same digests of a tape's tokens where they
+  lie (token ``t`` is ``data[offsets[t] : offsets[t + 1]]``), with no padded
+  copy: one launch a call (``csrc/hash.cu``'s spans form).
 
 Digests come back as the JAX package shapes them, ``[batch]`` or
 ``[k, batch]``, but as native tensors: ``uint32`` for xxh32, ``uint64``
@@ -31,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from stringwars_tpu_torch.tape import PaddedTokens
+from stringwars_tpu_torch.tape import PaddedTokens, _pad_spans
 
 _M32 = 0xFFFFFFFF
 
@@ -69,8 +73,11 @@ def _seeds(seeds) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def _words(tokens: PaddedTokens) -> torch.Tensor:
-    """int64[B, W/4]: the rows as little-endian u32 words."""
+    """int64[B, ceil(W/4)]: the rows as little-endian u32 words, a width
+    that is no multiple of 4 zero-padded to one."""
     d = tokens.data.to(torch.int64)
+    if d.shape[1] % 4:
+        d = torch.nn.functional.pad(d, (0, -d.shape[1] % 4))
     return d[:, 0::4] | d[:, 1::4] << 8 | d[:, 2::4] << 16 | d[:, 3::4] << 24
 
 
@@ -222,6 +229,54 @@ def xxh64_plain(tokens: PaddedTokens, seeds: Sequence[int]) -> torch.Tensor:
     return h.view(torch.uint64)
 
 
+# Length classes of the spans' plain versions: tokens of (lo, hi] bytes are
+# padded to hi together (the last class to its longest token).
+_SPAN_CLASSES = (0, 32, 128, 512, 2048)
+
+
+def _spans_plain(fn, data: torch.Tensor, offsets: torch.Tensor, seeds: list[int], dtype: torch.dtype) -> torch.Tensor:
+    """``fn`` (a plain version over ``PaddedTokens``) of every token
+    ``data[offsets[t] : offsets[t + 1]]``: [k, T] by token index, each length
+    class padded by ``tape._pad_spans`` and hashed as rows."""
+    starts = offsets[:-1].to(torch.int64)
+    n = offsets[1:].to(torch.int64) - starts
+    out = torch.zeros((len(seeds), n.numel()), dtype=torch.int64, device=data.device)
+    bounds = list(_SPAN_CLASSES[1:]) + [None]
+    for lo, hi in zip(_SPAN_CLASSES, bounds):
+        take = (n > lo) & (n <= hi) if hi is not None else n > lo
+        if lo == 0:
+            take |= n == 0
+        idx = torch.nonzero(take).squeeze(1)
+        if idx.numel():
+            rows = _pad_spans(data, starts[idx], n[idx], width=hi, align=64)
+            got = fn(rows, seeds)
+            out[:, idx] = got.view(torch.int64) if got.dtype == torch.uint64 else got.to(torch.int64)
+    return out.to(dtype) if dtype != torch.uint64 else out.view(torch.uint64)
+
+
+def xxh64_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: XXH64 under ``seed`` of every token of a tape's spans, in
+    torch ops (``xxh64_plain`` over each length class padded)."""
+    return _spans_plain(xxh64_plain, data, offsets, _seeds(seed), torch.uint64)[0]
+
+
+def xxh32_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint32[T]: XXH32 under ``seed``'s low 32 bits of every token of a
+    tape's spans, in torch ops."""
+    return _spans_plain(xxh32_plain, data, offsets, _seeds(seed), torch.uint32)[0]
+
+
+def swh64_multiseed_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """uint64[k, T]: swh64 under k seeds of every token of a tape's spans, in
+    torch ops."""
+    return _spans_plain(swh64_plain, data, offsets, _seeds(seeds), torch.uint64)
+
+
+def swh64_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: swh64 under ``seed`` of every token of a tape's spans."""
+    return swh64_multiseed_spans_plain(data, offsets, [seed])[0]
+
+
 def _chunks_of(data: torch.Tensor, n: int) -> PaddedTokens:
     """The TREE_CHUNK pieces of ``data[:n]`` as padded rows (a zero-padded
     copy: the plain version's layout; the kernel reads the buffer in place)."""
@@ -287,6 +342,42 @@ def swh64_multiseed(tokens: PaddedTokens, seeds) -> torch.Tensor:
 def swh64(tokens: PaddedTokens, seed: int = 0) -> torch.Tensor:
     """The first-party fast 64-bit hash of every token; uint64[batch]."""
     return swh64_multiseed(tokens, [seed])[0]
+
+
+def xxh64_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: exact XXH64 under ``seed`` of every token ``data[offsets[t]
+    : offsets[t + 1]]`` (a ``Tape``'s ``data`` and ``offsets``), read where it
+    lies; an empty token gets the empty input's digest."""
+    if _on_card(data):
+        from stringwars_tpu_torch.ops import hash_cuda
+
+        return hash_cuda.xxh64_spans_cuda(data, offsets, seed)
+    return xxh64_spans_plain(data, offsets, seed)
+
+
+def xxh32_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint32[T]: exact XXH32 under ``seed`` of every token of a tape's
+    spans, read where it lies."""
+    if _on_card(data):
+        from stringwars_tpu_torch.ops import hash_cuda
+
+        return hash_cuda.xxh32_spans_cuda(data, offsets, seed)
+    return xxh32_spans_plain(data, offsets, seed)
+
+
+def swh64_multiseed_spans(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """uint64[k, T]: swh64 under k seeds of every token of a tape's spans,
+    each token read once for all seeds (at most 8 a launch)."""
+    if _on_card(data):
+        from stringwars_tpu_torch.ops import hash_cuda
+
+        return hash_cuda.swh64_multiseed_spans_cuda(data, offsets, seeds)
+    return swh64_multiseed_spans_plain(data, offsets, seeds)
+
+
+def swh64_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """uint64[T]: swh64 under ``seed`` of every token of a tape's spans."""
+    return swh64_multiseed_spans(data, offsets, [seed])[0]
 
 
 def tree_level(data: torch.Tensor, n: int | None = None) -> torch.Tensor:

@@ -5,7 +5,10 @@ of ``stringwars_tpu.ops.hash``. Each wrapper checks its tensors, allocates
 the digests, launches on PyTorch's current stream without synchronizing,
 raises on a CUDA launch error, and adds one to its entry of ``LAUNCHES``
 (once per call; a call with more than 8 seeds launches once per group of 8).
-A CPU tensor raises: the plain versions live in ``ops/hash.py``.
+A CPU tensor raises: the plain versions live in ``ops/hash.py``. The
+``*_spans_cuda`` wrappers take a tape's ``data`` and ``offsets`` (the spans
+form of the same kernels, counted apart: ``xxh64_spans``, ``swh64_spans``,
+``xxh32_spans``).
 """
 
 from __future__ import annotations
@@ -13,13 +16,14 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from stringwars_tpu_torch import build
 from stringwars_tpu_torch.tape import PaddedTokens
 
 # Launches of each kernel entry point since process start (or the last reset).
-LAUNCHES = {"xxh64": 0, "xxh64_tree": 0, "swh64": 0, "xxh32": 0}
+LAUNCHES = {"xxh64": 0, "xxh64_tree": 0, "swh64": 0, "xxh32": 0, "xxh64_spans": 0, "swh64_spans": 0, "xxh32_spans": 0}
 
 # Bytes of each chunk that one stage of the tree level's shared-memory ring
 # holds (csrc/hash.cu kTreeSlice): the checks cross its edges.
@@ -105,3 +109,47 @@ def xxh32(tokens: PaddedTokens, seeds: Sequence[int]) -> torch.Tensor:
 def swh64(tokens: PaddedTokens, seeds: Sequence[int]) -> torch.Tensor:
     """uint64[k, B] on the device: swh64 of every row under each seed."""
     return _xxh32_family(tokens, seeds, swh=True)
+
+
+def _spans(data: torch.Tensor, offsets: torch.Tensor, seeds: Sequence[int], name: str) -> torch.Tensor:
+    """[k, T] digests of a tape's spans by the spans form; one launch a group
+    of 8 seeds. Contract (the tape's): ``offsets`` nondecreasing, within
+    ``[0, data.numel()]``; the kernel reads no byte outside ``data``."""
+    build.require_spans(data, offsets, name)
+    count = offsets.numel() - 1
+    dtype = torch.uint32 if name == "xxh32_spans" else torch.uint64
+    out = torch.empty((len(seeds), count), dtype=dtype, device=data.device)
+    if count == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(data.device):
+        if name == "xxh64_spans":
+            code = lib.sw_xxh64_spans(data.data_ptr(), data.numel(), offsets.data_ptr(), count, _seed_array(seeds), len(seeds),
+                                      out.data_ptr(), build.stream_of(data))
+        else:
+            code = lib.sw_xxh32_spans(data.data_ptr(), data.numel(), offsets.data_ptr(), count, _seed_array(seeds), len(seeds),
+                                      int(name == "swh64_spans"), out.data_ptr(), build.stream_of(data))
+    build.check(code, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def xxh64_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """``hash.xxh64_spans_plain`` by the spans form, on the device."""
+    return _spans(data, offsets, [seed], "xxh64_spans")[0]
+
+
+def xxh32_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """``hash.xxh32_spans_plain`` by the spans form, on the device."""
+    return _spans(data, offsets, [seed], "xxh32_spans")[0]
+
+
+def swh64_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """``hash.swh64_spans_plain`` by the spans form, on the device."""
+    return _spans(data, offsets, [seed], "swh64_spans")[0]
+
+
+def swh64_multiseed_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """``hash.swh64_multiseed_spans_plain`` by the spans form, on the device:
+    one pass over the bytes for up to 8 seeds."""
+    return _spans(data, offsets, [int(s) for s in np.asarray(seeds, dtype=np.uint64).reshape(-1)], "swh64_spans")

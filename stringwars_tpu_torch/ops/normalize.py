@@ -469,6 +469,30 @@ def _compose_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, t
     return tuple(torch.from_numpy(a).to(device) for a in (cut(s_rank), cut(c_rank), dense)) + (int(n_c),)
 
 
+COMBINER = 255  # compose_classes' mark of a class-0 second element (no ccc is 255)
+
+
+@functools.lru_cache(maxsize=None)
+def compose_classes() -> np.ndarray:
+    """uint8[0x110000]: the ccc table with every class-0 second element of a
+    primary composite (the Hangul V and T jamo, and the others the dense
+    table holds: 24 in Unicode 15) marked ``COMBINER``. The composition
+    kernel's classes: its walk resets at every other class-0 codepoint."""
+    ccc = np.array(tables.ccc_table(), dtype=np.uint8)
+    if int(ccc.max()) >= COMBINER:
+        raise ValueError(f"a canonical combining class of {int(ccc.max())} collides with the combiner mark")
+    _, c_rank, _, _ = _pair_tables()
+    cps = np.arange(ccc.size)
+    ccc[((ccc == 0) & (c_rank != 0)) | _jamo(cps, l=False)] = COMBINER
+    ccc.setflags(write=False)
+    return ccc
+
+
+@functools.lru_cache(maxsize=None)
+def _compose_classes_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(compose_classes())).to(device)
+
+
 def compose_rows_plain_(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """The composition kernel's walk in torch ops, a column at a time over
     every row: ``rows`` (reordered decompositions) composed in place, zeros
@@ -515,7 +539,7 @@ def compose_rows_cuda_(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor
     if rows.device.type != "cuda" or not rows.is_contiguous():
         raise ValueError(f"nf_compose: the CUDA kernel needs a contiguous CUDA tensor, got {rows.device}")
     _check_rows(rows, counts, "nf_compose")
-    ccc = _ccc_on(rows.device)
+    classes = _compose_classes_on(rows.device)
     s_rank, c_rank, dense, n_c = _compose_tables(rows.device)
     kept = torch.empty_like(counts)
     if rows.shape[0]:
@@ -523,7 +547,7 @@ def compose_rows_cuda_(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor
         with torch.cuda.device(rows.device):
             code = lib.sw_nf_compose_rows(
                 rows.data_ptr(), counts.contiguous().data_ptr(), kept.data_ptr(), rows.shape[0], rows.shape[1],
-                ccc.data_ptr(), ccc.numel(), s_rank.data_ptr(), s_rank.numel(), c_rank.data_ptr(), c_rank.numel(),
+                classes.data_ptr(), classes.numel(), s_rank.data_ptr(), s_rank.numel(), c_rank.data_ptr(), c_rank.numel(),
                 dense.data_ptr(), n_c, build.stream_of(rows),
             )
         build.check(code, "nf_compose")

@@ -381,11 +381,7 @@ def xxh3_64_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0)
     """``xxh3_64_spans_plain`` by the CUDA kernel, on the device, in one
     launch. Contract (the tape's): ``offsets`` nondecreasing, within
     ``[0, data.numel()]``; the kernel reads no byte outside ``data``."""
-    build.require_cuda_bytes(data, "xxh3")
-    if offsets.dtype != torch.int64 or offsets.dim() != 1 or offsets.numel() < 1 or not offsets.is_contiguous():
-        raise ValueError(f"xxh3: offsets must be a contiguous int64[count + 1] tensor, got {offsets.dtype}{tuple(offsets.shape)}")
-    if offsets.device != data.device:
-        raise ValueError(f"xxh3: offsets on {offsets.device}, data on {data.device}")
+    build.require_spans(data, offsets, "xxh3")
     return _launch(data, data.numel(), offsets, None, 0, offsets.numel() - 1, seed)
 
 

@@ -2,21 +2,23 @@
 ``hash/bench.rs:483``, ``hash/bench.py:236``; defaults: words tokens,
 2 s warm-up + 10 s measure).
 
-The port of ``stringwars_tpu.suites.hash`` for one device. Device rows
-(``swtorch::...<1gpu>``) hash every token of the corpus per call, bucketed
-by length into rectangular ``PaddedTokens`` (``BUCKET_EDGES``), through the
-CUDA kernels of ``ops/hash_cuda.py``; with ``--device cpu`` the same rows
-(``<1cpu>``) run the plain torch versions. The buckets are staged once per
-suite run, on the device, and the staging seconds go to stderr. Host
-baselines (the ``xxhash`` wheel, CPython builtins, ``zlib``, ``hashlib``)
-run the same corpus under the same deadline pacing as the reference's
-Python suite; a row whose module is missing is SKIPPED. The checksum
-group's ``swtorch::sha256`` row hashes every token of the same buckets per
-call (``ops/sha256.py``). The ``swtorch::xxh3_64`` row is XXH3-64 (seed 0,
-the reference's headline hash) of every token where it lies on the tape, in
-one launch a call (``ops/xxh3.xxh3_64_spans``; ``xxh3_spans`` is the call):
-no buckets, the same work units (an empty token gets the empty digest and
-counts for nothing); the digest of token ``t`` is entry ``t``.
+The port of ``stringwars_tpu.suites.hash`` for one device. The stateless
+device rows (``swtorch::...<1gpu>``: ``swh64``, ``xxh64``, ``xxh32``,
+``swh64_multiseed8`` and ``xxh3_64``) hash every token of the corpus where
+it lies on the tape, in one launch a call (``ops/hash``'s ``*_spans`` and
+``ops/xxh3.xxh3_64_spans``; ``spans_call`` is a row's call): no buckets, the
+same work units (the non-empty tokens and their bytes; an empty token gets
+the empty input's digest and counts for nothing); the digest of token ``t``
+is entry ``t`` (``swh64_multiseed8``: column ``t`` of 8 rows). With
+``--device cpu`` the same rows (``<1cpu>``) run the plain versions. The
+checksum group's ``swtorch::sha256`` row hashes every token per call over
+rectangular ``PaddedTokens`` buckets by length (``BUCKET_EDGES``; SHA-256
+is compute-bound on whole 64-byte blocks), staged once per suite run on
+the device, the staging seconds to stderr (``HashBuckets``, which also
+serve ``digests`` and the collision audit). Host baselines (the ``xxhash``
+wheel, CPython builtins, ``zlib``, ``hashlib``) run the same corpus under
+the same deadline pacing as the reference's Python suite; a row whose
+module is missing is SKIPPED.
 """
 
 from __future__ import annotations
@@ -83,29 +85,36 @@ def device_routine(staged: HashBuckets, fn):
     return routine
 
 
-def xxh3_spans(tape: Tape) -> torch.Tensor:
-    """uint64[count]: the ``xxh3_64`` row's call, XXH3-64 (seed 0) of every
-    token of the tape where it lies, by token index."""
-    return X3.xxh3_64_spans(tape.data, tape.offsets)
+# The stateless device rows: each hash of the tape's spans (seed 0; the
+# multiseed row under MULTISEEDS).
+SPANS_ROWS = {
+    "swh64": H.swh64_spans,
+    "xxh64": H.xxh64_spans,
+    "xxh32": H.xxh32_spans,
+    "swh64_multiseed8": functools.partial(H.swh64_multiseed_spans, seeds=MULTISEEDS),
+    "xxh3_64": X3.xxh3_64_spans,
+}
+
+
+def spans_call(tape: Tape, op: str) -> torch.Tensor:
+    """The ``stateless/swtorch::<op>`` row's call: the digests of every token
+    of the tape where it lies, by token index."""
+    return SPANS_ROWS[op](tape.data, tape.offsets)
 
 
 def bench_device_hashes(ctx: SuiteContext, staged: HashBuckets) -> None:
-    variants = {
-        "swh64": functools.partial(H.swh64, seed=0),
-        "xxh64": H.xxh64,
-        "xxh32": H.xxh32,
-        "swh64_multiseed8": functools.partial(H.swh64_multiseed, seeds=MULTISEEDS),
-    }
     tape, units = ctx.tape, staged.units
 
-    def spans_routine() -> WorkUnits:
-        xxh3_spans(tape)
-        return units
+    def routine(op: str):
+        def run() -> WorkUnits:
+            spans_call(tape, op)
+            return units
+
+        return run
 
     for scope in ctx.scopes:
-        for op, fn in variants.items():
-            ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda fn=fn: device_routine(staged, fn), device=scope.device)
-        ctx.run(f"stateless/swtorch::xxh3_64{scope.name}", "bytes", lambda: spans_routine, device=scope.device)
+        for op in SPANS_ROWS:
+            ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda op=op: routine(op), device=scope.device)
 
 
 class HostCopy:
@@ -216,8 +225,8 @@ def report_collisions(staged: HashBuckets, host: HostCopy) -> None:
 
 def main(argv: list[str] | None = None) -> SuiteContext:
     """Run the suite; returns its context, whose ``staged`` holds the
-    device buckets (``HashBuckets``; ``xxh3_spans(ctx.tape)`` is the
-    ``xxh3_64`` row's call, by token index)."""
+    device buckets (``HashBuckets``; ``spans_call(ctx.tape, op)`` is a
+    stateless row's call, by token index)."""
     ctx = setup_suite(
         "Hash throughput suite (CUDA kernels + host baselines)",
         default_tokens="words",

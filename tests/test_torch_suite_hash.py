@@ -91,6 +91,25 @@ def test_hash_suite_buckets_give_jax_digests(hash_run, corpus):
     np.testing.assert_array_equal(xxh[:64], JH.xxh64(first_tape).to_numpy().astype(np.uint64))
 
 
+def test_hash_suite_spans_rows_give_jax_digests(hash_run, corpus):
+    """The four stateless rows hash the tape's tokens where they lie: each
+    row's digests, by token index, equal the JAX package's over its own
+    buckets of the same corpus (swh64_multiseed8: its 8 seeds)."""
+    ctx, _ = hash_run
+    ref = jax_tape.bucket_by_length(jax_tape.Tape.from_buffer(corpus.read_bytes(), "words"), hash_suite.BUCKET_EDGES)
+    want = {
+        "swh64": lambda b: JH.swh64(b, 0).to_numpy().astype(np.uint64),
+        "xxh64": lambda b: JH.xxh64(b).to_numpy().astype(np.uint64),
+        "xxh32": lambda b: np.asarray(JH.xxh32(b)).astype(np.uint32),
+        "swh64_multiseed8": lambda b: JH.swh64_multiseed(b, np.array(hash_suite.MULTISEEDS, np.uint64)).to_numpy().astype(np.uint64),
+    }
+    for op, jax_fn in want.items():
+        row = hash_suite.spans_call(ctx.tape, op).numpy()
+        assert row.shape[-1] == ctx.tape.count
+        for idx, bucket in zip(ctx.staged.indices, ref):
+            np.testing.assert_array_equal(row[..., idx.numpy()], jax_fn(bucket), err_msg=op)
+
+
 def test_hash_suite_tree_row_matches_jax(hash_run, corpus):
     ctx, _ = hash_run
     raw = np.frombuffer(corpus.read_bytes(), np.uint8)
@@ -122,7 +141,7 @@ def test_hash_suite_xxh3_row_matches_wheel_and_jax(hash_run, corpus):
     import xxhash
 
     ctx, _ = hash_run
-    row = hash_suite.xxh3_spans(ctx.tape).numpy()
+    row = hash_suite.spans_call(ctx.tape, "xxh3_64").numpy()
     tokens = ctx.tape.to_list()
     np.testing.assert_array_equal(row, np.array([xxhash.xxh3_64_intdigest(t) for t in tokens], dtype=np.uint64))
     idx, digests = ctx.staged.digests(X3.xxh3_64)

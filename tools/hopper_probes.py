@@ -1,4 +1,4 @@
-"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3 and reordering kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3, per-token hash, reordering and composition kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
@@ -9,6 +9,8 @@
     python3 tools/hopper_probes.py shiftand [--other-tree DIR]
     python3 tools/hopper_probes.py xxh3
     python3 tools/hopper_probes.py reorder
+    python3 tools/hopper_probes.py spans [--other-tree DIR]
+    python3 tools/hopper_probes.py compose [--other-tree DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -117,6 +119,23 @@ subcommand measures:
   and, on the NFD rows, where nothing moves, also by CUDA events in both
   orders on the rows in place; and the kernel's loads alone (1, 2 or 4
   rows a warp, a row's second chunk with its first or after it).
+- ``spans``: the per-token hashes (XXH64, swh64, XXH32; swh64 under 8
+  seeds) over the hash suite's tape: the spans form (one launch over the
+  tape's tokens where they lie) beside the same kernel over the suite's
+  buckets, each first held to the other by token index; and over 131,072
+  lines of 1,015 B, end to end (the spans form) and in rows of 1 KiB (the
+  padded entry points); with ``--other-tree`` (a checkout of the parent),
+  its padded kernels on the same buckets and rows; CUDA events in both
+  orders and ``torch.profiler`` device time a call. Then each kernel at
+  other register budgets (``spans_variants.cu``), on the tape and on the
+  rows, with each instance's ptxas lines (registers, stack, spills).
+- ``compose``: the composition kernel over ``nf_reorder-marks-128MB``'s
+  rows reordered and over the corpus' NFD in rows (``chip_smoke.py``'s
+  ``nf_compose-*-128MB`` rows; the multilingual corpus synthesized
+  meanwhile), with ``--other-tree``'s kernel (a checkout of the parent,
+  whose kernel takes the ccc table) on the same rows, each held to
+  ``compose_rows_plain_`` and timed by ``torch.profiler`` device time a
+  launch in both orders.
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -143,6 +162,7 @@ import chip_smoke as CS  # noqa: E402
 from stringwars_tpu_torch import build, datasets  # noqa: E402
 from stringwars_tpu_torch import tape as T  # noqa: E402
 from stringwars_tpu_torch.ops import ahocorasick as AC  # noqa: E402
+from stringwars_tpu_torch.ops import hash_cuda as HC  # noqa: E402
 from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC  # noqa: E402
 from stringwars_tpu_torch.ops import bpe as BPE  # noqa: E402
 from stringwars_tpu_torch.ops import bpe_cuda as BPC  # noqa: E402
@@ -1053,9 +1073,238 @@ def reorder_cells(dev, child: subprocess.Popen, corpus: Path) -> None:
     cell("nfd-128MB", src, counts)
 
 
+def save_sass(library: str, holds: tuple, path: Path) -> str:
+    """The SASS of the library's functions whose names hold any of ``holds``,
+    written to ``path``; a line of each one's instruction count and local
+    memory operations (LDL/STL)."""
+    dump = CS.sass_dump(library)
+    if dump is None:
+        return "SASS not measured (no cuobjdump)"
+    parts = ["Function : " + part for part in dump.split("Function : ")[1:] if any(h in part.split("\n", 1)[0] for h in holds)]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(parts))
+    lines = []
+    for part in parts:
+        name = part.split("\n", 1)[0].split("Function : ")[1].strip()
+        body = [ln for ln in part.splitlines() if "/*0" in ln and ";" in ln]
+        local = sum(1 for ln in body if " LDL" in ln or " STL" in ln)
+        lines.append(f"{name}: {len(body)} instructions, {local} LDL/STL")
+    return "; ".join(lines)
+
+
+def labeled_ptxas(proc: subprocess.Popen, what: str, holds: tuple) -> str:
+    """``finish`` with each line of the functions whose names hold any of
+    ``holds`` under its name: registers, stack frame and spills."""
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {what}:\n{log[-3000:]}")
+    own, function = {}, "?"
+    for line in log.splitlines():
+        if "Function properties for " in line or "Compiling entry function" in line:
+            function = line.rsplit(" ", 1)[-1].strip("'")
+        elif any(h in function for h in holds) and ("spill" in line or "registers" in line):
+            own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
+    return "; ".join(f"{name}: {' | '.join(lines)}" for name, lines in own.items())
+
+
+def spans(args) -> None:
+    """The per-token hashes over the hash suite's tape (the spans form, one
+    launch) beside the same kernels over its buckets, and over 1 KiB lines
+    (the padded entry points and the lines end to end), beside
+    ``--other-tree``'s padded kernels (a checkout of the parent: one thread a
+    row); the kernels at other register budgets (``spans_variants.cu``),
+    with each instance's ptxas lines."""
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_spans_variants.so"
+    variants_build = nvcc_shared(PROBES / "spans_variants.cu", so)
+    other = ctypes.CDLL(other_library(Path(args.other_tree))) if args.other_tree else None
+    tape = datasets.load_tape(None, tokens_mode="words", size_limit="128mb", device=dev)
+    buckets = HS.HashBuckets.stage(tape)
+    lines, line_tape, line_offsets = CS.kb_lines(dev)
+    seeds8 = list(HS.MULTISEEDS)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def parent(p: T.PaddedTokens, seeds: list, kind: str) -> torch.Tensor:
+        out = torch.empty((len(seeds), p.count), dtype=torch.uint32 if kind == "xxh32" else torch.uint64, device=dev)
+        seed_array = (ctypes.c_uint64 * len(seeds))(*seeds)
+        if kind == "xxh64":
+            code = other.sw_xxh64(_P(p.data.data_ptr()), _N(p.count), _N(p.width), _P(p.lengths.data_ptr()), seed_array,
+                                  _N(len(seeds)), _P(out.data_ptr()), _P(stream))
+        else:
+            code = other.sw_xxh32(_P(p.data.data_ptr()), _N(p.count), _N(p.width), _P(p.lengths.data_ptr()), seed_array,
+                                  _N(len(seeds)), ctypes.c_int(kind != "xxh32"), _P(out.data_ptr()), _P(stream))
+        if code:
+            raise RuntimeError(f"the other tree's {kind}: CUDA error {code}")
+        return out
+
+    forms = {  # name: (spans call, rows call, digest bytes, seeds, the kernel family)
+        "xxh64": (lambda d, o: HC.xxh64_spans_cuda(d, o), lambda p: HC.xxh64(p, [0])[0], 8, [0], "xxh64"),
+        "swh64": (lambda d, o: HC.swh64_spans_cuda(d, o), lambda p: HC.swh64(p, [0])[0], 8, [0], "swh64"),
+        "xxh32": (lambda d, o: HC.xxh32_spans_cuda(d, o), lambda p: HC.xxh32(p, [0])[0], 4, [0], "xxh32"),
+        "swh64_multiseed8": (lambda d, o: HC.swh64_multiseed_spans_cuda(d, o, seeds8), lambda p: HC.swh64(p, seeds8), 64, seeds8,
+                             "swh64"),
+    }
+    kernel = {"xxh64": "xxh64_kernel", "swh64": "xxh32_kernel", "xxh32": "xxh32_kernel", "swh64_multiseed8": "xxh32_kernel"}
+
+    def timed(cell: str, calls: dict, note: str = "") -> None:
+        for label, times in both_orders(calls).items():
+            traced = CS.device_ms(calls[label], kernel[cell.split("-")[0]], calls=20, per_call=True)
+            print(f"spans {cell}, {label}: {', '.join(f'{t:.4f}' for t in times)} ms by CUDA events, "
+                  + (f"{traced:.4f}" if traced is not None else "not measured") + f" ms device a call{note}", flush=True)
+
+    for name, (span_fn, row_fn, size, seeds, family) in forms.items():
+        one = len(seeds) == 1
+        pick = 0 if one else slice(None)
+        got = span_fn(tape.data, tape.offsets)
+        for idx, padded in zip(buckets.indices, buckets.buckets):
+            if not torch.equal(CS.signed(got)[..., idx], CS.signed(row_fn(padded))):
+                raise AssertionError(f"{name}: the spans form differs from the rows form in the bucket of width {padded.width}")
+            if other is not None and not torch.equal(CS.signed(row_fn(padded)), CS.signed(parent(padded, seeds, family)[pick])):
+                raise AssertionError(f"{name}: the rows form differs from the other tree's in the bucket of width {padded.width}")
+        least = CS.bound_ms(tape.total_bytes + 8 * (tape.count + 1) + size * tape.count)[0]
+        calls = {"spans": lambda: span_fn(tape.data, tape.offsets), "buckets": lambda: [row_fn(p) for p in buckets.buckets]}
+        if other is not None:
+            calls["the other tree's buckets"] = lambda: [parent(p, seeds, family) for p in buckets.buckets]
+        timed(f"{name}-words-128MB", calls, f"; the spans call's own bytes {least:.4f} ms")
+        if not torch.equal(CS.signed(span_fn(line_tape, line_offsets)), CS.signed(row_fn(lines))):
+            raise AssertionError(f"{name}: the spans form differs from the rows form on the 1 KiB lines")
+        calls = {"spans (end to end)": lambda: span_fn(line_tape, line_offsets), "rows": lambda: row_fn(lines)}
+        if other is not None:
+            if not torch.equal(CS.signed(row_fn(lines)), CS.signed(parent(lines, seeds, family)[pick])):
+                raise AssertionError(f"{name}: the rows form differs from the other tree's on the 1 KiB lines")
+            calls["the other tree's rows"] = lambda: parent(lines, seeds, family)
+        timed(f"{name}-1KB-lines-128MB", calls)
+    holds = ("xxh64_kernel", "xxh32_kernel")
+    print(f"spans_variants.cu built: {labeled_ptxas(variants_build, 'spans_variants.cu', holds)}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    lib.spans_variant_run.argtypes = (_N, _N, _N, _P, _N, _P, _P, _N, _N, _P, _P, _P)
+    seed_array = (ctypes.c_uint64 * 8)(*seeds8)
+    for kind, name in {0: "xxh64", 1: "xxh32", 2: "swh64", 3: "swh64_multiseed8"}.items():
+        cells = [("words", tape.data, tape.offsets, None, 0, tape.count, forms[name][0](tape.data, tape.offsets)),
+                 ("1KB-lines", lines.data, None, lines.lengths, lines.width, lines.count, forms[name][1](lines))]
+        budgets = [(4, 0), (5, 0), (6, 0), (5, 1)] if kind < 3 else [(1, 0), (2, 0), (3, 0), (3, 1)]
+        for cell, data, offsets, lengths, width, count, want in cells:
+            for blocks, whole in budgets:
+                out = torch.empty_like(want)
+
+                def run(kind=kind, blocks=blocks, whole=whole, out=out, data=data, offsets=offsets, lengths=lengths,
+                        width=width, count=count):
+                    code = lib.spans_variant_run(kind, blocks, whole, data.data_ptr(), data.numel(),
+                                                 offsets.data_ptr() if offsets is not None else None,
+                                                 lengths.data_ptr() if lengths is not None else None, width, count, seed_array,
+                                                 out.data_ptr(), stream)
+                    if code:
+                        raise RuntimeError(f"spans_variant_run {kind} {blocks}: CUDA error {code}")
+
+                run()
+                if not torch.equal(CS.signed(out), CS.signed(want)):
+                    raise AssertionError(f"variant {name} at {blocks} blocks differs from the package's digests ({cell})")
+                traced = CS.device_ms(run, kernel[name], calls=20, per_call=True)
+                grid = "a block a 256 tokens" if whole else "a resident grid"
+                print(f"spans {name}-{cell}-128MB ({'spans' if offsets is not None else 'rows'}) at {blocks} blocks an SM, "
+                      f"{grid}: " + (f"{traced:.4f}" if traced is not None else "not measured") + " ms device a call", flush=True)
+    print("spans SASS: " + save_sass(str(build.library_path()), ("xxh64_kernelILi1ELb1", "xxh32_kernelILi1ELb0ELb1",
+                                                                  "xxh32_kernelILi1ELb1ELb1", "xxh32_kernelILi8ELb1ELb1"),
+                                     ROOT / "chiprun_out" / "sass_spans.txt"), flush=True)
+
+
+def compose(args) -> None:
+    """The composition kernel over the marks rows and the corpus' NFD, beside
+    ``--other-tree``'s (a checkout of the parent: its kernel takes the ccc
+    table)."""
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    corpus = build.BUILD_DIR / "probe-multilingual-128mb.txt"
+    child = CS.start_corpus(corpus)
+    so = build.BUILD_DIR / "probe_compose_variants.so"
+    variants_build = nvcc_shared(PROBES / "compose_variants.cu", so)
+    try:
+        other = ctypes.CDLL(other_library(Path(args.other_tree))) if args.other_tree else None
+        print(f"compose_variants.cu built: {finish(variants_build, 'compose_variants.cu')}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        lib.compose_variant_run.argtypes = (_N, _P, _P, _P, _N, _N, _P, _N, _P, _N, _P, _N, _P, _N, _P)
+        classes = NORM._compose_classes_on(dev)
+        ccc = NORM._ccc_on(dev)
+        s_rank, c_rank, dense, n_c = NORM._compose_tables(dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def parent(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+            kept = torch.empty_like(counts)
+            code = other.sw_nf_compose_rows(_P(rows.data_ptr()), _P(counts.data_ptr()), _P(kept.data_ptr()), _N(rows.shape[0]),
+                                            _N(rows.shape[1]), _P(ccc.data_ptr()), _N(ccc.numel()), _P(s_rank.data_ptr()),
+                                            _N(s_rank.numel()), _P(c_rank.data_ptr()), _N(c_rank.numel()), _P(dense.data_ptr()),
+                                            _N(n_c), _P(stream))
+            if code:
+                raise RuntimeError(f"the other tree's sw_nf_compose_rows: CUDA error {code}")
+            return kept
+
+        def variant(v: int):
+            def run(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+                kept = torch.empty_like(counts)
+                code = lib.compose_variant_run(v, rows.data_ptr(), counts.data_ptr(), kept.data_ptr(), rows.shape[0], rows.shape[1],
+                                               classes.data_ptr(), classes.numel(), s_rank.data_ptr(), s_rank.numel(),
+                                               c_rank.data_ptr(), c_rank.numel(), dense.data_ptr(), n_c, stream)
+                if code:
+                    raise RuntimeError(f"compose_variant_run {v}: CUDA error {code}")
+                return kept
+            return run
+
+        kernels = {"the package's kernel": NORM.compose_rows_cuda_}
+        if other is not None:
+            kernels[f"{args.other_tree}'s kernel"] = parent
+        kernels.update({"the package's kernel at a warp a row, 2 blocks an SM": variant(0),
+                        "the package's kernel at half a warp a row, 3 blocks": variant(5),
+                        "the package's kernel at a quarter warp a row, 2 blocks": variant(8),
+                        "the package's kernel at a quarter warp a row, 3 blocks": variant(9)})
+        skeleton = {"probe: no chain walked, a warp a row, 2 blocks": variant(2),
+                    "probe: no chain walked, half a warp a row, 2 blocks": variant(6),
+                    "probe: no chain walked, a quarter warp a row, 2 blocks": variant(10)}
+
+        def cell(name: str, rows: torch.Tensor, counts: torch.Tensor) -> None:
+            want = rows.clone()
+            kept = NORM.compose_rows_plain_(want, counts)
+            live = int(counts.sum())
+            for label, fn in kernels.items():
+                got = rows.clone()
+                if not (torch.equal(fn(got, counts), kept) and torch.equal(got, want)):
+                    raise AssertionError(f"compose {name}: {label} differs from compose_rows_plain_")
+            bound = CS.bound_ms(8 * live + 8 * counts.numel())[0]
+            print(f"compose {name}: {rows.shape[0]:,} rows of {rows.shape[1]}, {live:,} codepoints, {live - int(kept.sum()):,} "
+                  f"composed away; bound {bound:.4f} ms (bytes)", flush=True)
+            timed = list(kernels.items()) + list(skeleton.items())
+            for label, fn in timed + timed[::-1]:
+                traced = CS.device_ms(lambda fn=fn: fn(rows.clone(), counts), "nf_compose_kernel", calls=20)
+                print(f"compose {name}, {label}: " + (f"{traced:.4f} ms device a launch" if traced is not None
+                                                       else "not measured"), flush=True)
+
+        marks = NORM.segment_rows(torch.from_numpy(CS.marks_stream(32 << 20, 17)).to(dev), False)[0]
+        rows = NORM.reorder_rows_cuda_(marks.rows.clone(), marks.lengths)
+        cell("marks-128MB", rows, marks.lengths)
+        del marks, rows
+        if child.wait():
+            raise RuntimeError(f"synthesizing the multilingual corpus failed (exit code {child.returncode})")
+        import unicodedata
+
+        text = unicodedata.normalize("NFD", corpus.read_bytes().decode())
+        nfd = torch.from_numpy(np.frombuffer(text.encode("utf-32-le"), np.int32).copy()).to(dev)
+        b = NORM.segment_rows(nfd, False)[0]
+        src, counts = NORM.decompose_rows(b.rows, b.lengths, False, int(nfd.max()))
+        cell("nfc-of-nfd-128MB", src, counts)
+        print("compose SASS: " + save_sass(str(build.library_path()), ("nf_compose_kernel",), ROOT / "chiprun_out" / "sass_compose.txt"),
+              flush=True)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        corpus.unlink(missing_ok=True)
+        corpus.with_name(corpus.name + ".part").unlink(missing_ok=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder"))
+    parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder", "spans",
+                                            "compose"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1063,7 +1312,7 @@ def main() -> int:
         return 2
     print(card_line(), flush=True)
     {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand, "xxh3": xxh3,
-     "reorder": reorder}[args.probe](args)
+     "reorder": reorder, "spans": spans, "compose": compose}[args.probe](args)
     return 0
 
 
