@@ -74,6 +74,14 @@ prints no result:
    marks stream: ``reorder_texts``; composition's chains through Hangul
    jamo and the class-0 second elements, and blocked marks:
    ``compose_texts``), each form's output also against ``unicodedata``);
+   the radix argsort over 1 to 32 columns (the JAX package's multi-key and
+   LSD forms), 0, 1, 4,095–4,097, 100,003 and 5,000,017 keys, all equal,
+   ten-valued and random, of 9, 22, 27 and 32 bits (``check_radix``); the
+   Bloom build and query at k = 1, 7 and 16, m_bits 2^20 and 32 x 100,003,
+   over a tape's spans of 0..1,024 B (empty and 1 KB tokens among them),
+   the same 3 bytes into a buffer, padded rows and an empty batch, and the
+   BinaryFuse8 query over a 20,000-key table with its keys, random probes
+   and positions past its ends (``check_filters``);
 4. main path, each path with every launch count set to 0 just before it and
    read just after:
    - ``suites.find.main`` on 64 MB of ``synthetic:english-words`` in words
@@ -130,6 +138,20 @@ prints no result:
      card, the decryption rows' plaintexts to the corpus, the 64 per-token
      seals of each cipher to ``aead_ref``, XChaCha to the draft's vector, and
      a tampered tag refused; the launches are those of the suite's run;
+   - ``suites.sequence.main`` on 16 MB of words (``swtorch::`` rows): the
+     full pipeline's order and the row's equal to ``sorted(range(n),
+     key=tokens.__getitem__)``; ``argsort_uncased`` of the same tape and of
+     8 MB of the multilingual corpus (folded codepoints above 509: a
+     codepoint a column) held to ``str.casefold`` by adjacent pairs
+     (``check_casefold_order``: a permutation, each pair ordered, tied pairs
+     by index), the row's uncased order equal to it;
+   - ``suites.containers.main`` on 32 MB of words: the suite's own asserts
+     (multiseed equals per-seed, no Bloom false negative), the Bloom words
+     and both filters' answers equal to their plain versions on the card;
+     the launches are those of the suite's run;
+   - ``suites.memory.main`` on 128 MB of ``synthetic:long-lines``: the copy
+     equal to its input, the move to its input shifted by 8 with a zero
+     tail, the fill to its value, the LUT to its plain version;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
@@ -179,7 +201,15 @@ prints no result:
    marks move (``nf_reorder-marks-128MB``: 32 Mi codepoints of
    ``marks_stream`` cut by ``segment_rows``, the moved codepoints counted
    into its bound), composition there (``nf_compose-marks-128MB``) and the
-   whole ``nfc-of-nfd-128MB`` route; the
+   whole ``nfc-of-nfd-128MB`` route; ``argsort-words-128MB`` (the hash
+   suite's tape as the sequence suite stages it, its rate in comparisons
+   beside the reference's cudf cell; the ``torch.sort`` chain of two-column
+   int64 keys its library) and ``argsort-uncased-words-128MB`` (the fold,
+   the packing and the sort), the filter rows at the containers suite's key
+   counts and the Bloom rows at 800,000 random keys (``bloom-build-<n>k``,
+   ``bloom-query-<n>k``, ``fuse8-query-<n>k``, profiler device time), and
+   ``memset``/``memcpy``/``memmove-128MB`` (torch ops beside a plain torch
+   form and their bytes bound); the
    tree level also at a byte offset of 1, the class map's and ``lut_map``'s
    rows beside ``table[idx]`` where it computes the same function; and the
    similarities, encryption, hash (XXH3 too) and normalization suites'
@@ -915,7 +945,9 @@ def check_myers_edges(dev, errors: dict) -> int:
     second band; the same batches repeated until they fill the card, which
     takes 64-bit lanes of 4 words (2 at codepoints); byte batches whose
     longest pattern gives groups of 1, 2, 4, 8 and 16 lanes, and patterns of
-    up to 2,100 rows (three bands); and patterns around 8,192 rows in
+    up to 2,100 rows (three bands), against texts of up to 300 B (the
+    plain version's time grows with the text; the edge pairs above reach
+    1,025); and patterns around 8,192 rows in
     batches that take 64-bit lanes and a second band of them. Returns the
     batches checked."""
     from stringwars_tpu_torch.ops import myers as MY
@@ -956,7 +988,7 @@ def check_myers_edges(dev, errors: dict) -> int:
     for cap in (32, 64, 128, 256, 512, 2100):
         lens = [m for m in MYERS_EDGES if m <= cap] + [cap, int(rng.integers(1, cap + 1))]
         batch = [(bytes(rng.integers(97, 101, m, dtype=np.uint8)), bytes(rng.integers(97, 101, n, dtype=np.uint8)))
-                 for m in lens for n in (0, 1, 33, 100, 1025)]
+                 for m in lens for n in (0, 1, 33, 100, 300)]  # the pattern sets the groups and bands; texts to 300 B
         check(MY.MyersBatch.from_arrays(*_padded_codes(batch), nbits=MY.BYTE_BITS, device=dev))
     long = [(bytes(rng.integers(97, 101, m, dtype=np.uint8)), bytes(rng.integers(97, 101, n, dtype=np.uint8)))
             for m in (8191, 8192, 8193, 9000) for n in (0, 1, 100)]
@@ -1319,6 +1351,130 @@ def check_hash_spans(dev, errors: dict) -> int:
 SPAN_COUNTERS = {"xxh64": "xxh64_spans", "swh64": "swh64_spans", "xxh32": "xxh32_spans", "swh64_multiseed8": "swh64_spans"}
 
 
+# -- sort and filters: kernel checks and the rows at the main path's shapes
+
+RADIX_NS = (0, 1, 4095, 4096, 4097, 100_003)  # 0 and 1 keys, around a tile of 4,096 (sort_cuda.TILE)
+RADIX_COLS = (1, 3, 8, 9, 32)  # the JAX package's one multi-key sort (<= 8 columns) and its LSD passes (> 8)
+RADIX_BITS = (9, 22, 27, 32)  # a byte + 1, a codepoint + 1, three bytes + 1, any uint32
+RADIX_LONG = ((7, 27, "random"), (9, 22, "ten"), (2, 9, "equal"), (32, 27, "ten"))  # (columns, bits, keys) at 5 M keys
+CUDF_CMP_PER_S = 9463e6  # the reference's H100 argsort cell: cudf on short words (BASELINE.md:92)
+
+
+def radix_keys(kind: str, n_cols: int, n: int, bits: int, g, dev) -> torch.Tensor:
+    """int32 [n_cols, n] keys below 2^bits (their uint32 bits) on the card:
+    all equal, ten values, or random."""
+    top = (1 << bits) - 1
+    if kind == "equal":
+        vals = torch.full((n_cols, n), top, dtype=torch.int64, device=dev)
+    elif kind == "ten":
+        vals = torch.randint(0, 10, (n_cols, n), generator=g, device=dev) * (top // 9)
+    else:
+        vals = torch.randint(0, top + 1, (n_cols, n), generator=g, device=dev)
+    return torch.where(vals >= 1 << 31, vals - (1 << 32), vals).to(torch.int32)
+
+
+def check_radix(dev, errors: dict) -> int:
+    """The radix argsort against ``lsd_argsort_plain`` on the card, exactly:
+    1 to 32 columns, 0 and 1 keys, a tile of keys and one either side, 100,003
+    and 5,000,017 keys; all keys equal, ten values, random; 9-, 22-, 27- and
+    32-bit values. Returns the sorts checked."""
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+
+    g = torch.Generator(device=dev).manual_seed(46)
+    cases = [(kind, n_cols, n, bits) for n in RADIX_NS for n_cols in RADIX_COLS for bits in RADIX_BITS
+             for kind in ("equal", "ten", "random")]
+    cases += [(kind, n_cols, 5_000_017, bits) for n_cols, bits, kind in RADIX_LONG]
+    for kind, n_cols, n, bits in cases:
+        cols = radix_keys(kind, n_cols, n, bits, g, dev)
+        errors["radix_argsort"] = max(errors["radix_argsort"], max_err(SC.radix_argsort(cols), SORT.lsd_argsort_plain(cols)))
+    return len(cases)
+
+
+def check_filters(dev, errors: dict) -> int:
+    """The Bloom build and query kernels and the fuse query kernel against
+    their plain versions on the card, exactly: k = 1, 7 and 16 seeds, m_bits
+    a power of two and not, tokens of 0..1,024 B (empty and 1 KB tokens
+    among them) as a tape's spans, the same spans 3 bytes into a buffer, and
+    padded rows, an empty batch; a BinaryFuse8 table over 20,000 keys with
+    its keys and random probes, and positions past the table's ends. Returns
+    the batches checked."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import filters as FLT
+
+    rng = np.random.default_rng(47)
+    lengths = np.concatenate([rng.integers(0, 40, 20000), np.zeros(50, np.int64), np.full(300, 1024),
+                              rng.integers(32, 300, 2000)])
+    rng.shuffle(lengths)
+    tape = T.Tape.from_tokens([bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in lengths], device=dev)
+    buf = torch.zeros(tape.total_bytes + 3, dtype=torch.uint8, device=dev)
+    buf[3:] = tape.data
+    shifted = T.Tape(data=buf[3:], offsets=tape.offsets, count=tape.count, total_bytes=tape.total_bytes)
+    held = T.Tape.from_tokens([bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in rng.integers(0, 60, 5000)],
+                              device=dev)
+    empty = T.Tape.from_tokens([], device=dev)
+    checked = 0
+    for seeds in ((5,), tuple(range(1, 8)), tuple(range(1, 17))):
+        for m_bits in (1 << 20, 32 * 100_003):
+            want = FLT.bloom_build_plain(tape, seeds, m_bits)
+            for tokens in (tape, shifted, T.PaddedTokens.from_tape(tape, align=4), empty):
+                plain = want if tokens is not empty else FLT.bloom_build_plain(tokens, seeds, m_bits)
+                errors["bloom_build"] = max(errors["bloom_build"],
+                                            max_err(signed(FLT.bloom_build_cuda(tokens, seeds, m_bits)), signed(plain)))
+                checked += 1
+            for probe in (tape, shifted, held, T.PaddedTokens.from_tape(held, align=4), empty):
+                got = FLT.bloom_query_cuda(want, probe, seeds, m_bits)
+                errors["bloom_query"] = max(errors["bloom_query"], max_err(got, FLT.bloom_query_plain(want, probe, seeds, m_bits)))
+                if probe is tape and not bool(got.all()):
+                    raise AssertionError(f"the Bloom query missed an inserted token (seeds {seeds}, m_bits {m_bits})")
+                checked += 1
+    keys = rng.integers(1, 2**63, 20000, dtype=np.int64).astype(np.uint64)
+    fuse = FLT.fuse_build(keys, device=dev)
+    probes = np.concatenate([keys, rng.integers(1, 2**63, 100_000, dtype=np.int64).astype(np.uint64)])
+    table = fuse.fingerprints
+    g = torch.Generator(device=dev).manual_seed(48)
+    wild = (torch.randint(-5, table.numel() + 5, (3, 1_000_003), generator=g, device=dev).to(torch.int32),
+            torch.randint(0, 256, (1_000_003,), generator=g, device=dev).to(torch.uint8))
+    for h, fp in (FLT.fuse_stage(fuse, probes), wild):
+        got = FLT.fuse_query_cuda(table, h, fp)
+        errors["fuse_query"] = max(errors["fuse_query"], max_err(got, FLT.fuse_query_plain(table, h, fp)))
+        checked += 1
+    if not bool(FLT.fuse_query(fuse, keys).all()):
+        raise AssertionError("the fuse query missed an inserted key")
+    return checked
+
+
+def check_casefold_order(order: np.ndarray, tokens: list[bytes]) -> int:
+    """An exact O(n) check of a case-folded order: a permutation of the
+    tokens, each adjacent pair ordered by ``str.casefold`` (codepoint order),
+    tied pairs ascending by index. Returns the tied pairs."""
+    n = len(tokens)
+    if order.shape != (n,) or not np.array_equal(np.sort(order), np.arange(n)):
+        raise AssertionError(f"the uncased order of {n} tokens is no permutation")
+    keys = [tokens[i].decode("utf-8", "ignore").casefold() for i in order.tolist()]
+    ties = 0
+    for j in range(n - 1):
+        if keys[j] > keys[j + 1] or (keys[j] == keys[j + 1] and order[j] > order[j + 1]):
+            raise AssertionError(f"the uncased order breaks at {j}: {tokens[order[j]]!r} then {tokens[order[j + 1]]!r}")
+        ties += keys[j] == keys[j + 1]
+    return ties
+
+
+def sort_chain(cols: torch.Tensor) -> torch.Tensor:
+    """The stable order of the rows of ``cols`` (entries below 2^31) by
+    ``torch.sort(stable=True)`` over int64 keys of two columns each, the
+    least significant pair first (4 passes for 7 or 8 columns)."""
+    n_cols, n = cols.shape
+    wide = cols.to(torch.int64)
+    order = torch.arange(n, device=cols.device)
+    for c in reversed(range(0, n_cols, 2)):
+        key = wide[c] << 32
+        if c + 1 < n_cols:
+            key = key | wide[c + 1]
+        order = order[torch.sort(key[order], stable=True)[1]]
+    return order
+
+
 def normalize_rows_plain(rows: torch.Tensor, lengths: torch.Tensor, form: str, max_cp: int):
     """``ops/normalize.normalize_rows`` with every kernel's plain version, on
     the tensors' device (the expand kernel's where the route takes it)."""
@@ -1546,6 +1702,122 @@ def normalization_rows(row, keep: dict, launches, dev) -> None:
                     launches, {k: names[k] for k in ran})
 
 
+def sort_rows(row, timings: dict, tape, dev) -> None:
+    """The sort rows over the hash suite's tape, staged as the sequence
+    suite stages it: ``argsort-words-128MB`` (the packed 96-byte prefix
+    columns to the permutation; bound: the columns read once, the int32
+    permutation written once) with its rate in comparisons beside the
+    reference's cudf cell, and ``argsort-uncased-words-128MB`` (the prefix
+    rows through the fold, the packing and the sort; bound: the rows and
+    their key lengths read once, the permutation written once)."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import casefold as CF
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+
+    n = tape.count
+    comparisons = n * math.log2(n)
+    prefix = T.PaddedTokens.from_tape(tape, align=4, max_width=SORT.PREFIX_WIDTH)
+    cols = SORT.byte_columns(prefix.data, prefix.lengths)
+    if not torch.equal(sort_chain(cols).to(torch.int32), SC.radix_argsort(cols)):
+        raise AssertionError("argsort-words-128MB: the torch.sort chain differs from the kernel")
+    host = cols.cpu().numpy().view(np.uint32)
+    passes = SC.plan_passes([int(np.bitwise_or.reduce(c)) for c in host] + [int(np.bitwise_and.reduce(c)) for c in host],
+                            cols.shape[0])
+    del host
+    row(f"argsort-words-128MB ({n:,} keys of the hash suite's tape, {cols.shape[0]} columns, {len(passes)} passes of "
+        f"9-bit digits; the torch.sort chain of 2-column int64 keys is the library)", lambda: SC.radix_argsort(cols), lambda: SORT.lsd_argsort_plain(cols),
+        cols.numel() * 4, bound_ms(cols.numel() * 4 + 4 * n), "radix_argsort", library=lambda: sort_chain(cols),
+        plain_samples=1)
+    ms = timings["radix_argsort"]["ms"]
+    phase("row", f"argsort-words-128MB: {comparisons / ms / 1e3:,.1f} M cmp/s (n log2 n = {comparisons:,.0f} comparisons "
+                 f"in {ms:.4f} ms); the reference's H100 cell, cudf on short words: {CUDF_CMP_PER_S / 1e6:,.0f} M cmp/s")
+    del cols, passes
+    rows, key_lengths, _ = SORT.stage_uncased(tape)
+    padded = T.PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width)
+    folded, counts = CF.fold_tokens(padded)
+    n_cols, pack3 = SORT.uncased_plan(folded, counts)
+    ucols = SORT.uncased_columns(folded, counts, n_cols, pack3)
+    del folded, counts
+    sort_alone = time_ms(lambda: SC.radix_argsort(ucols))
+    row(f"argsort-uncased-words-128MB ({n:,} prefix rows of {rows.width} B through the fold, {n_cols} columns "
+        f"{'of three codepoints' if pack3 else 'of a codepoint'} and the sort; the same with the torch.sort chain is "
+        f"the library)", lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3),
+        lambda: SORT.lsd_argsort_plain(SORT.uncased_columns(*CF.fold_tokens(padded), n_cols, pack3)),
+        rows.data.numel(), bound_ms(rows.data.numel() + 4 * n + 4 * n),
+        library=lambda: sort_chain(SORT.uncased_columns(*CF.fold_tokens(padded), n_cols, pack3)), plain_samples=1,
+        note=f"; the radix sort of its columns alone {sort_alone:.4f} ms")
+    del ucols, rows, key_lengths, padded
+    torch.cuda.empty_cache()
+
+
+def filter_rows(row, keep: dict, dev) -> None:
+    """The filter rows at the containers suite's key counts (its split,
+    filter and staged probes), and the Bloom rows at 800,000 keys (random
+    lowercase words of 5-17 B, the 80% of the suite's 1 M cap, against 200,000
+    others), by profiler device time. Bound: the tokens' bytes and 8 B
+    offsets a token read once, the filter's words written (build) or read
+    (query) once, a byte an answer; or the instructions: a finish (20) and
+    4.5 a 4-byte word of each seed's XXH64, 3 for each position."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import filters as FLT
+    from stringwars_tpu_torch.suites import containers as containers_suite
+
+    def bounds(t, k: int, m_bits: int, query: bool):
+        words = int(((t.lengths + 3) // 4).sum())
+        return bound_ms(t.total_bytes + 8 * (t.count + 1) + m_bits // 8 + (t.count if query else 0),
+                        k * (20 * t.count + 4.5 * words + 3 * t.count))
+
+    def bloom_pair(ins, held, seeds, m_bits, key: bool, what: str) -> None:
+        k = len(seeds)
+        words = FLT.bloom_build_plain(ins, seeds, m_bits)
+        row(f"bloom-build-{ins.count // 1000}k ({ins.count:,} {what}, k = {k}, {m_bits:,} bits)",
+            lambda: signed(FLT.bloom_build_cuda(ins, seeds, m_bits)), lambda: signed(FLT.bloom_build_plain(ins, seeds, m_bits)),
+            ins.total_bytes, bounds(ins, k, m_bits, False), "bloom_build" if key else None, profiled="bloom_build_kernel",
+            plain_samples=1)
+        row(f"bloom-query-{held.count // 1000}k ({held.count:,} held-out {what} against it)",
+            lambda: FLT.bloom_query_cuda(words, held, seeds, m_bits), lambda: FLT.bloom_query_plain(words, held, seeds, m_bits),
+            held.total_bytes, bounds(held, k, m_bits, True), "bloom_query" if key else None, profiled="bloom_query_kernel",
+            plain_samples=1)
+
+    ins, held, bloom, fuse = keep["inserted"], keep["held_out"], keep["bloom"], keep["fuse"]
+    bloom_pair(ins, held, bloom.seeds, bloom.m_bits, True, "unique words of the containers suite")
+    h, fp = keep["probes"]
+    n = fp.numel()
+    table = fuse.fingerprints
+    row(f"fuse8-query-{n // 1000}k ({n:,} held-out digests against the {table.numel():,}-entry table of "
+        f"{ins.count:,} keys, probes staged)", lambda: FLT.fuse_query_cuda(table, h, fp),
+        lambda: FLT.fuse_query_plain(table, h, fp), 13 * n, bound_ms(14 * n + table.numel()), "fuse_query",
+        profiled="fuse_query_kernel")
+    rng = np.random.default_rng(49)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    big = list(dict.fromkeys(alphabet[rng.integers(0, 26, n)].tobytes() for n in rng.integers(5, 18, 1_002_000)))[:1_000_000]
+    tape = T.Tape.from_tokens(big, device=dev)
+    cut = int(tape.count * 0.8)
+    bloom_pair(tape.subtape(0, cut), tape.subtape(cut, tape.count), containers_suite.BLOOM_SEEDS,
+               containers_suite.bloom_bits(cut), False, "random unique words")
+
+
+def memory_rows(row, data: torch.Tensor, dev) -> None:
+    """The memory suite's torch rows over its 128 MB buffer, each beside a
+    plain torch form of the same function and its bytes bound (each byte
+    read once and written once; memset writes only): ``memset-128MB``
+    (``fill_`` into a buffer; plain ``torch.full``), ``memcpy-128MB``
+    (``copy_``; plain ``clone``), ``memmove-128MB`` (the shift by 8 out of
+    place; plain the JAX package's ``concatenate``), n - 8 bytes."""
+    from stringwars_tpu_torch.ops import memops as M
+
+    n = data.numel()
+    out = torch.empty_like(data)
+    row("memset-128MB (torch fill_ into a buffer; plain torch.full)", lambda: M.fill(n, 0x5A, out=out),
+        lambda: torch.full((n,), 0x5A, dtype=torch.uint8, device=dev), n, bound_ms(n))
+    row("memcpy-128MB (torch copy_ into a buffer; plain clone)", lambda: M.copy(data, out=out), lambda: data.clone(), n,
+        bound_ms(2 * n))
+    row("memmove-128MB (the buffer shifted by 8 out of place, n - 8 bytes; plain torch.cat)",
+        lambda: M.move(data, 8, out=out), lambda: torch.cat([data[8:], torch.zeros(8, dtype=torch.uint8, device=dev)]),
+        n - 8, bound_ms(2 * (n - 8)))
+
+
 def make_row(timings: dict):
     """``row``: a kernel timed beside its plain version on the card (equal
     first), with its bound and, where given, one PyTorch call's time; the
@@ -1638,7 +1910,13 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.ops import sha256 as SHA
     from stringwars_tpu_torch.ops import utf8 as U8
     from stringwars_tpu_torch.ops import xxh3 as X3
+    from stringwars_tpu_torch.ops import filters as FLT
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+    from stringwars_tpu_torch.suites import containers as containers_suite
     from stringwars_tpu_torch.suites import encryption as enc_suite
+    from stringwars_tpu_torch.suites import memory as memory_suite
+    from stringwars_tpu_torch.suites import sequence as sequence_suite
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
@@ -1650,7 +1928,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
 
     counters = (B.LAUNCHES, FC.LAUNCHES, HC.LAUNCHES, FP.LAUNCHES, M.LAUNCHES, MYC.LAUNCHES, AFC.LAUNCHES, ACC.LAUNCHES,
                 SAC.LAUNCHES, LU.LAUNCHES, SLC.LAUNCHES, EXC.LAUNCHES, BPC.LAUNCHES, CC.LAUNCHES, SHA.LAUNCHES, X3.LAUNCHES,
-                NORM.LAUNCHES)
+                NORM.LAUNCHES, SC.LAUNCHES, FLT.LAUNCHES)
 
     def wait_corpus() -> bytes:
         if child.wait():
@@ -1685,7 +1963,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             function = line.rsplit(" ", 1)[-1].strip("'")
         elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel", "nf_compose_kernel", "xxh64_kernelILi1ELb1",
                                           "xxh32_kernelILi1ELb0ELb1", "xxh32_kernelILi1ELb1ELb1",
-                                          "xxh32_kernelILi8ELb1ELb1")) and (
+                                          "xxh32_kernelILi8ELb1ELb1", "radix_scatter", "radix_histogram",
+                                          "bloom_build_kernelILi7ELb1", "bloom_query_kernelILi7ELb1")) and (
                 "spill" in line or "registers" in line):
             own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
     phase(
@@ -1897,8 +2176,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             errors[key] = max(errors[key], max_err(got, S._score_scan(ab.pairs, 2, -1, go, ge, local=local)))
             dp_outs[(set_name, fn)] = got.cpu().numpy()
     dp_nbits = {name: mb.nbits for name, (mb, _) in dp_sets.items()}
-    myers_edge_checks = check_myers_edges(dev, errors)
     lap("edit distance, alignment")
+    myers_edge_checks = check_myers_edges(dev, errors)
+    lap("Myers edges")
     # A sample of 64 pairs against the brute-force oracles on the host.
     small = [i for i, (m, n) in enumerate(pair_lens) if m * n <= 4000]
     oracle_checked = 0
@@ -2278,6 +2558,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     lap("XXH3, spans")
     norm_checks = check_normalize(dev, errors)
     lap("normalization")
+    radix_checks = check_radix(dev, errors)
+    filter_checks = check_filters(dev, errors)
+    lap("radix sort, filters")
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -2315,7 +2598,11 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"{[hex(x) for x in HASH_SPAN_SEEDS]}); "
         f"{norm_checks} normalization batches (the three kernels and each form's pipeline on rows of 64 and the wide "
         f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
-        f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; launches {advanced}; "
+        f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; {radix_checks} radix "
+        f"argsorts ({RADIX_COLS} columns, {RADIX_NS} and 5,000,017 keys, equal, ten-valued and random keys of "
+        f"{RADIX_BITS} bits); {filter_checks} filter batches (Bloom build and query at k = 1, 7, 16 and m_bits 2^20 "
+        f"and 32 x 100,003 over spans, spans 3 bytes in, padded rows and an empty batch; BinaryFuse8 queries of a "
+        f"20,000-key table, and positions past its ends); launches {advanced}; "
         f"seconds by part {parts}",
         started,
     )
@@ -2891,6 +3178,118 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             started,
         )
 
+    def sequence_path() -> None:
+        """The sequence suite on 16 MB of words; its byte order against
+        ``sorted``; the uncased order there and on 8 MB of the multilingual
+        corpus (codepoints above 509: a codepoint a column) against
+        ``str.casefold``."""
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            sequence_suite.main,
+            ["--dataset-limit", "16mb", "--warmup", "0.25", "--time-limit", "1", "--filter", "swtorch::"],
+            ["argsort/swtorch::argsort<1gpu>", "argsort-uncased/swtorch::argsort_uncased<1gpu>"],
+        )
+        tape, staged = ctx.tape, ctx.staged
+        if tape.device.type != "cuda" or tape.total_bytes < 12 << 20:
+            raise AssertionError(f"the sequence suite ran on {tape.device} over {tape.total_bytes} bytes")
+        tokens = tape.to_list()
+        want = sorted(range(len(tokens)), key=tokens.__getitem__)
+        if staged["order"].tolist() != want or SORT.lsd_argsort(staged["columns"]).tolist() != want:
+            raise AssertionError("the byte order differs from sorted(range(n), key=tokens.__getitem__)")
+        uncased = SORT.argsort_uncased(tape)
+        ties = check_casefold_order(uncased, tokens)
+        if not np.array_equal(staged["uncased_order"].cpu().numpy(), uncased):
+            raise AssertionError("the uncased row's order differs from argsort_uncased's (no token reaches 96 bytes)")
+        ml = T.Tape.from_buffer(wait_corpus()[: 8 << 20], "words", device=dev)
+        rows, key_lengths, _ = SORT.stage_uncased(ml)
+        n_cols, pack3 = SORT.uncased_plan(*CF.fold_tokens(T.PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width)))
+        if pack3:
+            raise AssertionError("the multilingual words folded within 509: a codepoint a column was not exercised")
+        ml_tokens = ml.to_list()
+        ml_ties = check_casefold_order(SORT.argsort_uncased(ml), ml_tokens)
+        phase(
+            "main path",
+            f"sequence suite: {len(tokens):,} words ({tape.total_bytes:,} B) on {tape.device}: the full pipeline's "
+            f"order and the row's equal sorted(range(n), key=tokens.__getitem__); the uncased order (three codepoints a "
+            f"column) is a permutation ordered by str.casefold, {ties:,} tied pairs by index, and equals the row's; "
+            f"{len(ml_tokens):,} multilingual words ({ml.total_bytes:,} B, {int(ml.lengths.max())} B the longest, "
+            f"{n_cols} columns of a codepoint): ordered by str.casefold, {ml_ties:,} tied pairs by index; launches "
+            f"{launches()}",
+            started,
+        )
+
+    def containers_path() -> None:
+        """The containers suite on 32 MB of words (its asserts: multiseed
+        equals per-seed, no Bloom false negative); both filters' answers
+        against their plain versions on the card."""
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            containers_suite.main,
+            ["--dataset-limit", "32mb", "--warmup", "0.25", "--time-limit", "1", "--filter", "swtorch::"],
+            [f"multihash/{bits}bit/swtorch::xxh64_multiseed<1gpu>" for bits in (128, 256, 512, 1024)]
+            + [f"filters/swtorch::{row}" for row in ("bloom-build<1gpu>", "bloom-query<1gpu>", "fuse8-build(host)",
+                                                     "fuse8-query<1gpu>")],
+        )
+        suite_launches = launches()  # the suite's own run: the checks below launch the kernels again
+        st = ctx.staged
+        ins, held, bloom, fuse = st["inserted"], st["held_out"], st["bloom"], st["fuse"]
+        if ins.data.device.type != "cuda" or ins.count < 10000:
+            raise AssertionError(f"the containers suite ran on {ins.data.device} over {ins.count} keys")
+        err = max_err(signed(bloom.words), signed(FLT.bloom_build_plain(ins, bloom.seeds, bloom.m_bits)))
+        for probe in (ins, held):
+            err = max(err, max_err(FLT.bloom_query(bloom, probe), FLT.bloom_query_plain(bloom.words, probe, bloom.seeds, bloom.m_bits)))
+        h, fp = st["probes"]
+        err = max(err, max_err(FLT.fuse_query_probes(fuse.fingerprints, h, fp), FLT.fuse_query_plain(fuse.fingerprints, h, fp)))
+        if err or not bool(FLT.fuse_query(fuse, st["ins_keys"]).all()):
+            raise AssertionError(f"the filters differ from their plain versions on the card ({err}) or miss a key")
+        for counter in counters:
+            counter.update({k: suite_launches[k] for k in counter})
+        cont_keep.update(inserted=ins, held_out=held, bloom=bloom, fuse=fuse, probes=(h, fp))
+        (fpr, fn), fuse_fpr = st["quality"]["bloom"], st["quality"]["fuse"]
+        phase(
+            "main path",
+            f"containers suite: {st['tape'].count:,} unique words of 32 MB on {ins.data.device}; multiseed equals "
+            f"per-seed; Bloom over {ins.count:,} keys, {bloom.m_bits:,} bits, k = {len(bloom.seeds)}: FPR {100 * fpr:.3f}% "
+            f"on {held.count:,} held out, FN {100 * fn:.3f}%; BinaryFuse8 FPR {100 * fuse_fpr:.3f}% "
+            f"({fuse.bits_per_key(ins.count):.2f} bits a key); the Bloom words and both filters' answers equal the plain "
+            f"versions on the card; launches of the suite's run {launches()}",
+            started,
+        )
+
+    def memory_path() -> None:
+        """The memory suite on 128 MB of long lines; the copy, the move and
+        the fill against their definitions, the LUT against its plain
+        version on the card."""
+        started = time.perf_counter()
+        ctx, _ = run_suite(
+            memory_suite.main,
+            ["--dataset-limit", "128mb", "--warmup", "0.25", "--time-limit", "1", "--filter", "swtorch::"],
+            ["lookup-table/swtorch::lut_translate<1gpu>", "generate-random/swtorch::fill_random<1gpu>",
+             "memset/swtorch::fill<1gpu>", "memcpy/swtorch::copy<1gpu>", "memmove/swtorch::move<1gpu>"],
+        )
+        st = ctx.staged
+        data = st["data"]
+        n, shift = data.numel(), memory_suite.SHIFT
+        if data.device.type != "cuda" or n < 100 << 20:
+            raise AssertionError(f"the memory suite ran on {data.device} over {n} bytes")
+        if not torch.equal(st["copy"], data):
+            raise AssertionError("the memcpy row's copy differs from its input")
+        if not torch.equal(st["move"][: n - shift], data[shift:]) or bool(st["move"][n - shift :].any()):
+            raise AssertionError("the memmove row's output is not its input shifted by 8 with a zero tail")
+        if not bool((st["fill"] == st["fill_value"]).all()):
+            raise AssertionError("the memset row's buffer does not hold its value")
+        lut = torch.from_numpy(M.invert_case_lut()).to(dev)
+        if not torch.equal(st["lut"], M.lut_translate_plain(data, lut)):
+            raise AssertionError("the lookup-table row's output differs from the plain version")
+        mem_keep["data"] = data
+        phase(
+            "main path",
+            f"memory suite: {n:,} B of synthetic:long-lines on {data.device}; the copy equals its input, the move its "
+            f"input shifted by {shift} with a zero tail, the fill its value ({st['fill_value']}), the LUT the plain "
+            f"version; launches {launches()}",
+            started,
+        )
+
     suite_tape: list = []  # the find suite's tape, for the multi-pattern path and the rows phase
     fp_keep: dict = {}  # the fingerprints suite's batch, for the rows phase
     norm_keep: dict = {}  # the normalization suite's rows, haystack and needles, for the rows phase
@@ -2898,6 +3297,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     sim_keep: dict = {}  # the similarities suite's pairs, for the rows phase
     hash_keep: dict = {}  # the hash suite's buckets, for the rows phase
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
+    cont_keep: dict = {}  # the containers suite's split, filters and probes, for the rows phase
+    mem_keep: dict = {}  # the memory suite's buffer, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     path(["xxh64_spans", "swh64_spans", "xxh32_spans", "xxh64_tree", "bytesum", "sha256", "xxh3"], hash_path)
@@ -2909,6 +3310,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     path(["expand", "range_map", "cp_window", "class_map", "nf_decompose", "nf_reorder"], normalization_path)
     path(["nf_reorder", "nf_compose"], nfc_of_nfd_path)
     path(["chacha20_xor", "poly1305", "threefry"], encryption_path)
+    path(["radix_argsort", "range_map"], sequence_path)
+    path(["xxh64_spans", "bloom_build", "bloom_query", "fuse_query"], containers_path)
+    path(["lut_translate", "threefry"], memory_path)
     torch.cuda.empty_cache()
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------
@@ -3461,7 +3865,11 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             lambda padded_call=padded_call: tuple(padded_call(p) for p in buckets.buckets),
             lambda padded_plain=padded_plain: tuple(padded_plain(p) for p in buckets.buckets),
             buckets.token_bytes, h_bound, plain_samples=1)
-    del buckets, tape
+    del buckets
+    sort_rows(row, timings, tape, dev)
+    del tape
+    filter_rows(row, cont_keep, dev)
+    memory_rows(row, mem_keep.pop("data"), dev)
     fill_words = 32 << 20
     row("fill_random-128MB (Threefry-2x32, 32 Mi words)", lambda: M.threefry_bits_cuda(1, fill_words, dev),
         lambda: M.threefry_bits_plain(1, fill_words, dev), 4 * fill_words, bound_ms(4 * fill_words, 73 * fill_words), "threefry",
@@ -3503,6 +3911,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "nf_decompose": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:238"),
         "nf_reorder": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:298"),
         "nf_compose": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:429"),
+        "radix_argsort": ("stringwars_tpu_torch/csrc/radixsort.cu", "stringwars_tpu/ops/sort.py:56"),
+        "bloom_build": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:66"),
+        "bloom_query": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:82"),
+        "fuse_query": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:209"),
     }
     kernels = [
         {

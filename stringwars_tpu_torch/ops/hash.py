@@ -10,10 +10,11 @@ The port of ``stringwars_tpu.ops.hash``, digest for digest:
   ``swh64_multiseed`` under k seeds.
 - ``tree_hash64`` — XXH64 (seed 0) of every 64 KiB chunk of a buffer, then
   of the little-endian digest tape, until one digest remains.
-- ``xxh64_spans`` / ``xxh32_spans`` / ``swh64_spans`` /
-  ``swh64_multiseed_spans`` — the same digests of a tape's tokens where they
-  lie (token ``t`` is ``data[offsets[t] : offsets[t + 1]]``), with no padded
-  copy: one launch a call (``csrc/hash.cu``'s spans form).
+- ``xxh64_spans`` / ``xxh64_multiseed_spans`` / ``xxh32_spans`` /
+  ``swh64_spans`` / ``swh64_multiseed_spans`` — the same digests of a
+  tape's tokens where they lie (token ``t`` is ``data[offsets[t] :
+  offsets[t + 1]]``), with no padded copy: one launch a call
+  (``csrc/hash.cu``'s spans form).
 
 Digests come back as the JAX package shapes them, ``[batch]`` or
 ``[k, batch]``, but as native tensors: ``uint32`` for xxh32, ``uint64``
@@ -260,6 +261,12 @@ def xxh64_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) 
     return _spans_plain(xxh64_plain, data, offsets, _seeds(seed), torch.uint64)[0]
 
 
+def xxh64_multiseed_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """uint64[k, T]: XXH64 under k seeds of every token of a tape's spans, in
+    torch ops."""
+    return _spans_plain(xxh64_plain, data, offsets, _seeds(seeds), torch.uint64)
+
+
 def xxh32_spans_plain(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """uint32[T]: XXH32 under ``seed``'s low 32 bits of every token of a
     tape's spans, in torch ops."""
@@ -353,6 +360,16 @@ def xxh64_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> tor
 
         return hash_cuda.xxh64_spans_cuda(data, offsets, seed)
     return xxh64_spans_plain(data, offsets, seed)
+
+
+def xxh64_multiseed_spans(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """uint64[k, T]: XXH64 under k seeds of every token of a tape's spans,
+    each token read once for all seeds (at most 8 a launch)."""
+    if _on_card(data):
+        from stringwars_tpu_torch.ops import hash_cuda
+
+        return hash_cuda.xxh64_multiseed_spans_cuda(data, offsets, seeds)
+    return xxh64_multiseed_spans_plain(data, offsets, seeds)
 
 
 def xxh32_spans(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:

@@ -139,6 +139,12 @@ def xxh64_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -
     return _spans(data, offsets, [seed], "xxh64_spans")[0]
 
 
+def xxh64_multiseed_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seeds) -> torch.Tensor:
+    """``hash.xxh64_multiseed_spans_plain`` by the spans form, on the device:
+    one pass over the bytes for up to 8 seeds."""
+    return _spans(data, offsets, [int(s) for s in np.asarray(seeds, dtype=np.uint64).reshape(-1)], "xxh64_spans")
+
+
 def xxh32_spans_cuda(data: torch.Tensor, offsets: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """``hash.xxh32_spans_plain`` by the spans form, on the device."""
     return _spans(data, offsets, [seed], "xxh32_spans")[0]

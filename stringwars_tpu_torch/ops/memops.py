@@ -1,13 +1,17 @@
-"""Memory ops: the LUT translate and the counter-based random fill (family K12).
+"""Memory ops: LUT translate, fill, copy, move, random fill (family K12).
 
-The port of ``stringwars_tpu.ops.memops.lut_translate``,
-``invert_case_lut`` (reference ``memory/bench.rs:110-166``),
+The port of ``stringwars_tpu.ops.memops`` (reference
+``memory/bench.rs:110-396``): ``lut_translate`` and ``invert_case_lut``
+(the 256-byte case-invert table), ``fill``, ``copy``, ``move``,
 ``fill_random_words`` and ``fill_random``. The JAX package's select-plane
 form (``lut_translate_planes``) routes around the TPU's slow u8 gathers and
 is not ported: the kernel ``csrc/lut.cu`` looks the table up in shared
 memory. The random fill is Threefry-2x32, bit for bit the words of
 ``jax.random.bits(jax.random.PRNGKey(seed), ...)`` (``csrc/threefry.cu``).
-The rest of memops (fill, copy, move) comes with the memory suite.
+``fill``, ``copy`` and ``move`` are torch's ``fill_`` and ``copy_``,
+bounded by the bytes they move; ``move`` is the JAX package's, the buffer
+shifted down by ``shift`` bytes out of place with a zero tail (``copy_``
+refuses a source that partly overlaps its destination).
 
 ``*_plain`` are the plain torch versions; ``*_cuda`` launch the kernels;
 ``lut_translate`` takes the kernel for a CUDA tensor and the plain version
@@ -82,6 +86,41 @@ def lut_translate(data: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     if data.device.type == "cpu":
         return lut_translate_plain(data, lut)
     raise ValueError(f"lut_translate runs on a CUDA or CPU tensor, not {data.device}")
+
+
+# ---------------------------------------------------------------------------
+# Fill, copy, move
+# ---------------------------------------------------------------------------
+
+def fill(n: int, value: int, device="cuda", out: torch.Tensor | None = None) -> torch.Tensor:
+    """uint8[n] of ``value`` (its low byte): ``out`` (a uint8 tensor of n
+    bytes, written in place) or a new buffer on ``device``."""
+    if out is None:
+        out = torch.empty(n, dtype=torch.uint8, device=device)
+    elif out.dtype != torch.uint8 or out.numel() != n:
+        raise ValueError(f"fill: out must be a uint8 tensor of {n} bytes, got {out.dtype}{tuple(out.shape)}")
+    return out.fill_(int(value) & 0xFF)
+
+
+def copy(data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """A copy of ``data``, into ``out`` (same shape and type) or a new buffer."""
+    if out is None:
+        out = torch.empty_like(data)
+    return out.copy_(data)
+
+
+def move(data: torch.Tensor, shift: int = 8, out: torch.Tensor | None = None) -> torch.Tensor:
+    """memmove analog: the 1-D ``data`` shifted down by ``shift`` bytes, out
+    of place, its last ``shift`` entries zero (reference shift 8, work n -
+    8, ``memory/bench.rs:321-396``)."""
+    n = data.numel()
+    if data.dim() != 1 or not 0 <= shift <= n:
+        raise ValueError(f"move: a shift of {shift} over a 1-D buffer of {n}")
+    if out is None:
+        out = torch.empty_like(data)
+    out[: n - shift].copy_(data[shift:])
+    out[n - shift :].zero_()
+    return out
 
 
 # ---------------------------------------------------------------------------
