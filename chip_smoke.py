@@ -77,6 +77,13 @@ prints no result:
    the radix argsort over 1 to 32 columns (the JAX package's multi-key and
    LSD forms), 0, 1, 4,095–4,097, 100,003 and 5,000,017 keys, all equal,
    ten-valued and random, of 9, 22, 27 and 32 bits (``check_radix``); the
+   uncased keys kernel and its plan mode against ``uncased_keys_plain`` and
+   the plain fold's largest count and codepoint, exactly, on rows of 4, 6,
+   20, 96 and 300 B of ASCII, multilingual, expanding (ß, U+0390, U+1E9E) and
+   astral (Deseret) text and of random bytes (invalid and truncated UTF-8,
+   bytes from 0xF8 up), with empty rows, key lengths cut inside characters,
+   and the plan's column count, one fewer and one more (``check_uncased_keys``);
+   the
    Bloom build and query at k = 1, 7 and 16, m_bits 2^20 and 32 x 100,003,
    over a tape's spans of 0..1,024 B (empty and 1 KB tokens among them),
    the same 3 bytes into a buffer, padded rows and an empty batch, and the
@@ -140,7 +147,8 @@ prints no result:
      a tampered tag refused; the launches are those of the suite's run;
    - ``suites.sequence.main`` on 16 MB of words (``swtorch::`` rows): the
      full pipeline's order and the row's equal to ``sorted(range(n),
-     key=tokens.__getitem__)``; ``argsort_uncased`` of the same tape and of
+     key=tokens.__getitem__)``; ``argsort_uncased`` of the same tape (with
+     ``casefold.fold_tokens`` made to raise: no torch fold on the card) and of
      8 MB of the multilingual corpus (folded codepoints above 509: a
      codepoint a column) held to ``str.casefold`` by adjacent pairs
      (``check_casefold_order``: a permutation, each pair ordered, tied pairs
@@ -204,8 +212,12 @@ prints no result:
    whole ``nfc-of-nfd-128MB`` route; ``argsort-words-128MB`` (the hash
    suite's tape as the sequence suite stages it, its rate in comparisons
    beside the reference's cudf cell; the ``torch.sort`` chain of two-column
-   int64 keys its library) and ``argsort-uncased-words-128MB`` (the fold,
-   the packing and the sort), the filter rows at the containers suite's key
+   int64 keys its library), the radix call split by launch (profiler device
+   time of the spread, the digit count and the passes), ``uncased-keys-words-128MB``
+   (the uncased keys kernel over the same tape's prefix rows, held beside
+   it to the plain version on 8 MB of the multilingual corpus too) and
+   ``argsort-uncased-words-128MB`` (the keys and the sort, split by launch
+   by profiler device time), the filter rows at the containers suite's key
    counts and the Bloom rows at 800,000 random keys (``bloom-build-<n>k``,
    ``bloom-query-<n>k``, ``fuse8-query-<n>k``, profiler device time), and
    ``memset``/``memcpy``/``memmove-128MB`` (torch ops beside a plain torch
@@ -247,6 +259,7 @@ import sys
 import time
 import unicodedata
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -275,7 +288,9 @@ def phase(name: str, detail: str, started: float | None = None) -> None:
 
 def time_ms(fn, samples: int = SAMPLES, warm: int = WARM) -> float:
     """Device time of one call of ``fn``: CUDA events around a run of k
-    back-to-back calls (k fills ~20 ms, at most 50), the median of the runs."""
+    back-to-back calls (k fills ~20 ms, at most 50), the median of the runs;
+    where one call takes 20 ms or more, the call that measured it is the
+    first run."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -284,9 +299,10 @@ def time_ms(fn, samples: int = SAMPLES, warm: int = WARM) -> float:
     fn()
     end.record()
     end.synchronize()
-    k = max(1, min(50, int(20.0 / max(start.elapsed_time(end), 1e-3))))
-    times = []
-    for _ in range(samples):
+    first = start.elapsed_time(end)
+    k = max(1, min(50, int(20.0 / max(first, 1e-3))))
+    times = [first] if k == 1 else []  # a call of 20 ms or more is a sample of its own
+    while len(times) < samples:
         start.record()
         for _ in range(k):
             fn()
@@ -1357,6 +1373,9 @@ RADIX_NS = (0, 1, 4095, 4096, 4097, 100_003)  # 0 and 1 keys, around a tile of 4
 RADIX_COLS = (1, 3, 8, 9, 32)  # the JAX package's one multi-key sort (<= 8 columns) and its LSD passes (> 8)
 RADIX_BITS = (9, 22, 27, 32)  # a byte + 1, a codepoint + 1, three bytes + 1, any uint32
 RADIX_LONG = ((7, 27, "random"), (9, 22, "ten"), (2, 9, "equal"), (32, 27, "ten"))  # (columns, bits, keys) at 5 M keys
+# n % 4 of 1 and 3: a column past the first starts off a 16-byte boundary, so
+# the spread and the digit count read single keys before and after its vectors.
+RADIX_MISALIGNED_NS = (5, 7, 4097, 100_003)
 CUDF_CMP_PER_S = 9463e6  # the reference's H100 argsort cell: cudf on short words (BASELINE.md:92)
 
 
@@ -1377,7 +1396,10 @@ def check_radix(dev, errors: dict) -> int:
     """The radix argsort against ``lsd_argsort_plain`` on the card, exactly:
     1 to 32 columns, 0 and 1 keys, a tile of keys and one either side, 100,003
     and 5,000,017 keys; all keys equal, ten values, random; 9-, 22-, 27- and
-    32-bit values. Returns the sorts checked."""
+    32-bit values; and, at ``RADIX_MISALIGNED_NS`` keys in 2 and 3 columns,
+    zero keys but for the last column's last one or two, which alone vary in
+    one digit (the plan that ran must be that digit's one pass). Returns the
+    sorts checked."""
     from stringwars_tpu_torch.ops import sort as SORT
     from stringwars_tpu_torch.ops import sort_cuda as SC
 
@@ -1388,7 +1410,88 @@ def check_radix(dev, errors: dict) -> int:
     for kind, n_cols, n, bits in cases:
         cols = radix_keys(kind, n_cols, n, bits, g, dev)
         errors["radix_argsort"] = max(errors["radix_argsort"], max_err(SC.radix_argsort(cols), SORT.lsd_argsort_plain(cols)))
-    return len(cases)
+    edges = [(n, n_cols, last, shift) for n in RADIX_MISALIGNED_NS for n_cols in (2, 3) for last in (1, 2) for shift in (0, 18)]
+    for n, n_cols, last, shift in edges:
+        cols = torch.zeros((n_cols, n), dtype=torch.int32, device=dev)
+        cols[-1, n - 2] = last << shift
+        if last == 2:
+            cols[-1, n - 1] = 1 << shift
+        got, passes = SC.radix_argsort_planned(cols)
+        if passes != [(n_cols - 1, shift)]:
+            raise AssertionError(f"radix_argsort of {n} keys varying only at the end of column {n_cols - 1}: the plan "
+                                 f"{passes}, not [({n_cols - 1}, {shift})]")
+        errors["radix_argsort"] = max(errors["radix_argsort"], max_err(got, SORT.lsd_argsort_plain(cols)))
+    return len(cases) + len(edges)
+
+
+UNCASED_ALPHABETS = (
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789-'",  # ASCII: three codepoints a column
+    "aZéÉπΠжЖ日本語한국어ßẞΣσςİıǅΩω€אئ",  # folded codepoints past 509: one a column
+    "aAßẞΐΰﬃﬆİǰᾀᾈxX",  # expansions: ß, U+0390, U+1E9E, ligatures, iota subscripts
+    "\U00010400\U00010428\U0001E900a\U00010C80",  # Deseret and other astral letters
+)
+UNCASED_WIDTHS = (4, 6, 20, 96, 300)  # 6: rows that are no whole words (byte staging); 300: over 48 KB staged
+UNCASED_ROWS = 3_003  # 11 blocks of 256 rows and a part
+
+
+def uncased_edge_batches(rng) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(uint8 [rows, W] rows, int32 key lengths) for the uncased keys kernel:
+    random strings over each of ``UNCASED_ALPHABETS`` (every 17th row empty,
+    every third key length cut anywhere in [-1, W], inside characters among
+    them) and random bytes (invalid and truncated UTF-8, bytes from 0xF8 up),
+    at each of ``UNCASED_WIDTHS``."""
+    batches = []
+    for width in UNCASED_WIDTHS:
+        for alphabet in UNCASED_ALPHABETS:
+            data = np.zeros((UNCASED_ROWS, width), np.uint8)
+            lengths = np.zeros(UNCASED_ROWS, np.int32)
+            chars = [c.encode() for c in alphabet]
+            for i in range(UNCASED_ROWS):
+                raw = b""
+                for c in rng.choice(len(chars), int(rng.integers(0, width + 1))):
+                    if len(raw) + len(chars[c]) > width:
+                        break
+                    raw += chars[c]
+                data[i, : len(raw)] = np.frombuffer(raw, np.uint8)
+                lengths[i] = len(raw)
+            lengths[::17] = 0
+            lengths[1::3] = rng.integers(-1, width + 1, lengths[1::3].size)
+            batches.append((data, lengths))
+        batches.append((rng.integers(0, 256, (UNCASED_ROWS, width), dtype=np.uint8),
+                        rng.integers(-1, width + 2, UNCASED_ROWS).astype(np.int32)))
+    return batches
+
+
+def check_uncased_keys(dev, errors: dict, batches) -> int:
+    """The uncased keys kernel against ``uncased_keys_plain`` on the card,
+    exactly, on each batch of (uint8 [rows, W] rows, int32 key lengths), at
+    the plan's column count, one fewer and one more, in the plan's packing
+    (and one a column where the plan packs three); its plan mode against the
+    plain fold's largest count and codepoint. Returns the batches checked."""
+    from stringwars_tpu_torch import tape as T
+    from stringwars_tpu_torch.ops import casefold as CF
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+
+    checked = 0
+    for data, lengths in batches:
+        data = torch.as_tensor(data).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev)
+        folded, counts = CF.fold_tokens(T.PaddedTokens(data=data, lengths=lengths, width=data.shape[1]))
+        want = (int(counts.max()), int(folded.max()))
+        del folded, counts
+        got = SC.uncased_extent(data, lengths)
+        if got != want:
+            raise AssertionError(f"uncased_extent of rows of {data.shape[1]} B: {got}, the plain fold's {want}")
+        n_cols, pack3 = SORT.uncased_plan(data, lengths)
+        cases = [(c, pack3) for c in sorted({max(1, n_cols - 1), n_cols, n_cols + 1})]
+        if pack3:
+            cases.append((max(1, want[0]), False))
+        for c, packed in cases:
+            errors["uncased_keys"] = max(errors["uncased_keys"], max_err(SC.uncased_keys(data, lengths, c, packed),
+                                                                         SORT.uncased_keys_plain(data, lengths, c, packed)))
+            checked += 1
+    return checked
 
 
 def check_filters(dev, errors: dict) -> int:
@@ -1702,14 +1805,18 @@ def normalization_rows(row, keep: dict, launches, dev) -> None:
                     launches, {k: names[k] for k in ran})
 
 
-def sort_rows(row, timings: dict, tape, dev) -> None:
+def sort_rows(row, timings: dict, errors: dict, tape, ml_tape, dev) -> None:
     """The sort rows over the hash suite's tape, staged as the sequence
     suite stages it: ``argsort-words-128MB`` (the packed 96-byte prefix
     columns to the permutation; bound: the columns read once, the int32
     permutation written once) with its rate in comparisons beside the
-    reference's cudf cell, and ``argsort-uncased-words-128MB`` (the prefix
-    rows through the fold, the packing and the sort; bound: the rows and
-    their key lengths read once, the permutation written once)."""
+    reference's cudf cell and the call split by launch,
+    ``uncased-keys-words-128MB`` (the prefix rows to their uncased key
+    columns; bound: the rows and their key lengths read once, the columns
+    written once), held also on ``ml_tape``'s rows, and
+    ``argsort-uncased-words-128MB`` (the keys and the sort; bound: the rows
+    and their key lengths read once, the permutation written once), split
+    by launch."""
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import casefold as CF
     from stringwars_tpu_torch.ops import sort as SORT
@@ -1719,12 +1826,10 @@ def sort_rows(row, timings: dict, tape, dev) -> None:
     comparisons = n * math.log2(n)
     prefix = T.PaddedTokens.from_tape(tape, align=4, max_width=SORT.PREFIX_WIDTH)
     cols = SORT.byte_columns(prefix.data, prefix.lengths)
-    if not torch.equal(sort_chain(cols).to(torch.int32), SC.radix_argsort(cols)):
+    got, passes = SC.radix_argsort_planned(cols)
+    if not torch.equal(sort_chain(cols).to(torch.int32), got):
         raise AssertionError("argsort-words-128MB: the torch.sort chain differs from the kernel")
-    host = cols.cpu().numpy().view(np.uint32)
-    passes = SC.plan_passes([int(np.bitwise_or.reduce(c)) for c in host] + [int(np.bitwise_and.reduce(c)) for c in host],
-                            cols.shape[0])
-    del host
+    del got
     row(f"argsort-words-128MB ({n:,} keys of the hash suite's tape, {cols.shape[0]} columns, {len(passes)} passes of "
         f"9-bit digits; the torch.sort chain of 2-column int64 keys is the library)", lambda: SC.radix_argsort(cols), lambda: SORT.lsd_argsort_plain(cols),
         cols.numel() * 4, bound_ms(cols.numel() * 4 + 4 * n), "radix_argsort", library=lambda: sort_chain(cols),
@@ -1732,22 +1837,50 @@ def sort_rows(row, timings: dict, tape, dev) -> None:
     ms = timings["radix_argsort"]["ms"]
     phase("row", f"argsort-words-128MB: {comparisons / ms / 1e3:,.1f} M cmp/s (n log2 n = {comparisons:,.0f} comparisons "
                  f"in {ms:.4f} ms); the reference's H100 cell, cudf on short words: {CUDF_CMP_PER_S / 1e6:,.0f} M cmp/s")
+    radix_launches = {"spread": "radix_spread", "digit count": "radix_digits", "passes": "radix_sweep"}
+    split = device_breakdown(lambda: SC.radix_argsort(cols), radix_launches, calls=5)
+    phase("row", "argsort-words-128MB by launch (profiler device ms a call): " + (
+        "not measured" if split is None else
+        ", ".join(f"{k} {split[k]:.4f}" for k in radix_launches) + f" ({split['passes'] / len(passes):.4f} a pass of "
+        f"{len(passes)}), memsets and copies {split['torch']:.4f}, total {split['total']:.4f}"))
     del cols, passes
+
     rows, key_lengths, _ = SORT.stage_uncased(tape)
     padded = T.PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width)
     folded, counts = CF.fold_tokens(padded)
-    n_cols, pack3 = SORT.uncased_plan(folded, counts)
-    ucols = SORT.uncased_columns(folded, counts, n_cols, pack3)
+    want_extent = (int(counts.max()), int(folded.max()))
     del folded, counts
+    if SC.uncased_extent(rows.data, key_lengths) != want_extent:
+        raise AssertionError(f"uncased_extent of the words differs from the plain fold's {want_extent}")
+    n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
+    ml_rows, ml_lengths, _ = SORT.stage_uncased(ml_tape)
+    ml_checked = check_uncased_keys(dev, errors, [(ml_rows.data, ml_lengths)])
+    if errors["uncased_keys"]:
+        raise AssertionError(f"uncased_keys differs from the plain version on the multilingual rows by {errors['uncased_keys']}")
+    row(f"uncased-keys-words-128MB ({n:,} prefix rows of {rows.width} B to {n_cols} columns "
+        f"{'of three codepoints' if pack3 else 'of a codepoint'}; equal to the plain version also on {ml_tape.count:,} "
+        f"multilingual words, {ml_checked} column counts and packings)",
+        lambda: SC.uncased_keys(rows.data, key_lengths, n_cols, pack3),
+        lambda: SORT.uncased_keys_plain(rows.data, key_lengths, n_cols, pack3), rows.data.numel(),
+        bound_ms(rows.data.numel() + 4 * n + 4 * n_cols * n), "uncased_keys", plain_samples=1)
+    del ml_rows, ml_lengths
+    ucols = SC.uncased_keys(rows.data, key_lengths, n_cols, pack3)
     sort_alone = time_ms(lambda: SC.radix_argsort(ucols))
-    row(f"argsort-uncased-words-128MB ({n:,} prefix rows of {rows.width} B through the fold, {n_cols} columns "
-        f"{'of three codepoints' if pack3 else 'of a codepoint'} and the sort; the same with the torch.sort chain is "
-        f"the library)", lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3),
-        lambda: SORT.lsd_argsort_plain(SORT.uncased_columns(*CF.fold_tokens(padded), n_cols, pack3)),
+    del ucols
+    row(f"argsort-uncased-words-128MB ({n:,} prefix rows of {rows.width} B through the uncased keys kernel, {n_cols} "
+        f"columns {'of three codepoints' if pack3 else 'of a codepoint'}, and the sort; the plain fold's columns through "
+        f"the torch.sort chain are the library)", lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3),
+        lambda: SORT.lsd_argsort_plain(SORT.uncased_keys_plain(rows.data, key_lengths, n_cols, pack3)),
         rows.data.numel(), bound_ms(rows.data.numel() + 4 * n + 4 * n),
-        library=lambda: sort_chain(SORT.uncased_columns(*CF.fold_tokens(padded), n_cols, pack3)), plain_samples=1,
+        library=lambda: sort_chain(SORT.uncased_keys_plain(rows.data, key_lengths, n_cols, pack3)), plain_samples=1,
         note=f"; the radix sort of its columns alone {sort_alone:.4f} ms")
-    del ucols, rows, key_lengths, padded
+    uncased_launches = {"uncased keys": "uncased_keys_kernel", **radix_launches}
+    split = device_breakdown(lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3), uncased_launches, calls=5)
+    phase("row", "argsort-uncased-words-128MB by launch (profiler device ms a call): " + (
+        "not measured" if split is None else
+        ", ".join(f"{k} {split[k]:.4f}" for k in uncased_launches) + f", other device work (memsets and copies) "
+        f"{split['torch']:.4f}, total {split['total']:.4f}"))
+    del rows, key_lengths, padded
     torch.cuda.empty_cache()
 
 
@@ -1963,7 +2096,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             function = line.rsplit(" ", 1)[-1].strip("'")
         elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel", "nf_compose_kernel", "xxh64_kernelILi1ELb1",
                                           "xxh32_kernelILi1ELb0ELb1", "xxh32_kernelILi1ELb1ELb1",
-                                          "xxh32_kernelILi8ELb1ELb1", "radix_scatter", "radix_histogram",
+                                          "xxh32_kernelILi8ELb1ELb1", "radix_sweep", "radix_digits", "uncased_keys_kernel",
                                           "bloom_build_kernelILi7ELb1", "bloom_query_kernelILi7ELb1")) and (
                 "spill" in line or "registers" in line):
             own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
@@ -2559,8 +2692,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     norm_checks = check_normalize(dev, errors)
     lap("normalization")
     radix_checks = check_radix(dev, errors)
+    uncased_checks = check_uncased_keys(dev, errors, uncased_edge_batches(np.random.default_rng(49)))
     filter_checks = check_filters(dev, errors)
-    lap("radix sort, filters")
+    lap("radix sort, uncased keys, filters")
     advanced = {k: v - before[k] for k, v in launches().items()}
     if any(errors.values()) or not all(advanced.values()):
         raise AssertionError(f"kernels disagree with their plain versions or did not launch: {errors}, {advanced}")
@@ -2600,7 +2734,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
         f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; {radix_checks} radix "
         f"argsorts ({RADIX_COLS} columns, {RADIX_NS} and 5,000,017 keys, equal, ten-valued and random keys of "
-        f"{RADIX_BITS} bits); {filter_checks} filter batches (Bloom build and query at k = 1, 7, 16 and m_bits 2^20 "
+        f"{RADIX_BITS} bits; {RADIX_MISALIGNED_NS} keys varying only in the last column's last keys); {uncased_checks} uncased key batches (rows of {UNCASED_WIDTHS} B: ASCII, multilingual, expanding and astral text, random bytes; empty rows, cut key lengths; the plan's columns, one fewer and one more) and their plans; {filter_checks} filter batches (Bloom build and query at k = 1, 7, 16 and m_bits 2^20 "
         f"and 32 x 100,003 over spans, spans 3 bytes in, padded rows and an empty batch; BinaryFuse8 queries of a "
         f"20,000-key table, and positions past its ends); launches {advanced}; "
         f"seconds by part {parts}",
@@ -3180,9 +3314,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
 
     def sequence_path() -> None:
         """The sequence suite on 16 MB of words; its byte order against
-        ``sorted``; the uncased order there and on 8 MB of the multilingual
-        corpus (codepoints above 509: a codepoint a column) against
-        ``str.casefold``."""
+        ``sorted``; the uncased order there (with ``casefold.fold_tokens``
+        made to raise: the card runs no torch fold) and on 8 MB of the
+        multilingual corpus (codepoints above 509: a codepoint a column)
+        against ``str.casefold``."""
         started = time.perf_counter()
         ctx, _ = run_suite(
             sequence_suite.main,
@@ -3196,13 +3331,15 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         want = sorted(range(len(tokens)), key=tokens.__getitem__)
         if staged["order"].tolist() != want or SORT.lsd_argsort(staged["columns"]).tolist() != want:
             raise AssertionError("the byte order differs from sorted(range(n), key=tokens.__getitem__)")
-        uncased = SORT.argsort_uncased(tape)
+        with mock.patch.object(CF, "fold_tokens", side_effect=AssertionError("argsort_uncased ran the torch fold")):
+            uncased = SORT.argsort_uncased(tape)  # on the card: the uncased keys kernel and the radix kernel alone
         ties = check_casefold_order(uncased, tokens)
         if not np.array_equal(staged["uncased_order"].cpu().numpy(), uncased):
             raise AssertionError("the uncased row's order differs from argsort_uncased's (no token reaches 96 bytes)")
         ml = T.Tape.from_buffer(wait_corpus()[: 8 << 20], "words", device=dev)
+        seq_keep["ml"] = ml
         rows, key_lengths, _ = SORT.stage_uncased(ml)
-        n_cols, pack3 = SORT.uncased_plan(*CF.fold_tokens(T.PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width)))
+        n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
         if pack3:
             raise AssertionError("the multilingual words folded within 509: a codepoint a column was not exercised")
         ml_tokens = ml.to_list()
@@ -3299,6 +3436,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     cont_keep: dict = {}  # the containers suite's split, filters and probes, for the rows phase
     mem_keep: dict = {}  # the memory suite's buffer, for the rows phase
+    seq_keep: dict = {}  # the sequence path's multilingual words, for the rows phase
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     path(["xxh64_spans", "swh64_spans", "xxh32_spans", "xxh64_tree", "bytesum", "sha256", "xxh3"], hash_path)
@@ -3310,7 +3448,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     path(["expand", "range_map", "cp_window", "class_map", "nf_decompose", "nf_reorder"], normalization_path)
     path(["nf_reorder", "nf_compose"], nfc_of_nfd_path)
     path(["chacha20_xor", "poly1305", "threefry"], encryption_path)
-    path(["radix_argsort", "range_map"], sequence_path)
+    path(["radix_argsort", "uncased_keys"], sequence_path)
     path(["xxh64_spans", "bloom_build", "bloom_query", "fuse_query"], containers_path)
     path(["lut_translate", "threefry"], memory_path)
     torch.cuda.empty_cache()
@@ -3866,7 +4004,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             lambda padded_plain=padded_plain: tuple(padded_plain(p) for p in buckets.buckets),
             buckets.token_bytes, h_bound, plain_samples=1)
     del buckets
-    sort_rows(row, timings, tape, dev)
+    sort_rows(row, timings, errors, tape, seq_keep.pop("ml"), dev)
     del tape
     filter_rows(row, cont_keep, dev)
     memory_rows(row, mem_keep.pop("data"), dev)
@@ -3912,6 +4050,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         "nf_reorder": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:298"),
         "nf_compose": ("stringwars_tpu_torch/csrc/normalize.cu", "stringwars_tpu/ops/normalize.py:429"),
         "radix_argsort": ("stringwars_tpu_torch/csrc/radixsort.cu", "stringwars_tpu/ops/sort.py:56"),
+        "uncased_keys": ("stringwars_tpu_torch/csrc/uncased_keys.cu", "stringwars_tpu/ops/sort.py:161"),
         "bloom_build": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:66"),
         "bloom_query": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:82"),
         "fuse_query": ("stringwars_tpu_torch/csrc/filters.cu", "stringwars_tpu/ops/filters.py:209"),

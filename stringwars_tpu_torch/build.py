@@ -67,8 +67,8 @@ SIGNATURES = {
     "sw_nf_decompose_rows": (_P, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _P),
     "sw_nf_reorder_rows": (_P, _P, _N, _N, _P, _N, _P),
     "sw_nf_compose_rows": (_P, _P, _P, _N, _N, _P, _N, _P, _N, _P, _N, _P, _N, _P),
-    "sw_radix_spread": (_P, _N, _N, _P, _P),
-    "sw_radix_argsort": (_P, _N, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P),
+    "sw_radix_argsort": (_P, _N, _N, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "sw_uncased_keys": (_P, _P, _N, _N, _P, _N, _N, _N, _N, _P, _P),
     "sw_bloom_build": (_P, _N, _P, _P, _N, _N, _P, _N, _N, _P, _P),
     "sw_bloom_query": (_P, _N, _P, _P, _N, _N, _P, _N, _N, _P, _P, _P),
     "sw_fuse_query": (_P, _N, _P, _P, _N, _P, _P),

@@ -16,10 +16,16 @@ comparisons; a caller-owned ``out`` index buffer as in
 - ``argsort_tape``: a ``prefix_width``-byte key sorted on the tape's
   device; rows that tie on a maxed-out prefix are refined on the host with
   a stable sort of the whole tokens.
-- ``argsort_uncased``: keys from the full case fold (``casefold.fold_tokens``)
-  of each prefix clamped to a UTF-8 boundary, three codepoints a column when
-  the folded ceiling is at most 509 and one a column otherwise; ties on
-  maxed-out prefixes refine with ``str.casefold``.
+- ``uncased_keys``: the key columns of the full case fold of each row's
+  first ``key_lengths`` bytes, three codepoints a column or one; on a card
+  one launch of the kernel of ``ops/sort_cuda.py``, on the CPU
+  ``uncased_keys_plain`` (``casefold.fold_tokens``, then
+  ``uncased_columns``). ``uncased_plan`` picks the packing from the batch's
+  largest folded count and codepoint: on a card the same kernel's plan mode.
+- ``argsort_uncased``: those keys of each prefix clamped to a UTF-8
+  boundary, three codepoints a column when the folded ceiling is at most 509
+  and one a column otherwise; ties on maxed-out prefixes (equal key columns,
+  which cover the longest fold) refine with ``str.casefold``.
 - ``sorted_tokens``.
 
 The results are numpy ``int64`` permutations, as the JAX package returns
@@ -193,23 +199,61 @@ def uncased_columns(folded: torch.Tensor, counts: torch.Tensor, n_cols: int, pac
     return pack_columns(vals, pack3)
 
 
-def uncased_order(data: torch.Tensor, key_lengths: torch.Tensor, n_cols: int, pack3: bool) -> torch.Tensor:
-    """int32[B]: the stable order of uint8 ``[B, W]`` rows by the full case
-    fold of their first ``key_lengths`` bytes: fold, pack, sort, on the
-    rows' device (``stringwars_tpu.ops.sort._uncased_order``)."""
+def uncased_keys_plain(data: torch.Tensor, key_lengths: torch.Tensor, n_cols: int, pack3: bool) -> torch.Tensor:
+    """int32 ``[n_cols, B]`` uncased key columns of uint8 ``[B, W]`` rows by
+    torch ops: ``casefold.fold_tokens`` of each row's first ``key_lengths``
+    bytes, then ``uncased_columns``."""
+    return uncased_columns(*_fold_rows(data, key_lengths), n_cols, pack3)
+
+
+def _fold_rows(data: torch.Tensor, key_lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     from stringwars_tpu_torch.ops.casefold import fold_tokens
 
-    folded, counts = fold_tokens(PaddedTokens(data=data, lengths=key_lengths, width=data.shape[1]))
-    return lsd_argsort(uncased_columns(folded, counts, n_cols, pack3))
+    return fold_tokens(PaddedTokens(data=data, lengths=key_lengths, width=data.shape[1]))
 
 
-def uncased_plan(folded: torch.Tensor, counts: torch.Tensor) -> tuple[int, bool]:
-    """(n_cols, pack3) of a folded batch: three codepoints a column when
-    every folded codepoint + 1 fits 9 bits (at most 509), else one."""
-    max_count = int(counts.max()) if counts.numel() else 1
-    max_cp = int(folded.max()) if counts.numel() else 0
+def _packing(max_count: int, max_cp: int) -> tuple[int, bool]:
+    """(n_cols, pack3) for a batch's largest folded count and codepoint."""
     pack3 = max_cp <= 509
     return max(1, (-(-max_count // 3)) if pack3 else max_count), pack3
+
+
+def uncased_keys(data: torch.Tensor, key_lengths: torch.Tensor, n_cols: int, pack3: bool) -> torch.Tensor:
+    """int32 ``[n_cols, B]`` uncased key columns of uint8 ``[B, W]`` rows, on
+    their device: the kernel on a card, the plain version on the CPU."""
+    if data.device.type == "cuda":
+        from stringwars_tpu_torch.ops import sort_cuda
+
+        return sort_cuda.uncased_keys(data, key_lengths, n_cols, pack3)
+    if data.device.type == "cpu":
+        return uncased_keys_plain(data, key_lengths, n_cols, pack3)
+    raise ValueError(f"uncased_keys runs on a CUDA or CPU tensor, not {data.device}")
+
+
+def uncased_order(data: torch.Tensor, key_lengths: torch.Tensor, n_cols: int, pack3: bool) -> torch.Tensor:
+    """int32[B]: the stable order of uint8 ``[B, W]`` rows by the full case
+    fold of their first ``key_lengths`` bytes: keys, then sort, on the rows'
+    device (``stringwars_tpu.ops.sort._uncased_order``)."""
+    return lsd_argsort(uncased_keys(data, key_lengths, n_cols, pack3))
+
+
+def uncased_plan(data: torch.Tensor, key_lengths: torch.Tensor) -> tuple[int, bool]:
+    """(n_cols, pack3) of uint8 ``[B, W]`` rows folded as ``uncased_keys``
+    folds them: three codepoints a column when every folded codepoint + 1
+    fits 9 bits (at most 509), else one; enough columns for the longest
+    fold. On a card the kernel's plan mode, on the CPU the plain fold."""
+    if data.numel() == 0:
+        max_count, max_cp = 0, 0
+    elif data.device.type == "cuda":
+        from stringwars_tpu_torch.ops import sort_cuda
+
+        max_count, max_cp = sort_cuda.uncased_extent(data, key_lengths)
+    elif data.device.type == "cpu":
+        folded, counts = _fold_rows(data, key_lengths)
+        max_count, max_cp = int(counts.max()), int(folded.max())
+    else:
+        raise ValueError(f"uncased_plan runs on a CUDA or CPU tensor, not {data.device}")
+    return _packing(max_count, max_cp)
 
 
 def stage_uncased(tape: Tape, prefix_width: int = PREFIX_WIDTH):
@@ -227,28 +271,29 @@ def argsort_uncased(tape: Tape, *, prefix_width: int = PREFIX_WIDTH, out=None) -
     """Case-folded order: sort keys are full-case-folded codepoints.
 
     Compares fold(a) with fold(b) as codepoint sequences
-    (``sequence/bench.rs:86-93``): one batched fold, then the sort on the
-    tape's device; ties on maxed-out prefixes refine on the host with
-    ``str.casefold``. The fold decides the packing: three codepoints a
-    column only when the folded ceiling is at most 509.
+    (``sequence/bench.rs:86-93``): the batch's packing plan, its key columns
+    and the sort on the tape's device; ties on maxed-out prefixes refine on
+    the host with ``str.casefold``. The fold decides the packing: three
+    codepoints a column only when the folded ceiling is at most 509.
     """
-    from stringwars_tpu_torch.ops.casefold import fold_tokens
-
     tokens, key_lengths, full_lengths = stage_uncased(tape, prefix_width)
     width = tokens.data.shape[1]
-    folded, counts = fold_tokens(PaddedTokens(data=tokens.data, lengths=key_lengths, width=width))
-    n_cols, pack3 = uncased_plan(folded, counts)
-    order = lsd_argsort(uncased_columns(folded, counts, n_cols, pack3)).cpu().numpy().astype(np.int64)
+    if tokens.data.device.type == "cpu" and tokens.data.numel():  # one fold gives the plan and the columns
+        folded, counts = _fold_rows(tokens.data, key_lengths)
+        columns = uncased_columns(folded, counts, *_packing(int(counts.max()), int(folded.max())))
+    else:
+        columns = uncased_keys(tokens.data, key_lengths, *uncased_plan(tokens.data, key_lengths))
+    order_dev = lsd_argsort(columns)
+    order = order_dev.cpu().numpy().astype(np.int64)
 
     # >= not >: length-== -prefix_width rows can tie a longer row's folded
     # prefix key exactly and still need host refinement (see argsort_tape).
     maxed = full_lengths >= min(prefix_width, width)
     if maxed.any():
-        folded_np = folded.cpu().numpy()
-        counts_np = counts.cpu().numpy()
-        sorted_f = folded_np[order]
-        sorted_c = counts_np[order]
-        eq = (sorted_f[1:] == sorted_f[:-1]).all(axis=1) & (sorted_c[1:] == sorted_c[:-1])
+        # The plan's columns hold each row's whole fold (codepoint + 1, 0
+        # past its count): equal columns are an equal folded sequence.
+        packed = columns[:, order_dev.to(torch.int64)]
+        eq = (packed[:, 1:] == packed[:, :-1]).all(0).cpu().numpy()
         tie = eq & (maxed[order][1:] | maxed[order][:-1])
         toks = tape.to_list()
 

@@ -11,11 +11,12 @@ time what the JAX rows time:
   (``ops/sort.byte_columns`` of the 96-byte prefix rows) to the permutation
   (``ops/sort.lsd_argsort``: the radix kernel on a card);
 - ``argsort-uncased/swtorch::argsort_uncased<1gpu>``: the staged prefix
-  rows (clamped to UTF-8 boundaries) through the fold, the packing and the
-  sort (``ops/sort.uncased_order``), packed three codepoints a column only
-  when the corpus' folded ceiling is at most 509, as ``argsort_uncased``
-  decides (the JAX row packs three whatever the corpus, which orders
-  codepoints above 509 wrongly).
+  rows (clamped to UTF-8 boundaries) to their case-folded key columns and
+  the sort (``ops/sort.uncased_order``: on a card the uncased keys kernel
+  and the radix kernel), packed three codepoints a column only when the
+  corpus' folded ceiling is at most 509, as ``argsort_uncased`` decides
+  (the JAX row packs three whatever the corpus, which orders codepoints
+  above 509 wrongly).
 
 With ``--device cpu`` the rows (``<1cpu>``) run the plain versions. The
 host rows sort the tokens with ``sorted``, ``numpy.argsort`` (stable) and
@@ -30,7 +31,6 @@ import math
 import numpy as np
 
 from stringwars_tpu_torch.ops import sort as S
-from stringwars_tpu_torch.ops.casefold import fold_tokens
 from stringwars_tpu_torch.suites._common import setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens
 from stringwars_tpu_torch.utils.harness import WorkUnits
@@ -82,9 +82,7 @@ def main(argv: list[str] | None = None):
 
     ctx.group("argsort-uncased")
     rows, key_lengths, _ = S.stage_uncased(tape)
-    folded, folded_counts = fold_tokens(PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width))
-    n_cols, pack3 = S.uncased_plan(folded, folded_counts)
-    del folded, folded_counts
+    n_cols, pack3 = S.uncased_plan(rows.data, key_lengths)
     ctx.staged["uncased"] = (rows.data, key_lengths, n_cols, pack3)
 
     def uncased_call() -> WorkUnits:

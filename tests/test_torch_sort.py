@@ -12,8 +12,8 @@ import torch
 from stringwars_tpu import tape as jax_tape
 from stringwars_tpu.ops import sort as JS
 from stringwars_tpu_torch.ops import sort as S
-from stringwars_tpu_torch.ops import sort_cuda as SC
-from stringwars_tpu_torch.tape import PaddedTokens, Tape
+from stringwars_tpu_torch.tape import Tape
+from _radix_plan import digit_plan
 from _torch_threads import one_thread  # noqa: F401
 
 
@@ -94,10 +94,7 @@ def test_uncased_unpacked_batch_and_a_fold_that_outgrows_its_bytes():
     tokens = [w.encode() for w in words]
     tape, jtape = _both(tokens)
     rows, key_lengths, _ = S.stage_uncased(tape)
-    from stringwars_tpu_torch.ops.casefold import fold_tokens
-
-    folded, counts = fold_tokens(PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width))
-    n_cols, pack3 = S.uncased_plan(folded, counts)
+    n_cols, pack3 = S.uncased_plan(rows.data, key_lengths)
     assert not pack3 and n_cols > (rows.width + 2) // 3  # a codepoint a column; the folds outgrow the bytes
     got = S.argsort_uncased(tape)
     np.testing.assert_array_equal(got, np.asarray(JS.argsort_uncased(jtape)))
@@ -128,9 +125,9 @@ def test_plain_sort_is_the_packed_column_order():
     assert S.lsd_argsort_plain(torch.zeros((3, 0), dtype=torch.int32)).numel() == 0
 
 
-@pytest.mark.parametrize("case", ["random", "ten-values", "equal", "wide"])
+@pytest.mark.parametrize("case", ["random", "ten-values", "equal", "wide", "last-keys"])
 def test_kernel_pass_plan_gives_the_plain_order(case):
-    """The radix kernel's passes (``sort_cuda.plan_passes``: a stable pass a
+    """The radix kernel's passes (``_radix_plan.digit_plan``: a stable pass a
     9-bit digit that varies, least significant first), replayed with stable
     torch sorts of the digits, give the plain order; a constant digit is
     skipped."""
@@ -142,11 +139,13 @@ def test_kernel_pass_plan_gives_the_plain_order(case):
         cols = rng.integers(0, 10, (3, n)) << 9  # only the second digit varies
     elif case == "equal":
         cols = np.full((2, n), 77)
-    else:
+    elif case == "wide":
         cols = rng.integers(0, 1 << 32, (2, n))
+    else:  # only the second column's second-to-last key varies
+        cols = np.zeros((2, n), np.int64)
+        cols[1, n - 2] = 1
     cols32 = torch.from_numpy(np.where(cols >= 1 << 31, cols - (1 << 32), cols)).to(torch.int32)
-    spread = [int(np.bitwise_or.reduce(c)) for c in cols] + [int(np.bitwise_and.reduce(c)) for c in cols]
-    passes = SC.plan_passes(spread, cols.shape[0])
+    passes = digit_plan(cols)
     order = torch.arange(n)
     for c, shift in passes:
         digit = (torch.from_numpy(cols[c])[order] >> shift) & 511
@@ -156,3 +155,5 @@ def test_kernel_pass_plan_gives_the_plain_order(case):
         assert passes == []
     if case == "ten-values":
         assert passes == [(2, 9), (1, 9), (0, 9)]
+    if case == "last-keys":
+        assert passes == [(1, 0)] and order.tolist()[-2:] == [n - 1, n - 2]

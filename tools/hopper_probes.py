@@ -1,4 +1,4 @@
-"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3, per-token hash, reordering and composition kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3, per-token hash, reordering, composition and sort kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
@@ -11,6 +11,7 @@
     python3 tools/hopper_probes.py reorder
     python3 tools/hopper_probes.py spans [--other-tree DIR]
     python3 tools/hopper_probes.py compose [--other-tree DIR]
+    python3 tools/hopper_probes.py sort [--other-tree DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -136,6 +137,24 @@ subcommand measures:
   whose kernel takes the ccc table) on the same rows, each held to
   ``compose_rows_plain_`` and timed by ``torch.profiler`` device time a
   launch in both orders.
+- ``sort``: the radix argsort over ``chip_smoke.py``'s
+  ``argsort-words-128MB`` columns (the hash suite's tape, its 96-byte
+  prefix packed as the sequence suite packs it) and over the uncased key
+  columns of the same prefix rows: the package's one-sweep kernel, the same
+  with its scatter straight from registers, with ranks by ballots, at 2
+  and 3 blocks an SM, with the digit count's counters a warp, and without
+  its look-back (timing only: a wrong order)
+  (``tools/hopper_probes/radix_variants.cu``, the package's source with
+  ``SW_RADIX_*`` switches, ``SWEEP_VARIANTS``) and, with ``--other-tree``
+  (a checkout of the parent of the one-sweep passes), that tree's
+  three-launch kernel (a histogram, a scan and a scatter a pass) on the
+  plan the package's call ran; each but the timing-only one held to
+  ``lsd_argsort_plain`` and timed by CUDA events in both orders, each
+  split by launch kind (``torch.profiler`` device time a call), and the
+  device time of each pass in launch order, the gathering passes (a
+  column's first) marked. Then the uncased keys kernel and its plan mode
+  beside the earlier torch route (``uncased_keys_plain``), and the uncased
+  order split by launch.
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -1301,10 +1320,148 @@ def compose(args) -> None:
         corpus.with_name(corpus.name + ".part").unlink(missing_ok=True)
 
 
+# The earlier kernel's entry points (a checkout of the parent of the
+# one-sweep passes, ``--other-tree``): the spread, then a histogram, a scan
+# and a scatter a pass of the plan the caller gives.
+EARLIER_SIGNATURES = {"sw_radix_spread": (_P, _N, _N, _P, _P),
+                      "sw_radix_argsort": (_P, _N, _N, _P, _N, _P, _P, _P, _P, _P, _P, _P)}
+EARLIER_LAUNCHES = {"spread": "radix_spread", "histogram": "radix_histogram", "scan": "radix_scan",
+                    "scatter": "radix_scatter"}
+SWEEP_LAUNCHES = {"spread": "radix_spread", "digit count": "radix_digits", "passes": "radix_sweep"}
+# tools/hopper_probes/radix_variants.cu's settings (SW_RADIX_*: the package's
+# radixsort.cu with the switches) built beside the package's; a variant
+# whose name says "timing only" gives a wrong order and is not held to the
+# plain one.
+SWEEP_VARIANTS = {
+    "scatter from registers": {"SW_RADIX_DIRECT_SCATTER": 1},
+    "ranks by ballots": {"SW_RADIX_BALLOT_RANK": 1},
+    "registers unbounded (2 blocks an SM)": {"SW_RADIX_MIN_BLOCKS": 1},
+    "3 blocks an SM": {"SW_RADIX_MIN_BLOCKS": 3},
+    "digit counts a warp": {"SW_RADIX_WARP_COUNTS": 1},
+    "no look-back (timing only)": {"SW_RADIX_LOOKBACK": 0},
+}
+
+
+def launch_times(fn, kernel: str, expect: int) -> list[float] | None:
+    """Device ms of each launch of the kernels whose names hold ``kernel`` in
+    one call of ``fn``, in launch order (``torch.profiler``; a trace that
+    lacks some of the ``expect`` launches is taken again, up to 3 times)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if kernel in e.name and e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if len(events) == expect:
+            return [e.time_range.elapsed_us() / 1e3 for e in events]
+    return None
+
+
+def sort(args) -> None:
+    """The radix argsort's forms over the words' byte and uncased columns,
+    and the uncased keys kernel."""
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variant_so = {name: build.BUILD_DIR / f"probe_radix_{i}.so" for i, name in enumerate(SWEEP_VARIANTS)}
+    procs = {name: nvcc_shared(PROBES / "radix_variants.cu", variant_so[name], defines)
+             for name, defines in SWEEP_VARIANTS.items()}
+    earlier = ctypes.CDLL(other_library(Path(args.other_tree))) if args.other_tree else None
+    build.library()
+    tape = datasets.load_tape(None, tokens_mode="words", size_limit="128mb", device=dev)
+    n = tape.count
+    prefix = T.PaddedTokens.from_tape(tape, align=4, max_width=SORT.PREFIX_WIDTH)
+    byte_cols = SORT.byte_columns(prefix.data, prefix.lengths)
+    del prefix
+    rows, key_lengths, _ = SORT.stage_uncased(tape)
+    n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
+    uncased_cols = SC.uncased_keys(rows.data, key_lengths, n_cols, pack3)
+    for name, proc in procs.items():
+        print(f"ptxas, {name}: {finish(proc, name)}", flush=True)
+    variants = {name: ctypes.CDLL(str(so)) for name, so in variant_so.items()}
+    for lib, signatures in ((earlier, EARLIER_SIGNATURES), *((lib, build.SIGNATURES) for lib in variants.values())):
+        for fn_name, argtypes in signatures.items():
+            if lib is not None and hasattr(lib, fn_name):
+                getattr(lib, fn_name).argtypes = argtypes
+                getattr(lib, fn_name).restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def earlier_kernel(cols: torch.Tensor, passes: list[tuple[int, int]]) -> torch.Tensor:
+        """The earlier kernel's call as its wrapper made it: the spread
+        launch and readback, then the passes of the plan."""
+        k_cols, m = cols.shape
+        spread = torch.empty(2 * k_cols, dtype=torch.int32, device=dev)
+        if earlier.sw_radix_spread(cols.data_ptr(), k_cols, m, spread.data_ptr(), stream):
+            raise RuntimeError("the earlier kernel's spread failed")
+        spread.tolist()
+        plan = (ctypes.c_int64 * (2 * len(passes)))(*(v for p in passes for v in p))
+        order = torch.empty(m, dtype=torch.int32, device=dev)
+        scratch = torch.empty((3, m), dtype=torch.int32, device=dev)
+        counts = torch.empty(512 * -(-m // SC.TILE), dtype=torch.int32, device=dev)
+        totals = torch.empty(512, dtype=torch.int32, device=dev)
+        if earlier.sw_radix_argsort(cols.data_ptr(), k_cols, m, plan, len(passes), order.data_ptr(), scratch[0].data_ptr(),
+                                    scratch[1].data_ptr(), scratch[2].data_ptr(), counts.data_ptr(), totals.data_ptr(),
+                                    stream):
+            raise RuntimeError("the earlier kernel failed")
+        return order
+
+    def variant(cols: torch.Tensor, lib) -> torch.Tensor:
+        with mock.patch.object(build, "library", lambda: lib):
+            return SC.radix_argsort(cols)
+
+    for keys, cols in (("byte columns", byte_cols), (f"uncased columns ({'pack3' if pack3 else 'one a column'})", uncased_cols)):
+        want, passes = SC.radix_argsort_planned(cols)  # the plan the package's call ran
+        gathers = [k == 0 or passes[k - 1][0] != c for k, (c, _) in enumerate(passes)]
+        if not torch.equal(want, SORT.lsd_argsort_plain(cols)):
+            raise AssertionError(f"the package's kernel over the {keys}: the order differs from lsd_argsort_plain")
+        forms = {"one-sweep (the package's)": (lambda cols=cols: SC.radix_argsort(cols), SWEEP_LAUNCHES, "radix_sweep")}
+        if earlier is not None:
+            forms[f"three-launch ({args.other_tree}'s kernel)"] = (
+                lambda cols=cols, passes=passes: earlier_kernel(cols, passes), EARLIER_LAUNCHES, "radix_scatter")
+        forms.update({f"one-sweep, {name}": (lambda cols=cols, lib=lib: variant(cols, lib), SWEEP_LAUNCHES, "radix_sweep")
+                      for name, lib in variants.items()})
+        for form, (fn, _, _) in forms.items():
+            if "timing only" not in form and not torch.equal(fn(), want):
+                raise AssertionError(f"{form} over the {keys}: the order differs from lsd_argsort_plain")
+        del want
+        print(f"{keys}: {n:,} keys, {cols.shape[0]} columns, {len(passes)} passes ({sum(gathers)} gathering); "
+              f"a pass's (index, key) read and written once: {16 * n / 3.35e9:.4f} ms at 3.35 TB/s", flush=True)
+        times = both_orders({form: fn for form, (fn, _, _) in forms.items()})
+        for form, (fn, launches, per_pass) in forms.items():
+            split = CS.device_breakdown(fn, launches, calls=5)
+            each = launch_times(fn, per_pass, len(passes))
+            print(f"  {form}: CUDA events {_fmt(times[form])} ms a call; profiler device ms a call: "
+                  + ("not measured" if split is None else
+                     ", ".join(f"{k} {split[k]:.4f}" for k in launches) + f", memsets and copies {split['torch']:.4f}")
+                  + "; " + ("per pass not measured" if each is None else "per pass (g: gathers) " + ", ".join(
+                      f"{t:.4f}{'g' if g else ''}" for t, g in zip(each, gathers))), flush=True)
+    del byte_cols, uncased_cols
+
+    padded_bytes = rows.data.numel()
+    calls = {"uncased keys kernel": lambda: SC.uncased_keys(rows.data, key_lengths, n_cols, pack3),
+             "its plan mode": lambda: SC.uncased_extent(rows.data, key_lengths),
+             "the earlier torch route (uncased_keys_plain)": lambda: SORT.uncased_keys_plain(rows.data, key_lengths, n_cols,
+                                                                                           pack3)}
+    bound = (padded_bytes + 4 * n + 4 * n_cols * n) / 3.35e9
+    print(f"uncased keys: {n:,} rows of {rows.width} B to {n_cols} columns; bound {bound:.4f} ms (the rows and key "
+          f"lengths read once, the columns written once, at 3.35 TB/s)", flush=True)
+    for name, fn in calls.items():
+        print(f"  {name}: CUDA events {events_ms(fn, launches=3 if 'torch' in name else 20):.4f} ms a call", flush=True)
+    launches = {"uncased keys": "uncased_keys_kernel", **SWEEP_LAUNCHES}
+    split = CS.device_breakdown(lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3), launches, calls=5)
+    print("  the uncased order by launch (profiler device ms a call): " + (
+        "not measured" if split is None else ", ".join(f"{k} {split[k]:.4f}" for k in launches)
+        + f", other device work {split['torch']:.4f}, total {split['total']:.4f}"), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder", "spans",
-                                            "compose"))
+                                            "compose", "sort"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1312,7 +1469,7 @@ def main() -> int:
         return 2
     print(card_line(), flush=True)
     {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand, "xxh3": xxh3,
-     "reorder": reorder, "spans": spans, "compose": compose}[args.probe](args)
+     "reorder": reorder, "spans": spans, "compose": compose, "sort": sort}[args.probe](args)
     return 0
 
 
