@@ -84,9 +84,11 @@ prints no result:
    bytes from 0xF8 up), with empty rows, key lengths cut inside characters,
    and the plan's column count, one fewer and one more (``check_uncased_keys``);
    the
-   Bloom build and query at k = 1, 7 and 16, m_bits 2^20 and 32 x 100,003,
-   over a tape's spans of 0..1,024 B (empty and 1 KB tokens among them),
-   the same 3 bytes into a buffer, padded rows and an empty batch, and the
+   Bloom build and query at k = 1, 7, 8, 9 and 16, m_bits 2^20 and 32 x
+   100,003, over a tape's spans of 0..1,024 B (empty and 1 KB tokens among
+   them), the same 3 bytes into a buffer, padded rows and an empty batch,
+   the query on all-positive and held-out probes and an all-zero filter,
+   200,003 tokens at k = 7 and 9 into 2^20 and 2^25 bits, and the
    BinaryFuse8 query over a 20,000-key table with its keys, random probes
    and positions past its ends (``check_filters``);
 4. main path, each path with every launch count set to 0 just before it and
@@ -219,7 +221,8 @@ prints no result:
    ``argsort-uncased-words-128MB`` (the keys and the sort, split by launch
    by profiler device time), the filter rows at the containers suite's key
    counts and the Bloom rows at 800,000 random keys (``bloom-build-<n>k``,
-   ``bloom-query-<n>k``, ``fuse8-query-<n>k``, profiler device time), and
+   ``bloom-query-<n>k``, ``fuse8-query-<n>k``, profiler device time; the
+   Bloom rows also the call's whole device time, its other ops included), and
    ``memset``/``memcpy``/``memmove-128MB`` (torch ops beside a plain torch
    form and their bytes bound); the
    tree level also at a byte offset of 1, the class map's and ``lut_map``'s
@@ -1494,14 +1497,23 @@ def check_uncased_keys(dev, errors: dict, batches) -> int:
     return checked
 
 
+BLOOM_SEED_SETS = ((5,), tuple(range(1, 8)), tuple(range(1, 9)), tuple(range(1, 10)), tuple(range(1, 17)))  # k = 1, 7, 8, 9, 16
+
+
 def check_filters(dev, errors: dict) -> int:
     """The Bloom build and query kernels and the fuse query kernel against
-    their plain versions on the card, exactly: k = 1, 7 and 16 seeds, m_bits
-    a power of two and not, tokens of 0..1,024 B (empty and 1 KB tokens
-    among them) as a tape's spans, the same spans 3 bytes into a buffer, and
-    padded rows, an empty batch; a BinaryFuse8 table over 20,000 keys with
-    its keys and random probes, and positions past the table's ends. Returns
-    the batches checked."""
+    their plain versions on the card, exactly. Bloom, at k = 1, 7, 8, 9 and
+    16 (9 and 16: a second launch ORs its bits into the first's words, and
+    the query's second launch skips the tokens the first decided), m_bits a
+    power of two and not: the build over tokens of 0..1,024 B (empty and
+    1 KB tokens among them) as a tape's spans, the same spans 3 bytes into
+    a buffer, padded rows and an empty batch; the query over the inserted
+    tokens (all positive), held-out ones (spans and padded rows), an empty
+    batch and an all-zero filter (every token decided at its first test).
+    Then 200,003 tokens (a tenth of 32-300 B) at k = 7 and 9 into 2^20 and
+    2^25 bits, queried with themselves and the held-out tokens. A
+    BinaryFuse8 table over 20,000 keys with its keys and random probes, and
+    positions past the table's ends. Returns the batches checked."""
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import filters as FLT
 
@@ -1517,7 +1529,14 @@ def check_filters(dev, errors: dict) -> int:
                               device=dev)
     empty = T.Tape.from_tokens([], device=dev)
     checked = 0
-    for seeds in ((5,), tuple(range(1, 8)), tuple(range(1, 17))):
+
+    def query_equal(words, probe, seeds, m_bits, positive: bool = False) -> None:
+        got = FLT.bloom_query_cuda(words, probe, seeds, m_bits)
+        errors["bloom_query"] = max(errors["bloom_query"], max_err(got, FLT.bloom_query_plain(words, probe, seeds, m_bits)))
+        if positive and not bool(got.all()):
+            raise AssertionError(f"the Bloom query missed an inserted token (k = {len(seeds)}, m_bits {m_bits})")
+
+    for seeds in BLOOM_SEED_SETS:
         for m_bits in (1 << 20, 32 * 100_003):
             want = FLT.bloom_build_plain(tape, seeds, m_bits)
             for tokens in (tape, shifted, T.PaddedTokens.from_tape(tape, align=4), empty):
@@ -1526,11 +1545,21 @@ def check_filters(dev, errors: dict) -> int:
                                             max_err(signed(FLT.bloom_build_cuda(tokens, seeds, m_bits)), signed(plain)))
                 checked += 1
             for probe in (tape, shifted, held, T.PaddedTokens.from_tape(held, align=4), empty):
-                got = FLT.bloom_query_cuda(want, probe, seeds, m_bits)
-                errors["bloom_query"] = max(errors["bloom_query"], max_err(got, FLT.bloom_query_plain(want, probe, seeds, m_bits)))
-                if probe is tape and not bool(got.all()):
-                    raise AssertionError(f"the Bloom query missed an inserted token (seeds {seeds}, m_bits {m_bits})")
+                query_equal(want, probe, seeds, m_bits, positive=probe is tape)
                 checked += 1
+            query_equal(torch.zeros_like(want), tape, seeds, m_bits)
+            checked += 1
+    lengths = np.where(rng.random(200_003) < 0.1, rng.integers(32, 300, 200_003), rng.integers(0, 32, 200_003))
+    many = T.Tape.from_tokens([bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in lengths], device=dev)
+    for seeds in (BLOOM_SEED_SETS[1], BLOOM_SEED_SETS[3]):
+        for m_bits in (1 << 20, 1 << 25):
+            want = FLT.bloom_build_plain(many, seeds, m_bits)
+            errors["bloom_build"] = max(errors["bloom_build"],
+                                        max_err(signed(FLT.bloom_build_cuda(many, seeds, m_bits)), signed(want)))
+            query_equal(want, many, seeds, m_bits, positive=True)
+            query_equal(want, held, seeds, m_bits)
+            checked += 3
+            del want
     keys = rng.integers(1, 2**63, 20000, dtype=np.int64).astype(np.uint64)
     fuse = FLT.fuse_build(keys, device=dev)
     probes = np.concatenate([keys, rng.integers(1, 2**63, 100_000, dtype=np.int64).astype(np.uint64)])
@@ -1888,10 +1917,12 @@ def filter_rows(row, keep: dict, dev) -> None:
     """The filter rows at the containers suite's key counts (its split,
     filter and staged probes), and the Bloom rows at 800,000 keys (random
     lowercase words of 5-17 B, the 80% of the suite's 1 M cap, against 200,000
-    others), by profiler device time. Bound: the tokens' bytes and 8 B
-    offsets a token read once, the filter's words written (build) or read
-    (query) once, a byte an answer; or the instructions: a finish (20) and
-    4.5 a 4-byte word of each seed's XXH64, 3 for each position."""
+    others), by profiler device time; beside each Bloom row the call's whole
+    device time (the build's zeroed words included). Bound: the tokens'
+    bytes and 8 B offsets a token read once, the filter's words written
+    (build) or read (query) once, a byte an answer; or the instructions: a
+    finish (20) and 4.5 a 4-byte word of each seed's XXH64, 3 for each
+    position."""
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import filters as FLT
     from stringwars_tpu_torch.suites import containers as containers_suite
@@ -1901,17 +1932,32 @@ def filter_rows(row, keep: dict, dev) -> None:
         return bound_ms(t.total_bytes + 8 * (t.count + 1) + m_bits // 8 + (t.count if query else 0),
                         k * (20 * t.count + 4.5 * words + 3 * t.count))
 
+    def whole_call(fn, kernel: str) -> str:
+        """The call's device time, every op of it: the trace's device time
+        over the kernel's launches it holds (one a call at k <= 8; a trace
+        may hold fewer launches than were made)."""
+        prof = profile(fn, 10, lambda p: any(kernel in e.key for e in device_events(p)), what=kernel)
+        if prof is None:
+            return "; the call's whole device time not measured"
+        events = device_events(prof)
+        calls = sum(e.count for e in events if kernel in e.key)
+        total = sum(e.device_time_total for e in events) / calls / 1e3
+        other = sum(e.device_time_total for e in events if kernel not in e.key) / calls / 1e3
+        return f"; the call's whole device time {total:.4f} ms (other ops {other:.4f})"
+
     def bloom_pair(ins, held, seeds, m_bits, key: bool, what: str) -> None:
         k = len(seeds)
         words = FLT.bloom_build_plain(ins, seeds, m_bits)
-        row(f"bloom-build-{ins.count // 1000}k ({ins.count:,} {what}, k = {k}, {m_bits:,} bits)",
-            lambda: signed(FLT.bloom_build_cuda(ins, seeds, m_bits)), lambda: signed(FLT.bloom_build_plain(ins, seeds, m_bits)),
-            ins.total_bytes, bounds(ins, k, m_bits, False), "bloom_build" if key else None, profiled="bloom_build_kernel",
-            plain_samples=1)
-        row(f"bloom-query-{held.count // 1000}k ({held.count:,} held-out {what} against it)",
-            lambda: FLT.bloom_query_cuda(words, held, seeds, m_bits), lambda: FLT.bloom_query_plain(words, held, seeds, m_bits),
-            held.total_bytes, bounds(held, k, m_bits, True), "bloom_query" if key else None, profiled="bloom_query_kernel",
-            plain_samples=1)
+        build_call = lambda: signed(FLT.bloom_build_cuda(ins, seeds, m_bits))
+        row(f"bloom-build-{ins.count // 1000}k ({ins.count:,} {what}, k = {k}, {m_bits:,} bits)", build_call,
+            lambda: signed(FLT.bloom_build_plain(ins, seeds, m_bits)), ins.total_bytes, bounds(ins, k, m_bits, False),
+            "bloom_build" if key else None, profiled="bloom_build_kernel", plain_samples=1,
+            note=whole_call(build_call, "bloom_build_kernel"))
+        query_call = lambda: FLT.bloom_query_cuda(words, held, seeds, m_bits)
+        row(f"bloom-query-{held.count // 1000}k ({held.count:,} held-out {what} against it)", query_call,
+            lambda: FLT.bloom_query_plain(words, held, seeds, m_bits), held.total_bytes, bounds(held, k, m_bits, True),
+            "bloom_query" if key else None, profiled="bloom_query_kernel", plain_samples=1,
+            note=whole_call(query_call, "bloom_query_kernel"))
 
     ins, held, bloom, fuse = keep["inserted"], keep["held_out"], keep["bloom"], keep["fuse"]
     bloom_pair(ins, held, bloom.seeds, bloom.m_bits, True, "unique words of the containers suite")
@@ -2097,7 +2143,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         elif any(k in function for k in ("xxh3_kernel", "nf_reorder_kernel", "nf_compose_kernel", "xxh64_kernelILi1ELb1",
                                           "xxh32_kernelILi1ELb0ELb1", "xxh32_kernelILi1ELb1ELb1",
                                           "xxh32_kernelILi8ELb1ELb1", "radix_sweep", "radix_digits", "uncased_keys_kernel",
-                                          "bloom_build_kernelILi7ELb1", "bloom_query_kernelILi7ELb1")) and (
+                                          "bloom_build_kernelILi7ELb1", "bloom_query_kernelILi7E")) and (
                 "spill" in line or "registers" in line):
             own.setdefault(function, []).append(line.split(":", 1)[-1].strip())
     phase(
@@ -2734,9 +2780,10 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
         f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; {radix_checks} radix "
         f"argsorts ({RADIX_COLS} columns, {RADIX_NS} and 5,000,017 keys, equal, ten-valued and random keys of "
-        f"{RADIX_BITS} bits; {RADIX_MISALIGNED_NS} keys varying only in the last column's last keys); {uncased_checks} uncased key batches (rows of {UNCASED_WIDTHS} B: ASCII, multilingual, expanding and astral text, random bytes; empty rows, cut key lengths; the plan's columns, one fewer and one more) and their plans; {filter_checks} filter batches (Bloom build and query at k = 1, 7, 16 and m_bits 2^20 "
-        f"and 32 x 100,003 over spans, spans 3 bytes in, padded rows and an empty batch; BinaryFuse8 queries of a "
-        f"20,000-key table, and positions past its ends); launches {advanced}; "
+        f"{RADIX_BITS} bits; {RADIX_MISALIGNED_NS} keys varying only in the last column's last keys); {uncased_checks} uncased key batches (rows of {UNCASED_WIDTHS} B: ASCII, multilingual, expanding and astral text, random bytes; empty rows, cut key lengths; the plan's columns, one fewer and one more) and their plans; {filter_checks} filter batches (Bloom build and query at k = 1, 7, 8, 9, 16 and m_bits 2^20 "
+        f"and 32 x 100,003 over spans, spans 3 bytes in, padded rows and an empty batch, the query on all-positive and "
+        f"held-out probes and an all-zero filter; 200,003 tokens at k = 7 and 9 into 2^20 and 2^25 bits; BinaryFuse8 "
+        f"queries of a 20,000-key table, and positions past its ends); launches {advanced}; "
         f"seconds by part {parts}",
         started,
     )

@@ -173,13 +173,14 @@ __device__ __forceinline__ void group_tail(uintptr_t p, int r, int lane, const E
 // small: warp-uniform, every short token of the step is under 16 bytes),
 // and long_fn(t, p, n, has, guard, lane) is called by every lane eight
 // times at most a step, each group of four lanes taking the next long token
-// (has: one is left for the group; guard: warp-uniform).
-template <bool kSpans, class ShortFn, class LongFn>
+// (has: one is left for the group; guard: warp-uniform). kBlock: the
+// launch's threads a block.
+template <bool kSpans, int kBlock = kThreads, class ShortFn, class LongFn>
 __device__ __forceinline__ void token_walk(const uint8_t* data, int64_t end, const int64_t* __restrict__ offsets,
                                            const int32_t* __restrict__ lengths, int64_t width, int64_t count,
                                            ShortFn short_fn, LongFn long_fn) {
   const int lane = threadIdx.x & 31, group = lane >> 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlock;
   const Extent x{reinterpret_cast<uintptr_t>(data), reinterpret_cast<uintptr_t>(data) + static_cast<uintptr_t>(end)};
   // [start, stop) of token f + lane (past the count: empty); a warp-wide call.
   const auto span = [&](int64_t f, int64_t& start, int64_t& stop) {
@@ -196,7 +197,7 @@ __device__ __forceinline__ void token_walk(const uint8_t* data, int64_t end, con
       stop = start + (len < 0 ? 0 : (len > width ? width : len));
     }
   };
-  int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+  int64_t first = static_cast<int64_t>(blockIdx.x) * kBlock + (threadIdx.x & ~31);
   int64_t start = 0, stop = 0;
   if (first < count) span(first, start, stop);
   for (; first < count; first += stride) {
@@ -287,8 +288,8 @@ __device__ __forceinline__ void init64(uint64_t (&acc)[4], uint64_t s) {
 // XXH64 of every token of either layout (token_walk) under K seeds: each
 // digest h of token t under seed j goes to epilogue(t, j, h) (j known at run
 // time on the long path), in no order. A warp-wide call: every lane of the
-// block's warps calls it.
-template <int K, bool kSpans, class Epilogue>
+// block's warps calls it (kBlock a block).
+template <int K, bool kSpans, int kBlock = kThreads, class Epilogue>
 __device__ __forceinline__ void xxh64_walk(const uint8_t* __restrict__ data, int64_t end, const int64_t* __restrict__ offsets,
                                            const int32_t* __restrict__ lengths, int64_t width, int64_t count,
                                            const Seeds& seeds, Epilogue epilogue) {
@@ -350,7 +351,7 @@ __device__ __forceinline__ void xxh64_walk(const uint8_t* __restrict__ data, int
       if (has && j < K) epilogue(t, j, finish64(accs, seed_at<K>(seeds, j), m, w));
     }
   };
-  token_walk<kSpans>(data, end, offsets, lengths, width, count, short_fn, long_fn);
+  token_walk<kSpans, kBlock>(data, end, offsets, lengths, width, count, short_fn, long_fn);
 }
 
 // Seeds [first, first + count) of `seeds`, for one launch.

@@ -8,10 +8,11 @@ bits a key, ``containers/bench.rs:190-341``):
   k probe positions come from XXH64 under k seeds (``bloom_positions``:
   ``lo ^ hi·0x9E3779B9`` in uint32, mod ``m_bits``). On a card, build and
   query are the kernels of ``csrc/filters.cu``, which hash each token where
-  it lies and use the digests at once (build: an ``atomicOr`` a probe;
-  query: the word loads, the bit tests and the AND over k); no digest is
-  written. ``bloom_build_plain`` / ``bloom_query_plain`` are the JAX
-  package's byte plane and word gathers in torch.
+  it lies and use the digests at once; no digest is written (build: an
+  ``atomicOr`` a probe; query: each answer kept in a register and stored
+  once, a lane stopping at its token's first clear bit).
+  ``bloom_build_plain`` / ``bloom_query_plain`` are the JAX package's byte
+  plane and word gathers in torch.
 - **BinaryFuse8**: construction is sequential peeling, on the host in numpy
   (``fuse_build``, ``_peel``, ``_assign``: the port's own copies; the JAX
   package's ``native/`` is never loaded); the fingerprint table goes to the
@@ -26,6 +27,7 @@ kernel wrapper adds one to its entry of ``LAUNCHES`` a call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -122,16 +124,22 @@ def _token_args(tokens: PaddedTokens | Tape, what: str):
     return tokens.data.data_ptr(), tokens.data.numel(), None, tokens.lengths.data_ptr(), tokens.width, tokens.count
 
 
+@functools.lru_cache(maxsize=None)
+def _seed_array(seeds: tuple[int, ...]):
+    """The C entry points' uint64 seed array, built once a seed tuple."""
+    from stringwars_tpu_torch.ops.hash_cuda import _seed_array as make
+
+    return make(seeds)
+
+
 def bloom_build_cuda(tokens: PaddedTokens | Tape, seeds, m_bits: int) -> torch.Tensor:
     """``bloom_build_plain`` by the ``bloom_build`` kernel, on the device."""
     _check_m_bits(m_bits)
     data = tokens.data
     words = torch.zeros(m_bits // 32, dtype=torch.uint32, device=data.device)
     args = _token_args(tokens, "bloom_build")
-    seeds = H._seeds(seeds)
     if args[-1]:
-        from stringwars_tpu_torch.ops.hash_cuda import _seed_array
-
+        seeds = tuple(H._seeds(seeds))
         lib = build.library()
         with torch.cuda.device(data.device):
             code = lib.sw_bloom_build(*args, _seed_array(seeds), len(seeds), m_bits, words.data_ptr(), build.stream_of(data))
@@ -141,17 +149,16 @@ def bloom_build_cuda(tokens: PaddedTokens | Tape, seeds, m_bits: int) -> torch.T
 
 
 def bloom_query_cuda(words: torch.Tensor, tokens: PaddedTokens | Tape, seeds, m_bits: int) -> torch.Tensor:
-    """``bloom_query_plain`` by the ``bloom_query`` kernel, on the device."""
+    """``bloom_query_plain`` by the ``bloom_query`` kernel, on the device: one
+    launch a call up to 8 seeds, every answer stored by the kernel."""
     _check_m_bits(m_bits)
     data = tokens.data
     if words.device != data.device or words.dtype != torch.uint32 or words.numel() * 32 != m_bits or not words.is_contiguous():
         raise ValueError(f"bloom_query: expected contiguous uint32[{m_bits // 32}] words on {data.device}")
     args = _token_args(tokens, "bloom_query")
     out = torch.empty(args[-1], dtype=torch.bool, device=data.device)
-    seeds = H._seeds(seeds)
     if args[-1]:
-        from stringwars_tpu_torch.ops.hash_cuda import _seed_array
-
+        seeds = tuple(H._seeds(seeds))
         lib = build.library()
         with torch.cuda.device(data.device):
             code = lib.sw_bloom_query(*args, _seed_array(seeds), len(seeds), m_bits, words.data_ptr(), out.data_ptr(),

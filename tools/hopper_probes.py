@@ -1,4 +1,4 @@
-"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3, per-token hash, reordering, composition and sort kernels on one GPU.
+"""Measurement probes of the port's ChaCha20, BPE, Myers, Poly1305, Aho-Corasick, Shift-And, XXH3, per-token hash, reordering, composition, sort and Bloom filter kernels on one GPU.
 
     python3 tools/hopper_probes.py chacha [--other-tree DIR]
     python3 tools/hopper_probes.py bpe
@@ -12,6 +12,7 @@
     python3 tools/hopper_probes.py spans [--other-tree DIR]
     python3 tools/hopper_probes.py compose [--other-tree DIR]
     python3 tools/hopper_probes.py sort [--other-tree DIR]
+    python3 tools/hopper_probes.py filters [--other-tree DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit; each line printed is one measurement, after a line with the card's
@@ -137,6 +138,24 @@ subcommand measures:
   whose kernel takes the ccc table) on the same rows, each held to
   ``compose_rows_plain_`` and timed by ``torch.profiler`` device time a
   launch in both orders.
+- ``filters``: the Bloom build and query at the containers suite's shape
+  (chip_smoke.py's 32 MB of words: 22,095 keys inserted, 5,524 held out,
+  k = 7, 524,288 bits) and at its 1 M-key cap (800,000 random lowercase
+  words of 5-17 B into 2^24 bits, 200,000 held out): the package's calls;
+  with ``--other-tree``, that tree's ``ops/filters.py`` loaded beside them
+  with its own library (the earlier wrappers whole: ``earlier_filters``);
+  from ``tools/hopper_probes/filter_variants.cu``, the package's query
+  kernel at 1, 2 and all 7 seeds a test and the cluster build (one cluster
+  of 4, 8 and 16 blocks; 2, 4 and as many clusters of 16 as the card holds,
+  written out by atomics and by copies; its global regime), each held to
+  its plain version; the query over the inserted tokens (all positive);
+  each with its kernel's and its whole call's device time
+  (``torch.profiler``, the memset and zeros included), CUDA events and host
+  µs a call (the median of 5 runs of 100 calls enqueued back to back).
+  Then the split: the hashing alone (each probe's position XORed into a
+  register, stored once a lane), the build's bit work alone (positions
+  precomputed, a global atomicOr a probe) and the query's (the k word
+  loads and tests, a byte stored a token).
 - ``sort``: the radix argsort over ``chip_smoke.py``'s
   ``argsort-words-128MB`` columns (the hash suite's tape, its 96-byte
   prefix packed as the sequence suite packs it) and over the uncased key
@@ -1458,10 +1477,196 @@ def sort(args) -> None:
         + f", other device work {split['torch']:.4f}, total {split['total']:.4f}"), flush=True)
 
 
+# The earlier Bloom entry points (a checkout of the parent, ``--other-tree``):
+# the build ORs into words the caller zeroed, the query sets its answers to
+# 1 first and clears them.
+EARLIER_BLOOM = {"sw_bloom_build": (_P, _N, _P, _P, _N, _N, _P, _N, _N, _P, _P),
+                 "sw_bloom_query": (_P, _N, _P, _P, _N, _N, _P, _N, _N, _P, _P, _P)}
+FILTER_VARIANTS = {"filter_variant_run": (_N, _P, _N, _P, _N, _P, _N, _N, _P, _P, _P, _P, _P),
+                   "query_variant_run": (_N, _P, _N, _P, _N, _P, _N, _N, _P, _P, _P),
+                   "cluster_build_run": (_P, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _N, _P),
+                   "cluster_capacity": (_N, _N, _P)}
+CLUSTER_REGIMES = ("global", "store", "atomic", "copies")  # cluster_build_run's regime codes
+
+
+def filter_shapes(dev):
+    """(name, inserted, held out, seeds, m_bits): the containers suite over
+    ``chip_smoke.py``'s 32 MB of words (its unique tokens, the first 80%
+    inserted), and ``chip_smoke.py``'s 1,000,000 random lowercase words of
+    5-17 B, the suite's key cap, split the same way."""
+    from stringwars_tpu_torch.suites import containers as CT
+
+    words = datasets.load_tape(None, tokens_mode="words", size_limit="32mb")
+    suite = T.Tape.from_tokens(list(dict.fromkeys(words.to_list()))[: CT.MAX_KEYS], device=dev)
+    rng = np.random.default_rng(49)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    big = list(dict.fromkeys(alphabet[rng.integers(0, 26, n)].tobytes() for n in rng.integers(5, 18, 1_002_000)))[:1_000_000]
+    cap = T.Tape.from_tokens(big, device=dev)
+    for name, tape in (("suite", suite), ("cap", cap)):
+        cut = int(tape.count * 0.8)
+        yield name, tape.subtape(0, cut), tape.subtape(cut, tape.count), CT.BLOOM_SEEDS, CT.bloom_bits(cut)
+
+
+def host_us(fn, calls: int = 100, samples: int = 5) -> float:
+    """Host µs a call: the median over ``samples`` runs of ``calls`` calls
+    enqueued back to back (no sync between them; one after each run)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(samples):
+        started = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - started) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def earlier_filters(tree: Path):
+    """``tree``'s ``ops/filters.py`` loaded beside the package's, its kernels
+    from ``tree``'s library: the earlier wrappers, their host work whole."""
+    import importlib.util
+    import types
+
+    lib = ctypes.CDLL(other_library(tree))
+    for name, argtypes in EARLIER_BLOOM.items():
+        getattr(lib, name).argtypes = argtypes
+    spec = importlib.util.spec_from_file_location("earlier_filters", tree / "stringwars_tpu_torch" / "ops" / "filters.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look their module up there
+    spec.loader.exec_module(module)
+    module.build = types.SimpleNamespace(library=lambda: lib, check=build.check, stream_of=build.stream_of,
+                                         require_spans=build.require_spans)
+    return module
+
+
+def filters(args) -> None:
+    """The Bloom build and query at the containers suite's shape and at its
+    1 M-key cap: each form's kernel and whole-call device time, CUDA events
+    and host µs a call; the query at other seed groups, the cluster build,
+    and the split into hashing alone and bit work alone
+    (``tools/hopper_probes/filter_variants.cu``)."""
+    from stringwars_tpu_torch.ops import filters as FLT
+
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = build.BUILD_DIR / "probe_filter_variants.so"
+    variants_build = nvcc_shared(PROBES / "filter_variants.cu", so)
+    earlier = earlier_filters(Path(args.other_tree)) if args.other_tree else None
+    build.library()
+    print(f"filter_variants.cu built: {finish(variants_build, 'filter_variants.cu')}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in FILTER_VARIANTS.items():
+        getattr(lib, name).argtypes = argtypes
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slice_bytes = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+    def checked(code: int, what: str) -> None:
+        if code:
+            raise RuntimeError(f"{what}: CUDA error {code}")
+
+    def span_args(tokens):
+        return tokens.data.data_ptr(), tokens.data.numel(), tokens.offsets.data_ptr(), tokens.count
+
+    def cluster_build(tokens, seeds, m_bits, regime, blocks=1, clusters=0, slice_words=0):
+        words = (torch.zeros if regime in ("global", "atomic") else torch.empty)(m_bits // 32, dtype=torch.int32, device=dev)
+        copies = torch.empty((clusters, m_bits // 32), dtype=torch.int32, device=dev) if regime == "copies" else None
+        checked(lib.cluster_build_run(*span_args(tokens), FLT._seed_array(seeds), len(seeds), m_bits, words.data_ptr(),
+                                      None if copies is None else copies.data_ptr(), CLUSTER_REGIMES.index(regime), blocks,
+                                      clusters, slice_words, stream), "cluster_build_run")
+        return words
+
+    def query_variant(words, tokens, seeds, m_bits, group):
+        out = torch.empty(tokens.count, dtype=torch.bool, device=dev)
+        checked(lib.query_variant_run(group, *span_args(tokens), FLT._seed_array(seeds), len(seeds), m_bits, words.data_ptr(),
+                                      out.data_ptr(), stream), "query_variant_run")
+        return out
+
+    def split_variant(kind, tokens, seeds, m_bits, pos=None, words=None, out=None):
+        grid = ctypes.c_int64(0)
+        checked(lib.filter_variant_run(kind, *span_args(tokens), FLT._seed_array(seeds), len(seeds), m_bits,
+                                       None if pos is None else pos.data_ptr(), None if words is None else words.data_ptr(),
+                                       out.data_ptr(), ctypes.addressof(grid), stream), f"filter_variant_run {kind}")
+
+    def report(what: str, fn, kernel: str) -> None:
+        traced = CS.device_ms(fn, kernel, calls=30, per_call=True)
+        split = CS.device_breakdown(fn, {"kernel": kernel}, calls=10)
+        print(f"  {what}: kernel " + ("not measured" if traced is None else f"{traced:.4f}") + " ms device a call, whole call "
+              + ("not measured" if split is None else f"{split['total']:.4f} ms device (other ops {split['torch']:.4f})")
+              + f", CUDA events {events_ms(fn):.4f} ms a call, host {host_us(fn):.1f} µs a call", flush=True)
+
+    for shape, ins, held, seeds, m_bits in filter_shapes(dev):
+        k = len(seeds)
+        n_words = m_bits // 32
+        words = FLT.bloom_build_plain(ins, seeds, m_bits)
+        fill = int(np.unpackbits(CS.signed(words).cpu().numpy().view(np.uint8)).sum())
+        answers = FLT.bloom_query_plain(words, held, seeds, m_bits)
+        print(f"filters {shape}: {ins.count:,} inserted ({ins.total_bytes:,} B), {held.count:,} held out, k = {k}, "
+              f"{m_bits:,} bits, fill {fill / m_bits:.4f}, {int(answers.sum()):,} held-out positives", flush=True)
+        builds = {"the package's call": (lambda: FLT.bloom_build_cuda(ins, seeds, m_bits), "bloom_build_kernel")}
+        queries = {"the package's call": (lambda: FLT.bloom_query_cuda(words, held, seeds, m_bits), "bloom_query_kernel")}
+        if earlier is not None:
+            builds[f"{args.other_tree}'s call"] = (lambda: earlier.bloom_build_cuda(ins, seeds, m_bits), "bloom_build_kernel")
+            queries[f"{args.other_tree}'s call"] = (lambda: earlier.bloom_query_cuda(words, held, seeds, m_bits),
+                                                     "bloom_query_kernel")
+        geometries = [("store", b, 1, -(-n_words // b)) for b in (4, 8, 16) if 4 * -(-n_words // b) <= slice_bytes]
+        if 4 * -(-n_words // 16) <= slice_bytes:
+            held16 = ctypes.c_int64(0)
+            checked(lib.cluster_capacity(16, 4 * -(-n_words // 16), ctypes.addressof(held16)), "cluster_capacity")
+            geometries += [(regime, 16, c, -(-n_words // 16)) for c in sorted({2, 4, held16.value})
+                           for regime in ("atomic", "copies")]
+        geometries.append(("global",))
+        for g in geometries:
+            label = f"cluster_build_kernel, {g[0]}" + (f", {g[2]} cluster(s) of {g[1]} blocks, {g[3]:,} words a block"
+                                                         if len(g) > 1 else " (768-thread blocks)")
+            builds[label] = (lambda g=g: cluster_build(ins, seeds, m_bits, *g), "cluster_build_kernel")
+        for group in (1, 2, 7):
+            queries[f"the package's kernel, seeds a test: {group}"] = (
+                lambda group=group: query_variant(words, held, seeds, m_bits, group), "bloom_query_kernel")
+        for label, (fn, kernel) in builds.items():
+            if not torch.equal(CS.signed(fn()), CS.signed(words)):
+                raise AssertionError(f"filters {shape}: {label} builds other words than bloom_build_plain")
+            report(f"build, {label}", fn, kernel)
+        for label, (fn, kernel) in queries.items():
+            if not torch.equal(fn(), answers):
+                raise AssertionError(f"filters {shape}: {label} answers otherwise than bloom_query_plain")
+            report(f"query, {label}", fn, kernel)
+        everyone = torch.ones(ins.count, dtype=torch.bool, device=dev)
+        positives = {"the package's call": lambda: FLT.bloom_query_cuda(words, ins, seeds, m_bits)}
+        if earlier is not None:
+            positives[f"{args.other_tree}'s call"] = lambda: earlier.bloom_query_cuda(words, ins, seeds, m_bits)
+        positives.update({f"the package's kernel, seeds a test: {group}": (
+            lambda group=group: query_variant(words, ins, seeds, m_bits, group)) for group in (1, 7)})
+        for label, fn in positives.items():
+            if not torch.equal(fn(), everyone):
+                raise AssertionError(f"filters {shape}: {label} missed an inserted token")
+            report(f"query of the {ins.count:,} inserted tokens (all positive), {label}", fn, "bloom_query_kernel")
+        sink = torch.empty(sms * 8 * 256, dtype=torch.int32, device=dev)
+        for what, tokens in (("build", ins), ("query", held)):
+            report(f"split, {what}'s hashing alone (positions XORed into a register, stored once a lane)",
+                   lambda tokens=tokens: split_variant(0, tokens, seeds, m_bits, out=sink), "hash_alone_kernel")
+        pos_ins = FLT.bloom_positions(ins, seeds, m_bits).to(torch.int32).contiguous()
+        pos_held = FLT.bloom_positions(held, seeds, m_bits).to(torch.int32).contiguous()
+        scratch = torch.zeros(n_words, dtype=torch.int32, device=dev)
+        split_variant(1, ins, seeds, m_bits, pos=pos_ins, words=scratch, out=sink)
+        if not torch.equal(scratch, CS.signed(words)):
+            raise AssertionError(f"filters {shape}: the build's bits alone differ from bloom_build_plain")
+        report("split, build's bit work alone (precomputed positions, a global atomicOr a probe, the words not zeroed)",
+               lambda: split_variant(1, ins, seeds, m_bits, pos=pos_ins, words=scratch, out=sink), "bits_build_kernel")
+        got = torch.empty(held.count, dtype=torch.bool, device=dev)
+        split_variant(2, held, seeds, m_bits, pos=pos_held, words=words, out=got)
+        if not torch.equal(got, answers):
+            raise AssertionError(f"filters {shape}: the query's bits alone differ from bloom_query_plain")
+        report("split, query's bit work alone (precomputed positions, k word loads and tests, a byte stored a token)",
+               lambda: split_variant(2, held, seeds, m_bits, pos=pos_held, words=words, out=got), "bits_query_kernel")
+        del pos_ins, pos_held, scratch
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder", "spans",
-                                            "compose", "sort"))
+                                            "compose", "sort", "filters"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1469,7 +1674,7 @@ def main() -> int:
         return 2
     print(card_line(), flush=True)
     {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand, "xxh3": xxh3,
-     "reorder": reorder, "spans": spans, "compose": compose, "sort": sort}[args.probe](args)
+     "reorder": reorder, "spans": spans, "compose": compose, "sort": sort, "filters": filters}[args.probe](args)
     return 0
 
 
