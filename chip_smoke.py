@@ -162,6 +162,19 @@ prints no result:
    - ``suites.memory.main`` on 128 MB of ``synthetic:long-lines``: the copy
      equal to its input, the move to its input shifted by 8 with a zero
      tail, the fill to its value, the LUT to its plain version;
+   - the parallel layer through a process group of one rank over NCCL (its
+     ``file://`` store under ``stringwars_tpu_torch/_build/``, the group
+     destroyed after): the sharded step (``parallel/pipeline.py``) at the
+     scaling suite's shapes (4,096 tokens of 64 B, 4 MB of haystack) over
+     the find suite's tape, equal to the same step with no group, to
+     ``bytes.count`` of its needle, to the plain AC scan, to the plain
+     digests' checksum and to the plain BPE of its rows, its row
+     ``pipeline/swtorch::sharded_step<1gpu>`` timed (p50, bytes/s) with the
+     BPE route; ``entry.dryrun_multichip(1)``; the sample sort's body itself
+     (``ops/sort.sample_sort``) over the sequence path's 16 MB of words,
+     equal to the suite's order; the find suite's sharded forward and
+     backward counts of 8 needles and its sharded byteset and aho_corasick
+     counts, equal to the one-device calls;
    every ``swtorch::`` row must report, and every kernel of a path must have
    launched in that path's run;
 5. rows: the headline rows (``bench.py`` and ``tools/tpu_campaign.py``
@@ -266,6 +279,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SAMPLES = 5  # timed samples per row, after WARM calls
 WARM = 2
@@ -1513,7 +1527,9 @@ def check_filters(dev, errors: dict) -> int:
     Then 200,003 tokens (a tenth of 32-300 B) at k = 7 and 9 into 2^20 and
     2^25 bits, queried with themselves and the held-out tokens. A
     BinaryFuse8 table over 20,000 keys with its keys and random probes, and
-    positions past the table's ends. Returns the batches checked."""
+    positions past both ends of the table (wrapped from -len to -1, filled
+    with 255 past that: the int32 extremes among them). Returns the batches
+    checked."""
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import filters as FLT
 
@@ -1565,8 +1581,10 @@ def check_filters(dev, errors: dict) -> int:
     probes = np.concatenate([keys, rng.integers(1, 2**63, 100_000, dtype=np.int64).astype(np.uint64)])
     table = fuse.fingerprints
     g = torch.Generator(device=dev).manual_seed(48)
-    wild = (torch.randint(-5, table.numel() + 5, (3, 1_000_003), generator=g, device=dev).to(torch.int32),
+    size = table.numel()
+    wild = (torch.randint(-size - 9, size + 9, (3, 1_000_003), generator=g, device=dev).to(torch.int32),
             torch.randint(0, 256, (1_000_003,), generator=g, device=dev).to(torch.uint8))
+    wild[0][:, :4] = torch.tensor([-(1 << 31), -size - 1, size, (1 << 31) - 1], dtype=torch.int32, device=dev)
     for h, fp in (FLT.fuse_stage(fuse, probes), wild):
         got = FLT.fuse_query_cuda(table, h, fp)
         errors["fuse_query"] = max(errors["fuse_query"], max_err(got, FLT.fuse_query_plain(table, h, fp)))
@@ -2096,6 +2114,11 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     from stringwars_tpu_torch.suites import encryption as enc_suite
     from stringwars_tpu_torch.suites import memory as memory_suite
     from stringwars_tpu_torch.suites import sequence as sequence_suite
+    from stringwars_tpu_torch.suites import scaling as scaling_suite
+    from stringwars_tpu_torch.parallel import distributed as PD
+    from stringwars_tpu_torch.parallel import mesh as MESH
+    from stringwars_tpu_torch.parallel import pipeline as PIPE
+    from stringwars_tpu_torch.utils.harness import BenchBudget, WorkUnits, measure_throughput
     from stringwars_tpu_torch.suites import find as find_suite
     from stringwars_tpu_torch.suites import fingerprints as fp_suite
     from stringwars_tpu_torch.suites import hash as hash_suite
@@ -3385,6 +3408,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             raise AssertionError("the uncased row's order differs from argsort_uncased's (no token reaches 96 bytes)")
         ml = T.Tape.from_buffer(wait_corpus()[: 8 << 20], "words", device=dev)
         seq_keep["ml"] = ml
+        seq_keep["words"] = (tape, staged["order"])
         rows, key_lengths, _ = SORT.stage_uncased(ml)
         n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
         if pack3:
@@ -3399,6 +3423,96 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             f"{len(ml_tokens):,} multilingual words ({ml.total_bytes:,} B, {int(ml.lengths.max())} B the longest, "
             f"{n_cols} columns of a codepoint): ordered by str.casefold, {ml_ties:,} tied pairs by index; launches "
             f"{launches()}",
+            started,
+        )
+
+    def parallel_path() -> None:
+        """The parallel layer through a process group of one rank over NCCL
+        (the card holds one rank): the sharded step at the scaling suite's
+        shapes over the find suite's tape, its row timed; ``dryrun_multichip(1)``;
+        the sample sort's body itself on the sequence path's words; the find
+        suite's sharded forward, backward, byteset and aho_corasick counts on
+        its tape. Each is held to the one-device call."""
+        started = time.perf_counter()
+        store = build.BUILD_DIR / f"process-group-{os.getpid()}"
+        store.unlink(missing_ok=True)
+        PD.initialize("cuda", init_method=store.as_uri(), rank=0, world_size=1)
+        try:
+            world = MESH.world_scope(dev)
+            tape = suite_tape[0]
+            inputs, work = scaling_suite.build_inputs(world, tape)
+            step = PIPE.make_sharded_step(world)
+            got, want = step(inputs), PIPE.make_sharded_step(MESH.DeviceScope(dev))(inputs)
+            for key, value in want.items():
+                if not torch.equal(got[key], value):
+                    raise AssertionError(f"the sharded step's {key} differs from the one-device step's")
+            row = inputs.hay_rows[0].cpu().numpy().tobytes()
+            chunk = len(row) - 4 * PIPE.NEEDLE_CAP - 8
+            if int(got["matches"]) != row[: chunk + 1].count(b"th"):
+                raise AssertionError(f"the step's matches {int(got['matches'])} differ from bytes.count")
+            ac_plain = int(AC.ac_count_plain(inputs.automaton, inputs.ac_row, inputs.ac_extent)[0])
+            if int(got["ac_matches"]) != ac_plain:
+                raise AssertionError(f"the step's AC count {int(got['ac_matches'])} differs from the plain scan's {ac_plain}")
+            digests = H.xxh64_plain(inputs.tokens, [0])[0].view(torch.int64)
+            checksum = int(((digests & 0xFFFFFFFF).sum() + ((digests >> 32) & 0xFFFFFFFF).sum()) & 0xFFFFFFFF)
+            if int(got["digest_checksum"]) != checksum:
+                raise AssertionError("the step's digest checksum differs from the plain digests'")
+            ids, _ = BPE.bpe_encode_plain(inputs.tokens.data, inputs.tokens.lengths, inputs.table)
+            if not torch.equal(got["bpe_ids"], ids):
+                raise AssertionError("the step's BPE ids over its narrowed rows differ from the plain encode of the rows")
+            name = f"pipeline/swtorch::sharded_step{world.name}"
+            stats = measure_throughput(lambda: (step(inputs), WorkUnits(1, work))[1], BenchBudget(0.25, 1.0), device=dev,
+                                       group=world.group)
+            line = stats.report(name, "bytes")
+            p50 = statistics.median(stats.latencies_seconds) * 1e3
+            prof = profile(lambda: step(inputs), 10, lambda p: bool(device_events(p)), what="sharded_step")
+            by_kernel = sorted(((e.device_time_total / 10 / 1e3, e.key) for e in device_events(prof)), reverse=True) if prof else []
+            step_device = sum(ms for ms, _ in by_kernel)
+            dry = entry.dryrun_multichip(1)
+            words, order = seq_keep.pop("words")
+            sorted_order = SORT.sample_sort(words, world)
+            if not np.array_equal(sorted_order, order):
+                raise AssertionError("the sample sort's order differs from the sequence suite's")
+            sort_ms = {"sample_sort": time_ms(lambda: SORT.sample_sort(words, world), samples=3, warm=1),
+                       "argsort_tape": time_ms(lambda: SORT.argsort_tape(words), samples=3, warm=1)}
+            forward = find_suite.make_sharded_find(world, tape)
+            backward = find_suite.make_sharded_find(world, tape, backward=True)
+            needles = find_suite.sharded_needles(tape)[:8]
+            for needle in needles:
+                batch = F.NeedleBatch.from_needles([F.pack_needle(needle, find_suite.SHARDED_CAP)], dev)
+                count, last = backward(batch)
+                want = F.rfind_count_batch(tape.data, batch, tape.total_bytes)[0]
+                if (int(forward(batch)[0]), int(count[0]), int(last[0])) != (want[0], *want):
+                    raise AssertionError(f"the sharded counts of {needle!r} differ from the one-device call's {want}")
+            find_ms = {"sharded": time_ms(lambda: int(forward(batch)[0])),
+                       "one device": time_ms(lambda: int(F.find_counts(tape.data, batch, tape.total_bytes)[0]))}
+            for sharded, one in ((find_suite.sharded_byteset_routine, find_suite.byteset_routine),
+                                 (find_suite.sharded_aho_corasick_routine, find_suite.aho_corasick_routine)):
+                (routine, results), (one_routine, one_results) = sharded(tape, world), one(tape)
+                routine()
+                one_routine()
+                if results != one_results:
+                    raise AssertionError(f"{sharded.__name__}: {results} differ from the one-device {one_results}")
+            route = inputs.bpe_route
+            if route == "kernel" and not launches()["bpe"]:
+                raise AssertionError("the step's BPE took the kernel route but the kernel never launched")
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+        phase(
+            "main path",
+            f"parallel: a process group of 1 rank over NCCL; the sharded step at the scaling suite's shapes "
+            f"({inputs.tokens.count:,} tokens of {inputs.tokens.width} B, {inputs.hay_rows.shape[1]:,} B of haystack, "
+            f"{work:,} B of work) equals the one-device step, bytes.count, the plain AC scan, digests and BPE; "
+            f"{line.split(' ', 1)[0]}: p50 {p50:.4f} ms, {stats.bytes_per_second / 1e9:.2f} GB/s, device "
+            + (f"{step_device:.4f} ms a call (busy {step_device / p50:.2f}): "
+               + ", ".join(f"{key[:40]} {ms:.4f}" for ms, key in by_kernel[:10]) if by_kernel else "not measured")
+            + f"; BPE route: {route} (rows of {inputs.bpe_rows.shape[1]} B); dryrun_multichip(1): "
+            f"{sorted((k, int(v)) for k, v in dry.items() if v.dim() == 0)}; the sample sort's body over {words.count:,} "
+            f"words equals the sequence suite's order, call ms (CUDA events, host work in it) {sort_ms}; the sharded "
+            f"forward and backward counts of {len(needles)} needles, the byteset and aho_corasick counts equal the "
+            f"one-device calls; a forward count over the tape's {tape.total_bytes:,} B, call ms with its read-back {find_ms}; "
+            f"launches {launches()}",
             started,
         )
 
@@ -3483,7 +3597,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     enc_keep: dict = {}  # the encryption suite's corpus and its seal, for the rows phase
     cont_keep: dict = {}  # the containers suite's split, filters and probes, for the rows phase
     mem_keep: dict = {}  # the memory suite's buffer, for the rows phase
-    seq_keep: dict = {}  # the sequence path's multilingual words, for the rows phase
+    seq_keep: dict = {}  # the sequence path's words and order (the parallel path) and multilingual words (the rows phase)
     path(["find_count", "rfind_count", "byteset_count", "bytesum", "shiftand"], find_path)
     path(["ac_dfa", "shiftand"], multipattern_path)
     path(["xxh64_spans", "swh64_spans", "xxh32_spans", "xxh64_tree", "bytesum", "sha256", "xxh3"], hash_path)
@@ -3498,6 +3612,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
     path(["radix_argsort", "uncased_keys"], sequence_path)
     path(["xxh64_spans", "bloom_build", "bloom_query", "fuse_query"], containers_path)
     path(["lut_translate", "threefry"], memory_path)
+    path(["find_count", "rfind_count", "byteset_count", "shiftand", "ac_dfa", "xxh64", "fingerprint", "lut_translate",
+          "radix_argsort"], parallel_path)
     torch.cuda.empty_cache()
 
     # -- 5. rows: kernel beside plain, on the card ----------------------------

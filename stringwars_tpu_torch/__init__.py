@@ -8,7 +8,7 @@ Layout mirrors the JAX package module for module:
   - ``datasets``   — corpus loading and the seeded synthetic corpora
   - ``ops``        — plain torch versions and their hand-written CUDA kernels
   - ``csrc``       — the CUDA C++ sources, built at first use (``build.py``)
-  - ``parallel``   — device scopes (one device for now)
+  - ``parallel``   — device scopes, sharding and the sharded pipeline on ``torch.distributed``
   - ``utils``      — config, harness, reporting, profiler
   - ``suites``     — runnable benchmark suites (``python -m stringwars_tpu_torch.suites.find``)
 

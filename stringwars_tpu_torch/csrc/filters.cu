@@ -156,13 +156,15 @@ bloom_query_kernel(const uint8_t* __restrict__ data, int64_t end, const int64_t*
 }
 
 // out[i] = table[h0] ^ table[h1] ^ table[h2] == fp[i], the three positions
-// h[i], h[n + i], h[2n + i] clamped to the table.
+// h[i], h[n + i], h[2n + i] read as jnp.take reads them (the JAX
+// _fuse_query_dev): one in [-len, -1] wraps to len + p, one past either end
+// reads 255.
 __global__ void __launch_bounds__(kThreads)
 fuse_query_kernel(const uint8_t* __restrict__ table, int64_t table_len, const int32_t* __restrict__ h,
                   const uint8_t* __restrict__ fp, int64_t n, uint8_t* __restrict__ out) {
-  const auto at = [&](int32_t i) {
-    const int64_t j = i < 0 ? 0 : (i >= table_len ? table_len - 1 : i);
-    return __ldg(table + j);
+  const auto at = [&](int32_t i) -> uint8_t {
+    const int64_t j = i < 0 ? i + table_len : i;
+    return j < 0 || j >= table_len ? 0xFF : __ldg(table + j);
   };
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
        i += static_cast<int64_t>(gridDim.x) * kThreads) {

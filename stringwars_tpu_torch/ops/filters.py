@@ -292,10 +292,14 @@ def fuse_stage(filt: BinaryFuse8, keys_u64: np.ndarray) -> tuple[torch.Tensor, t
 
 
 def fuse_query_plain(table: torch.Tensor, h: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """bool[n]: ``table[h0] ^ table[h1] ^ table[h2] == fp``, the positions
-    clamped to the table, in torch ops."""
-    idx = h.to(torch.int64).clamp(0, table.numel() - 1)
-    t = table[idx]
+    """bool[n]: ``table[h0] ^ table[h1] ^ table[h2] == fp``, in torch ops, a
+    position read as ``jnp.take`` reads it (the JAX ``_fuse_query_dev``): one
+    in ``[-len, -1]`` wraps to ``len + p``, and one past either end reads 255."""
+    size = table.numel()
+    idx = h.to(torch.int64)
+    idx = torch.where(idx < 0, idx + size, idx)
+    inside = (idx >= 0) & (idx < size)
+    t = torch.where(inside, table[idx.clamp(0, max(size - 1, 0))] if size else 0, 255).to(torch.uint8)
     return (t[0] ^ t[1] ^ t[2]) == fp
 
 

@@ -442,14 +442,19 @@ def find_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None
     return find_counts(hay, batch, n).tolist()
 
 
-def rfind_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> list[tuple[int, int]]:
-    """Per-needle (count, last match start or -1) over ``hay[:n]``."""
+def rfind_counts(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, lasts), int64[B] each on ``hay``'s device: per-needle counts
+    and last match starts (-1 if none) over ``hay[:n]``, without waiting."""
     if _on_card(hay):
         from stringwars_tpu_torch.ops import find_cuda
 
-        counts, lasts = find_cuda.rfind_count_batch(hay, batch, n)
-    else:
-        counts, lasts = rfind_count_batch_plain(hay, batch, n)
+        return find_cuda.rfind_count_batch(hay, batch, n)
+    return rfind_count_batch_plain(hay, batch, n)
+
+
+def rfind_count_batch(hay: torch.Tensor, batch: NeedleBatch, n: int | None = None) -> list[tuple[int, int]]:
+    """Per-needle (count, last match start or -1) over ``hay[:n]``."""
+    counts, lasts = rfind_counts(hay, batch, n)
     return [tuple(pair) for pair in torch.stack([counts, lasts], 1).tolist()]  # one device sync
 
 
@@ -463,6 +468,42 @@ def rfind_count(hay: torch.Tensor, needle: PackedNeedle, n: int | None = None) -
     return rfind_count_batch(hay, NeedleBatch.from_needles([needle], hay.device), n)[0]
 
 
+# ---------------------------------------------------------------------------
+# Owned-start counts of a rank's row of a sharded haystack
+# ---------------------------------------------------------------------------
+
+def owned_extent(chunk: int, lo: int, n_glob: int, reach: int) -> int:
+    """The bytes of a row at global offset ``lo`` that its owned windows
+    read: its chunk and ``reach`` bytes past it, cut at the corpus' end."""
+    return max(min(chunk + reach, n_glob - lo), 0)
+
+
+def find_counts_owned(hay_row: torch.Tensor, batch: NeedleBatch, chunk: int, lo: int, n_glob: int) -> torch.Tensor:
+    """int64[1]: matches of the batch's one needle (m bytes) whose start p
+    the row owns (``p < chunk``) and whose window lies in the corpus
+    (``lo + p <= n_glob - m``), compared across the row's halo: the count
+    over ``hay_row[:min(chunk + m - 1, n_glob - lo)]`` (the JAX
+    ``_count_from_mask_sharded``)."""
+    return find_counts(hay_row, batch, owned_extent(chunk, lo, n_glob, batch.host_lengths[0] - 1))
+
+
+def rfind_counts_owned(hay_row: torch.Tensor, batch: NeedleBatch, chunk: int, lo: int,
+                       n_glob: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, lasts), int64[1] each: ``find_counts_owned`` and the global
+    start of the last owned match, -1 if none (the JAX
+    ``_count_last_from_mask_sharded``)."""
+    counts, lasts = rfind_counts(hay_row, batch, owned_extent(chunk, lo, n_glob, batch.host_lengths[0] - 1))
+    return counts, torch.where(lasts >= 0, lasts + lo, -1)
+
+
+def byteset_counts_bounded(hay_row: torch.Tensor, tables: Sequence[torch.Tensor], chunk: int, lo: int,
+                           n_glob: int) -> torch.Tensor:
+    """int64[len(tables)]: members of each set among the row's own bytes
+    inside the corpus, ``hay_row[:min(chunk, n_glob - lo)]`` (the JAX
+    ``byteset_count_bounded``)."""
+    return byteset_counts_tensor(hay_row, tables, owned_extent(chunk, lo, n_glob, 0))
+
+
 def pack_byteset(charset: bytes, device=None) -> torch.Tensor:
     """256-entry uint8 membership table for a byte set."""
     table = np.zeros(256, dtype=np.uint8)
@@ -470,16 +511,20 @@ def pack_byteset(charset: bytes, device=None) -> torch.Tensor:
     return torch.from_numpy(table).to(device)
 
 
-def byteset_counts(hay: torch.Tensor, tables: Sequence[torch.Tensor], n: int | None = None) -> list[int]:
-    """Per-set counts of the bytes of ``hay[:n]``: one scan per set, one
-    device sync for all of them."""
+def byteset_counts_tensor(hay: torch.Tensor, tables: Sequence[torch.Tensor], n: int | None = None) -> torch.Tensor:
+    """int64[len(tables)] on ``hay``'s device: per-set counts of the bytes
+    of ``hay[:n]``, one scan per set, without waiting."""
     if _on_card(hay):
         from stringwars_tpu_torch.ops import find_cuda
 
-        counts = [find_cuda.byteset_count(hay, table, n) for table in tables]
-    else:
-        counts = [byteset_count_plain(hay, table, n) for table in tables]
-    return torch.cat(counts).tolist()
+        return torch.cat([find_cuda.byteset_count(hay, table, n) for table in tables])
+    return torch.cat([byteset_count_plain(hay, table, n) for table in tables])
+
+
+def byteset_counts(hay: torch.Tensor, tables: Sequence[torch.Tensor], n: int | None = None) -> list[int]:
+    """Per-set counts of the bytes of ``hay[:n]``: one scan per set, one
+    device sync for all of them."""
+    return byteset_counts_tensor(hay, tables, n).tolist()
 
 
 def byteset_count(hay: torch.Tensor, table: torch.Tensor, n: int | None = None) -> int:

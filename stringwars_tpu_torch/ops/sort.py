@@ -28,9 +28,14 @@ comparisons; a caller-owned ``out`` index buffer as in
   which cover the longest fold) refine with ``str.casefold``.
 - ``sorted_tokens``.
 
+- ``argsort_sharded``: the sample sort over the ranks of a scope
+  (``sample_sort_body``: splitters from all-gathered samples, one
+  ``all_to_all`` of keys and indices into fixed slots, the radix argsort of
+  what arrives), falling back to ``argsort_tape`` when a destination
+  overflows; one device takes ``argsort_tape``.
+
 The results are numpy ``int64`` permutations, as the JAX package returns
-them. The sample sort over several devices (``argsort_sharded``) comes with
-the parallel layer.
+them.
 """
 
 from __future__ import annotations
@@ -147,9 +152,15 @@ def argsort_tape(tape: Tape, *, prefix_width: int = PREFIX_WIDTH, out=None) -> n
     maxed-out prefix are refined on the host. ``out`` (optional) is a
     caller-owned index buffer written in place.
     """
-    full_lengths = _full_lengths(tape)
     tokens = PaddedTokens.from_tape(tape, align=4, max_width=prefix_width)
     order = argsort_tokens(tokens).cpu().numpy().astype(np.int64)
+    return _write_out(_refine_prefixes(order, tape, tokens, prefix_width), out)
+
+
+def _refine_prefixes(order: np.ndarray, tape: Tape, tokens: PaddedTokens, prefix_width: int) -> np.ndarray:
+    """``order`` of the prefix keys, with each run of rows that tie on a
+    maxed-out prefix re-sorted on the host by the whole tokens."""
+    full_lengths = _full_lengths(tape)
     if full_lengths.size and int(full_lengths.max()) > prefix_width:
         mat = tokens.data.cpu().numpy()
         sorted_mat = mat[order]
@@ -159,7 +170,93 @@ def argsort_tape(tape: Tape, *, prefix_width: int = PREFIX_WIDTH, out=None) -> n
         tie = (sorted_mat[1:] == sorted_mat[:-1]).all(axis=1) & (maxed[1:] | maxed[:-1])
         toks = tape.to_list()
         order = _refine_ties(order, tie, toks.__getitem__)
-    return _write_out(order, out)
+    return order
+
+
+# ---------------------------------------------------------------------------
+# Sample sort over the ranks of a scope
+# ---------------------------------------------------------------------------
+
+SAMPLES_PER_SHARD = 256
+CAPACITY_FACTOR = 2  # slots a destination, as a multiple of the mean
+PAD_KEY = 0x7FFFFFFF  # every column of an empty slot or a padding row: above any packed key (< 2^27)
+
+
+def sample_sort_body(cols: torch.Tensor, idx: torch.Tensor, scope) -> tuple[torch.Tensor, int] | None:
+    """One rank's sample sort of its ``[n_cols, Bl]`` key columns with their
+    tape indices ``idx`` (-1 on padding rows): (the indices it receives, in
+    the global stable order of their keys, then -1s; how many are tape
+    rows), or ``None`` when some destination overflows its slots on any
+    rank (the caller sorts on one device then).
+
+    The JAX package's ``_sharded_sort_body``: 256 evenly spaced samples of
+    the first key column from each rank, all-gathered and sorted, give
+    D - 1 splitters; a key goes to the rank counting the splitters at or
+    below it (equal keys share a rank, so stability survives); each
+    destination has ``max(2 * Bl / D, 8)`` slots, empty ones keyed
+    ``PAD_KEY`` with index -1; one ``all_to_all`` moves keys and indices,
+    and the radix argsort sorts what arrives, which comes in (source,
+    position) order, so the local stable order is the global one."""
+    from stringwars_tpu_torch.parallel.sharding import all_gather_tokens, all_to_all_rows, psum_scalar
+
+    n_cols, Bl = cols.shape
+    D, dev = scope.gpus, cols.device
+    cap = max(CAPACITY_FACTOR * Bl // D, 8)
+    k0 = cols[0].contiguous()
+    step = max(Bl // SAMPLES_PER_SHARD, 1)
+    gathered = torch.sort(all_gather_tokens(k0[: step * min(SAMPLES_PER_SHARD, Bl) : step].contiguous(), scope)).values
+    splitters = gathered[(torch.arange(1, D, device=dev) * gathered.numel()) // D].contiguous()
+    dest = torch.searchsorted(splitters, k0, right=True)
+    counts = torch.bincount(dest, minlength=D)
+    if int(psum_scalar((counts > cap).any().to(torch.int64).reshape(1), scope)):
+        return None
+    order = torch.argsort(dest, stable=True)
+    to = dest[order]
+    slot = torch.arange(Bl, device=dev) - (torch.cumsum(counts, 0) - counts)[to]
+    send_keys = torch.full((D, cap, n_cols), PAD_KEY, dtype=torch.int32, device=dev)
+    send_keys[to, slot] = cols.t()[order]
+    send_idx = torch.full((D, cap), -1, dtype=torch.int32, device=dev)
+    send_idx[to, slot] = idx[order].to(torch.int32)
+    keys = all_to_all_rows(send_keys, scope).reshape(D * cap, n_cols).t().contiguous()
+    received = all_to_all_rows(send_idx, scope).reshape(-1)
+    return received[lsd_argsort(keys).long()], int((received >= 0).sum())
+
+
+def sample_sort(tape: Tape, scope, *, prefix_width: int = PREFIX_WIDTH, out=None) -> np.ndarray:
+    """``argsort_tape``'s order by ``sample_sort_body`` over the ranks of
+    ``scope`` (any world, one rank included): each rank keys its share of
+    the tape's rows, the ranks' sorted indices are gathered on every rank,
+    and ties on maxed-out prefixes refine on the host. Falls back to
+    ``argsort_tape`` when the sampled partition overflows its slots."""
+    from stringwars_tpu_torch.parallel.sharding import all_gather_tokens
+
+    tokens = PaddedTokens.from_tape(tape, align=4, max_width=prefix_width)
+    B, D = tokens.count, scope.gpus
+    if B == 0:
+        return argsort_tape(tape, prefix_width=prefix_width, out=out)
+    Bl = -(-B // D)
+    lo, hi = min(scope.rank * Bl, B), min((scope.rank + 1) * Bl, B)
+    cols = torch.nn.functional.pad(byte_columns(tokens.data[lo:hi], tokens.lengths[lo:hi]), (0, Bl - (hi - lo)),
+                                   value=PAD_KEY)
+    idx = torch.full((Bl,), -1, dtype=torch.int64, device=cols.device)
+    idx[: hi - lo] = torch.arange(lo, hi, device=cols.device)
+    got = sample_sort_body(cols, idx, scope)
+    if got is None:
+        return argsort_tape(tape, prefix_width=prefix_width, out=out)
+    received, kept = got
+    everyone = all_gather_tokens(received, scope).view(D, -1).cpu().numpy()
+    kept_by_rank = all_gather_tokens(torch.tensor([kept], dtype=torch.int64, device=cols.device), scope).tolist()
+    order = np.concatenate([everyone[d, :k] for d, k in enumerate(kept_by_rank)]).astype(np.int64)
+    return _write_out(_refine_prefixes(order, tape, tokens, prefix_width), out)
+
+
+def argsort_sharded(tape: Tape, scope, *, prefix_width: int = PREFIX_WIDTH, out=None) -> np.ndarray:
+    """Stable byte-order argsort over a device scope (``parallel.mesh.DeviceScope``):
+    the sample sort over its ranks; a scope of one device (or one rank)
+    takes the one-device path. The result is always the exact stable order."""
+    if scope.group is None or scope.gpus <= 1:
+        return argsort_tape(tape, prefix_width=prefix_width, out=out)
+    return sample_sort(tape, scope, prefix_width=prefix_width, out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -85,20 +85,20 @@ def main(argv: list[str] | None = None):
     count, total_bytes = tape.count, tape.total_bytes
     verify_multiseed_matches_naive(tape)
 
+    scope = ctx.scopes[0]
     ctx.group("multihash")
     for bits in (128, 256, 512, 1024):
         k = bits // 64
         seeds = tuple(range(1, k + 1))
-        for scope in ctx.scopes:
-            ctx.run(
-                f"multihash/{bits}bit/swtorch::xxh64_multiseed{scope.name}",
-                "bits",
-                lambda seeds=seeds, bits=bits: lambda: (
-                    H.xxh64_multiseed_spans(tape.data, tape.offsets, seeds),
-                    WorkUnits(elements=count * bits, bytes=total_bytes),
-                )[1],
-                device=scope.device,
-            )
+        ctx.run(
+            f"multihash/{bits}bit/swtorch::xxh64_multiseed{scope.name}",
+            "bits",
+            lambda seeds=seeds, bits=bits: lambda: (
+                H.xxh64_multiseed_spans(tape.data, tape.offsets, seeds),
+                WorkUnits(elements=count * bits, bytes=total_bytes),
+            )[1],
+            scope=scope,
+        )
 
         def host_factory(k=k, bits=bits):
             import xxhash
@@ -129,19 +129,18 @@ def main(argv: list[str] | None = None):
     )
     assert fn_rate == 0.0, "bloom filters must have zero false negatives"
 
-    for scope in ctx.scopes:
-        ctx.run(
-            f"filters/swtorch::bloom-build{scope.name}",
-            "keys",
-            lambda: lambda: (FLT.bloom_build(inserted, BLOOM_SEEDS, m_bits), WorkUnits(cut, inserted.total_bytes))[1],
-            device=scope.device,
-        )
-        ctx.run(
-            f"filters/swtorch::bloom-query{scope.name}",
-            "keys",
-            lambda: lambda: (FLT.bloom_query(bloom, held_out), WorkUnits(count - cut, held_out.total_bytes))[1],
-            device=scope.device,
-        )
+    ctx.run(
+        f"filters/swtorch::bloom-build{scope.name}",
+        "keys",
+        lambda: lambda: (FLT.bloom_build(inserted, BLOOM_SEEDS, m_bits), WorkUnits(cut, inserted.total_bytes))[1],
+        scope=scope,
+    )
+    ctx.run(
+        f"filters/swtorch::bloom-query{scope.name}",
+        "keys",
+        lambda: lambda: (FLT.bloom_query(bloom, held_out), WorkUnits(count - cut, held_out.total_bytes))[1],
+        scope=scope,
+    )
 
     ins_keys = _digests(inserted)
     out_keys = np.setdiff1d(_digests(held_out), ins_keys)
@@ -163,16 +162,15 @@ def main(argv: list[str] | None = None):
         "tape": tape, "inserted": inserted, "held_out": held_out, "bloom": bloom, "fuse": fuse, "ins_keys": ins_keys,
         "out_keys": out_keys, "probes": (h, fp), "quality": {"bloom": (fpr, fn_rate), "fuse": fuse_fpr},
     }
-    for scope in ctx.scopes:
-        ctx.run(
-            f"filters/swtorch::fuse8-query{scope.name}",
-            "keys",
-            lambda: lambda: (
-                FLT.fuse_query_probes(fuse.fingerprints, h, fp),
-                WorkUnits(elements=max(out_keys.size, 1), bytes=held_out.total_bytes),
-            )[1],
-            device=scope.device,
-        )
+    ctx.run(
+        f"filters/swtorch::fuse8-query{scope.name}",
+        "keys",
+        lambda: lambda: (
+            FLT.fuse_query_probes(fuse.fingerprints, h, fp),
+            WorkUnits(elements=max(out_keys.size, 1), bytes=held_out.total_bytes),
+        )[1],
+        scope=scope,
+    )
     return ctx
 
 

@@ -67,10 +67,10 @@ def bench_keygen(ctx: SuiteContext) -> None:
 
         return routine
 
-    for scope in ctx.scopes:
-        for label, nonce_len, _, _ in device_ciphers():
-            ctx.run(f"keygen/swtorch::{label}{scope.name}", "bytes",
-                    lambda n=32 + nonce_len, d=scope.device: keygen_factory(n, d), device=scope.device)
+    scope = ctx.scopes[0]
+    for label, nonce_len, _, _ in device_ciphers():
+        ctx.run(f"keygen/swtorch::{label}{scope.name}", "bytes",
+                lambda n=32 + nonce_len, d=scope.device: keygen_factory(n, d), scope=scope)
 
     def host_factory():
         from cryptography.hazmat.primitives.ciphers.aead import AESGCM
@@ -83,46 +83,45 @@ def bench_keygen(ctx: SuiteContext) -> None:
         return routine
 
     ctx.run("keygen/cryptography.AESGCM", "bytes", host_factory)
-    for scope in ctx.scopes:
-        ctx.run(f"keygen/swtorch::fill_random{scope.name}", "bytes", lambda d=scope.device: keygen_factory(32, d),
-                device=scope.device)
+    ctx.run(f"keygen/swtorch::fill_random{scope.name}", "bytes", lambda d=scope.device: keygen_factory(32, d),
+            scope=scope)
 
 
 def bench_encryption(ctx: SuiteContext, sample: list[bytes], corpus: torch.Tensor) -> None:
     staged = ctx.staged
     sample_bytes = sum(map(len, sample))
     nonce_counter = [0]
-    for scope in ctx.scopes:
-        tokens = [torch.tensor(list(t), dtype=torch.uint8, device=scope.device) for t in sample]
-        for label, nonce_len, encrypt, _ in device_ciphers():
+    scope = ctx.scopes[0]
+    tokens = [torch.tensor(list(t), dtype=torch.uint8, device=scope.device) for t in sample]
+    for label, nonce_len, encrypt, _ in device_ciphers():
 
-            def sample_factory(label=label, nonce_len=nonce_len, encrypt=encrypt):
-                def routine() -> WorkUnits:
-                    base = nonce_counter[0]
-                    nonce_counter[0] += len(tokens)
-                    seals = []
-                    for i, token in enumerate(tokens):
-                        nonce = counter_nonce(base + i, nonce_len)
-                        seals.append((nonce, *encrypt(KEY, nonce, token)))
-                    staged["seals"][label] = seals
-                    return WorkUnits(elements=len(tokens), bytes=sample_bytes)
+        def sample_factory(label=label, nonce_len=nonce_len, encrypt=encrypt):
+            def routine() -> WorkUnits:
+                base = nonce_counter[0]
+                nonce_counter[0] += len(tokens)
+                seals = []
+                for i, token in enumerate(tokens):
+                    nonce = counter_nonce(base + i, nonce_len)
+                    seals.append((nonce, *encrypt(KEY, nonce, token)))
+                staged["seals"][label] = seals
+                return WorkUnits(elements=len(tokens), bytes=sample_bytes)
 
-                return routine
+            return routine
 
-            ctx.run(f"encryption/swtorch::{label}{scope.name}", "bytes", sample_factory, device=scope.device)
-        for label, nonce_len, encrypt, _ in device_ciphers():
+        ctx.run(f"encryption/swtorch::{label}{scope.name}", "bytes", sample_factory, scope=scope)
+    for label, nonce_len, encrypt, _ in device_ciphers():
 
-            def corpus_factory(label=label, nonce_len=nonce_len, encrypt=encrypt):
-                data = corpus.to(scope.device)
-                nonce = counter_nonce(CORPUS_NONCE[label], nonce_len)
+        def corpus_factory(label=label, nonce_len=nonce_len, encrypt=encrypt):
+            data = corpus.to(scope.device)
+            nonce = counter_nonce(CORPUS_NONCE[label], nonce_len)
 
-                def routine() -> WorkUnits:
-                    staged["sealed"][label] = (nonce, *encrypt(KEY, nonce, data))
-                    return WorkUnits(elements=1, bytes=data.numel())
+            def routine() -> WorkUnits:
+                staged["sealed"][label] = (nonce, *encrypt(KEY, nonce, data))
+                return WorkUnits(elements=1, bytes=data.numel())
 
-                return routine
+            return routine
 
-            ctx.run(f"encryption/swtorch::{label}-corpus{scope.name}", "bytes", corpus_factory, device=scope.device)
+        ctx.run(f"encryption/swtorch::{label}-corpus{scope.name}", "bytes", corpus_factory, scope=scope)
 
     def host_factory(cipher_name: str):
         def factory():
@@ -145,20 +144,20 @@ def bench_encryption(ctx: SuiteContext, sample: list[bytes], corpus: torch.Tenso
 
 def bench_decryption(ctx: SuiteContext, corpus: torch.Tensor) -> None:
     staged = ctx.staged
-    for scope in ctx.scopes:
-        for label, nonce_len, encrypt, decrypt in device_ciphers():
+    scope = ctx.scopes[0]
+    for label, nonce_len, encrypt, decrypt in device_ciphers():
 
-            def factory(label=label, nonce_len=nonce_len, encrypt=encrypt, decrypt=decrypt):
-                nonce = counter_nonce(CORPUS_NONCE[label], nonce_len)
-                ct, tag = encrypt(KEY, nonce, corpus.to(scope.device))
+        def factory(label=label, nonce_len=nonce_len, encrypt=encrypt, decrypt=decrypt):
+            nonce = counter_nonce(CORPUS_NONCE[label], nonce_len)
+            ct, tag = encrypt(KEY, nonce, corpus.to(scope.device))
 
-                def routine() -> WorkUnits:
-                    staged["opened"][label] = decrypt(KEY, nonce, ct, tag)
-                    return WorkUnits(elements=1, bytes=ct.numel())
+            def routine() -> WorkUnits:
+                staged["opened"][label] = decrypt(KEY, nonce, ct, tag)
+                return WorkUnits(elements=1, bytes=ct.numel())
 
-                return routine
+            return routine
 
-            ctx.run(f"decryption/swtorch::{label}-corpus{scope.name}", "bytes", factory, device=scope.device)
+        ctx.run(f"decryption/swtorch::{label}-corpus{scope.name}", "bytes", factory, scope=scope)
 
 
 def main(argv: list[str] | None = None) -> SuiteContext:

@@ -25,7 +25,18 @@ rows), routed as the JAX package routes them on its TPU: the Shift-And
 kernel of ``ops/shiftand_cuda.py`` for a set that packs into its 64 bits,
 else the DFA kernel of ``ops/ahocorasick_cuda.py``.
 
-Not ported yet: the sharded ``<N...>`` rows.
+Under a world of N ranks (torchrun) each device row also runs sharded
+(``<Ngpu>``, ``parallel/sharding.py``): every rank holds its 512-byte
+aligned chunk of the haystack and a halo of ``8 * cap`` bytes after it (the
+JAX rows' halo), counts the window starts it owns (``p < chunk`` and
+``lo + p <= n - m``: the find kernel over ``row[:min(chunk + m - 1, n -
+lo)]``), and the counts are summed over the ranks; the backward row's last
+offset, in global bytes, is reduced by max. These rows run one needle a
+call, cycling the first 64 tokens that fit ``cap`` = 16 words (61 B), as
+the JAX rows do; the byteset row counts each rank's chunk, and the
+``aho_corasick`` row each rank's owned matches (``sharding.owned_count``).
+The JAX package's panel form of the same count (``make_sharded_find_pallas``)
+is the TPU's layout of this one sharded find.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ import torch
 from stringwars_tpu_torch.ops import ahocorasick as AC
 from stringwars_tpu_torch.ops import find as F
 from stringwars_tpu_torch.ops import shiftand as SA
+from stringwars_tpu_torch.parallel.mesh import DeviceScope
+from stringwars_tpu_torch.parallel.sharding import owned_count, pmax_scalar, psum_scalar, shard_bytes
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import Tape
 from stringwars_tpu_torch.utils.harness import WorkUnits
@@ -52,6 +65,8 @@ BYTESETS = {
 CYCLE = 512  # needles cycled per row (reference find/bench.rs:56-93)
 BATCH = 16  # needles per capacity bucket per forward call
 PANEL_MAX = 4 * 127 - 3  # longest needle of the JAX package's capacity buckets (505 B)
+SHARDED_CAP = 16  # the <Ngpu> rows' capacity words: needles of up to 61 B, a halo of 8 * 16 B
+SHARDED_CYCLE = 64  # needles the <Ngpu> rows cycle
 
 
 def _needle_cap(t: bytes) -> int:
@@ -184,6 +199,91 @@ def aho_corasick_routine(tape: Tape):
     return routine, results
 
 
+def make_sharded_find(scope: DeviceScope, tape: Tape, backward: bool = False):
+    """The ``<Ngpu>`` count over the ranks of ``scope``: each rank's halo row
+    of the tape (``shard_bytes`` with an ``8 * SHARDED_CAP``-byte halo).
+    Returns ``step(batch)`` for a batch of one needle of at most
+    ``4 * SHARDED_CAP - 3`` bytes: the count over every rank, or with ``backward`` (count, last
+    match start in the whole tape or -1), each an int64[1] tensor."""
+    row, n, chunk = shard_bytes(scope, tape.data[: tape.total_bytes], overlap=8 * SHARDED_CAP)
+    lo = scope.rank * chunk
+
+    def step(batch: F.NeedleBatch):
+        if backward:
+            counts, lasts = F.rfind_counts_owned(row, batch, chunk, lo, n)
+            return psum_scalar(counts, scope), pmax_scalar(lasts, scope)
+        return psum_scalar(F.find_counts_owned(row, batch, chunk, lo, n), scope)
+
+    return step
+
+
+def sharded_needles(tape: Tape) -> list[bytes]:
+    """The ``<Ngpu>`` rows' needles: the first 64 of the cycle that fit ``SHARDED_CAP``."""
+    cycle, _, _ = suite_needles(tape)
+    longest = 4 * SHARDED_CAP - 3
+    fitting = [t for t in cycle if len(t) <= longest]
+    return fitting[:SHARDED_CYCLE] or [cycle[0][:longest]]
+
+
+def sharded_substring_routine(tape: Tape, scope: DeviceScope, backward: bool):
+    """(routine, results): each call counts the next needle over the ranks;
+    ``results`` maps each needle to its count, or (count, last offset)."""
+    needles = sharded_needles(tape)
+    batches = [F.NeedleBatch.from_needles([F.pack_needle(t, _needle_cap(t))], tape.device) for t in needles]
+    step = make_sharded_find(scope, tape, backward=backward)
+    order = itertools.cycle(zip(needles, batches))
+    n = tape.total_bytes
+    results: dict[bytes, int | tuple[int, int]] = {}
+
+    def routine() -> WorkUnits:
+        needle, batch = next(order)
+        got = step(batch)
+        results[needle] = (int(got[0][0]), int(got[1][0])) if backward else int(got[0])
+        return WorkUnits(elements=1, bytes=n)
+
+    return routine, results
+
+
+def sharded_byteset_routine(tape: Tape, scope: DeviceScope):
+    """(routine, results): ``byteset_routine`` over the ranks, each counting
+    its chunk of the tape."""
+    row, n, chunk = shard_bytes(scope, tape.data[: tape.total_bytes])
+    tables = [F.pack_byteset(cs, tape.device) for cs in BYTESETS.values()]
+    results: dict[str, int] = {}
+
+    def routine() -> WorkUnits:
+        counts = F.byteset_counts_bounded(row, tables, chunk, scope.rank * chunk, n)
+        results.update(zip(BYTESETS, psum_scalar(counts, scope).tolist()))
+        return WorkUnits(elements=len(tables), bytes=len(tables) * n)
+
+    return routine, results
+
+
+def sharded_aho_corasick_routine(tape: Tape, scope: DeviceScope):
+    """(routine, results): ``aho_corasick_routine`` over the ranks, each
+    counting the matches that start in its chunk (its halo: the longest
+    pattern less one byte)."""
+    matchers = [byteset_matcher(cs) for cs in BYTESETS.values()]
+    reach = max(m.max_len for m in matchers) - 1
+    row, n, chunk = shard_bytes(scope, tape.data[: tape.total_bytes], overlap=reach)
+    for m in matchers:
+        m.tables(row.device)
+    results: dict[str, int] = {}
+
+    def count(m):
+        if isinstance(m, SA.ShiftAndSet):
+            return lambda hay, k: SA.shiftand_count_tensor(m, hay, k)
+        return lambda hay, k: AC.ac_count_tensor(m, hay, k)
+
+    def routine() -> WorkUnits:
+        lo = scope.rank * chunk
+        owned = [owned_count(count(m), row, chunk, F.owned_extent(chunk, lo, n, m.max_len - 1)) for m in matchers]
+        results.update(zip(BYTESETS, psum_scalar(torch.cat(owned), scope).tolist()))
+        return WorkUnits(elements=len(matchers), bytes=len(matchers) * n)
+
+    return routine, results
+
+
 def _host_haystack(ctx: SuiteContext) -> bytes:
     return ctx.tape.data.cpu().numpy().tobytes()
 
@@ -198,7 +298,11 @@ def bench_substring(ctx: SuiteContext, group: str) -> None:
     make = backward_routine if backward else forward_routine
     op = "rfind_count" if backward else "find_count"
     for scope in ctx.scopes:
-        ctx.run(f"{group}/swtorch::{op}{scope.name}", "bytes", lambda: make(ctx.tape)[0], device=scope.device)
+        if scope.group is None:
+            routine = lambda: make(ctx.tape)[0]  # noqa: E731
+        else:
+            routine = lambda scope=scope: sharded_substring_routine(ctx.tape, scope, backward)[0]  # noqa: E731
+        ctx.run(f"{group}/swtorch::{op}{scope.name}", "bytes", routine, scope=scope)
 
     # --- host baseline: bytes.find/rfind loop (all matches, one pass) -----
     def host_routine_factory():
@@ -233,20 +337,14 @@ def bench_substring(ctx: SuiteContext, group: str) -> None:
 
 
 def bench_byteset(ctx: SuiteContext) -> None:
-    for scope in ctx.scopes:
-        ctx.run(
-            f"byteset-forward/swtorch::byteset_count{scope.name}",
-            "bytes",
-            lambda: byteset_routine(ctx.tape)[0],
-            device=scope.device,
-        )
-    for scope in ctx.scopes:
-        ctx.run(
-            f"byteset-forward/swtorch::aho_corasick{scope.name}",
-            "bytes",
-            lambda: aho_corasick_routine(ctx.tape)[0],
-            device=scope.device,
-        )
+    for op, one, sharded in (("byteset_count", byteset_routine, sharded_byteset_routine),
+                             ("aho_corasick", aho_corasick_routine, sharded_aho_corasick_routine)):
+        for scope in ctx.scopes:
+            if scope.group is None:
+                routine = lambda one=one: one(ctx.tape)[0]  # noqa: E731
+            else:
+                routine = lambda sharded=sharded, scope=scope: sharded(ctx.tape, scope)[0]  # noqa: E731
+            ctx.run(f"byteset-forward/swtorch::{op}{scope.name}", "bytes", routine, scope=scope)
 
     def re_routine_factory():
         hay_b = _host_haystack(ctx)

@@ -8,15 +8,17 @@ reference ``fingerprints/bench.rs:253-266``) over a batch of
 NDIM hash-ops per token byte. The device row
 (``minhash/ndim_<d>/swtorch::fingerprint<1gpu>``) runs the CUDA kernel of
 ``ops/fingerprint.py``; with ``--device cpu`` the row (``<1cpu>``) runs the
-plain torch version. Quality (bit entropy, collision rate) is printed per
+plain torch version. Under a world of N ranks (torchrun) the row also runs
+sharded (``<Ngpu>``): the batch padded to a multiple of the ranks with empty
+documents, each rank fingerprinting its rows; work is counted over the
+whole batch. Quality (bit entropy, collision rate) is printed per
 scale to stderr; the host row replays the spec in numpy on 8 documents.
 """
 
 from __future__ import annotations
 
-import sys
-
 from stringwars_tpu_torch.ops import fingerprint as FP
+from stringwars_tpu_torch.parallel.sharding import shard_tokens
 from stringwars_tpu_torch.suites._common import setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens
 from stringwars_tpu_torch.utils.config import get_env
@@ -58,20 +60,18 @@ def main(argv: list[str] | None = None):
         units = WorkUnits(elements=ndim * total_bytes, bytes=total_bytes)
         for scope in ctx.scopes:
 
-            def make(ndim=ndim, units=units):
-                return lambda: (FP.fingerprint(tokens, ndim=ndim), units)[1]
+            def make(ndim=ndim, units=units, scope=scope):
+                staged = tokens if scope.group is None else PaddedTokens(
+                    shard_tokens(scope, tokens.data)[0], shard_tokens(scope, tokens.lengths)[0], tokens.width)
+                return lambda: (FP.fingerprint(staged, ndim=ndim), units)[1]
 
-            ctx.run(f"minhash/ndim_{ndim}/swtorch::fingerprint{scope.name}", "hashes", make, device=scope.device)
+            ctx.run(f"minhash/ndim_{ndim}/swtorch::fingerprint{scope.name}", "hashes", make, scope=scope)
 
         mh = FP.fingerprint(tokens, ndim=ndim, with_counts=False)[0].cpu().numpy()
         quality = (FP.bit_entropy(mh), FP.collision_rate(mh))
         ctx.staged["min_hashes"][ndim] = mh
         ctx.staged["quality"][ndim] = quality
-        print(
-            f"quality ndim_{ndim}: bit-entropy {quality[0]:.4f}, collisions {100.0 * quality[1]:.2f}%",
-            file=sys.stderr,
-            flush=True,
-        )
+        ctx.log(f"quality ndim_{ndim}: bit-entropy {quality[0]:.4f}, collisions {100.0 * quality[1]:.2f}%")
 
         # Host baseline: numpy replay of the same spec on a token sample.
         def host_factory(ndim=ndim):

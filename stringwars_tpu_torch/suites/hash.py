@@ -9,7 +9,11 @@ it lies on the tape, in one launch a call (``ops/hash``'s ``*_spans`` and
 ``ops/xxh3.xxh3_64_spans``; ``spans_call`` is a row's call): no buckets, the
 same work units (the non-empty tokens and their bytes; an empty token gets
 the empty input's digest and counts for nothing); the digest of token ``t``
-is entry ``t`` (``swh64_multiseed8``: column ``t`` of 8 rows). With
+is entry ``t`` (``swh64_multiseed8``: column ``t`` of 8 rows). Under a
+world of N ranks (torchrun) the stateless rows also run sharded
+(``<Ngpu>``, ``sharded_spans_call``): each rank hashes its equal share of
+the tokens, their digests left on its device (as the JAX rows leave them
+sharded); work is counted over the whole tape. With
 ``--device cpu`` the same rows (``<1cpu>``) run the plain versions. The
 checksum group's ``swtorch::sha256`` row hashes every token per call over
 rectangular ``PaddedTokens`` buckets by length (``BUCKET_EDGES``; SHA-256
@@ -35,6 +39,7 @@ from stringwars_tpu_torch.ops import bytesum as B
 from stringwars_tpu_torch.ops import hash as H
 from stringwars_tpu_torch.ops import sha256 as SHA
 from stringwars_tpu_torch.ops import xxh3 as X3
+from stringwars_tpu_torch.parallel.mesh import DeviceScope
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.tape import PaddedTokens, Tape, bucket_spans
 from stringwars_tpu_torch.utils.config import get_env_bool
@@ -102,19 +107,32 @@ def spans_call(tape: Tape, op: str) -> torch.Tensor:
     return SPANS_ROWS[op](tape.data, tape.offsets)
 
 
+def sharded_spans_call(tape: Tape, op: str, scope: DeviceScope) -> torch.Tensor:
+    """The ``stateless/swtorch::<op><Ngpu>`` row's call on one rank: the
+    digests of its share of the tape's tokens (``ceil(T / N)`` a rank, by
+    token index from ``rank * ceil(T / N)``)."""
+    per = -(-tape.count // scope.gpus)
+    lo = min(scope.rank * per, tape.count)
+    return SPANS_ROWS[op](tape.data, tape.offsets[lo : min(lo + per, tape.count) + 1])
+
+
 def bench_device_hashes(ctx: SuiteContext, staged: HashBuckets) -> None:
     tape, units = ctx.tape, staged.units
 
-    def routine(op: str):
+    def routine(op: str, scope: DeviceScope):
         def run() -> WorkUnits:
-            spans_call(tape, op)
+            if scope.group is None:
+                spans_call(tape, op)
+            else:
+                sharded_spans_call(tape, op, scope)
             return units
 
         return run
 
     for scope in ctx.scopes:
         for op in SPANS_ROWS:
-            ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda op=op: routine(op), device=scope.device)
+            ctx.run(f"stateless/swtorch::{op}{scope.name}", "bytes", lambda op=op, scope=scope: routine(op, scope),
+                    scope=scope)
 
 
 class HostCopy:
@@ -162,13 +180,13 @@ def _xxhash():
 
 def bench_stateful(ctx: SuiteContext, host: HostCopy) -> None:
     data, n = ctx.tape.data, ctx.tape.total_bytes
-    for scope in ctx.scopes:
-        ctx.run(
-            f"stateful/swtorch::tree_hash64{scope.name}",
-            "bytes",
-            lambda: lambda: (H.tree_hash64(data, n), WorkUnits(elements=1, bytes=n))[1],
-            device=scope.device,
-        )
+    scope = ctx.scopes[0]
+    ctx.run(
+        f"stateful/swtorch::tree_hash64{scope.name}",
+        "bytes",
+        lambda: lambda: (H.tree_hash64(data, n), WorkUnits(elements=1, bytes=n))[1],
+        scope=scope,
+    )
 
     def host_stream_factory():
         xxhash = _xxhash()
@@ -187,15 +205,15 @@ def bench_stateful(ctx: SuiteContext, host: HostCopy) -> None:
 
 def bench_checksum(ctx: SuiteContext, staged: HashBuckets, host: HostCopy) -> None:
     data, n = ctx.tape.data, ctx.tape.total_bytes
-    for scope in ctx.scopes:
-        ctx.run(
-            f"checksum/swtorch::bytesum{scope.name}",
-            "bytes",
-            lambda: lambda: (B.bytesum(data, n), WorkUnits(elements=1, bytes=n))[1],
-            device=scope.device,
-        )
-        ctx.run(f"checksum/swtorch::sha256{scope.name}", "bytes", lambda: device_routine(staged, SHA.sha256),
-                device=scope.device)
+    scope = ctx.scopes[0]
+    ctx.run(
+        f"checksum/swtorch::bytesum{scope.name}",
+        "bytes",
+        lambda: lambda: (B.bytesum(data, n), WorkUnits(elements=1, bytes=n))[1],
+        scope=scope,
+    )
+    ctx.run(f"checksum/swtorch::sha256{scope.name}", "bytes", lambda: device_routine(staged, SHA.sha256),
+            scope=scope)
 
     def host_factory(module: str, fn_name: str):
         def factory():
@@ -239,12 +257,8 @@ def main(argv: list[str] | None = None) -> SuiteContext:
     if ctx.device.type == "cuda":
         torch.cuda.synchronize(ctx.device)
     widths = ", ".join(f"{p.count:,}x{p.width}" for p in staged.buckets)
-    print(
-        f"staged {staged.tokens:,} tokens in {len(staged.buckets)} buckets ({widths}) "
-        f"in {time.perf_counter() - started:.2f} s",
-        file=sys.stderr,
-        flush=True,
-    )
+    ctx.log(f"staged {staged.tokens:,} tokens in {len(staged.buckets)} buckets ({widths}) "
+            f"in {time.perf_counter() - started:.2f} s")
     ctx.staged = staged
 
     ctx.group("stateless")

@@ -21,8 +21,11 @@ corpus' bytes (default 128 MB of ``synthetic:long-lines``) on the device:
   JAX rows timed ``e ^ salt`` and ``roll(e, 8) ^ salt``, which no copy
   elides on its TPU; a local card runs every copy it is given.)
 
-With ``--device cpu`` the rows (``<1cpu>``) run the plain versions and
-torch's CPU copies. The host rows: ``bytes.translate``, ``numpy.take`` and
+Under a world of N ranks (torchrun) the LUT and copy rows also run sharded
+(``<Ngpu>``, the JAX package's sharded rows): each rank translates or copies
+its 512-byte aligned chunk of the buffer (``sharding.shard_bytes``); work is
+counted over the whole buffer. With ``--device cpu`` the rows (``<1cpu>``)
+run the plain versions and torch's CPU copies. The host rows: ``bytes.translate``, ``numpy.take`` and
 ``numpy.PCG64``.
 """
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from stringwars_tpu_torch.ops import memops as M
+from stringwars_tpu_torch.parallel.sharding import shard_bytes
 from stringwars_tpu_torch.suites._common import setup_suite
 from stringwars_tpu_torch.utils.harness import WorkUnits
 
@@ -57,14 +61,23 @@ def main(argv: list[str] | None = None):
     staged = {"data": data}
     ctx.staged = staged
 
+    def share(scope) -> torch.Tensor:
+        """The scope's bytes of the buffer: all of it, or this rank's chunk."""
+        return data if scope.group is None else shard_bytes(scope, data)[0]
+
     ctx.group("lookup-table")
     for scope in ctx.scopes:
 
-        def lut_call() -> WorkUnits:
-            staged["lut"] = M.lut_translate(data, lut)
-            return WorkUnits(1, n)
+        def lut_routine(scope=scope):
+            part, key = share(scope), "lut" if scope.group is None else "lut" + scope.name
 
-        ctx.run(f"lookup-table/swtorch::lut_translate{scope.name}", "bytes", lambda: lut_call, device=scope.device)
+            def lut_call() -> WorkUnits:
+                staged[key] = M.lut_translate(part, lut)
+                return WorkUnits(1, n)
+
+            return lut_call
+
+        ctx.run(f"lookup-table/swtorch::lut_translate{scope.name}", "bytes", lut_routine, scope=scope)
 
     def host_translate():
         host, table = data.cpu().numpy().tobytes(), M.invert_case_lut().tobytes()
@@ -86,8 +99,8 @@ def main(argv: list[str] | None = None):
         M.fill_random_words(seed[0], n, dev)
         return WorkUnits(1, n)
 
-    for scope in ctx.scopes:
-        ctx.run(f"generate-random/swtorch::fill_random{scope.name}", "bytes", lambda: random_call, device=scope.device)
+    scope = ctx.scopes[0]
+    ctx.run(f"generate-random/swtorch::fill_random{scope.name}", "bytes", lambda: random_call, scope=scope)
     host_rng = np.random.default_rng(42)
     ctx.run(
         "generate-random/numpy.PCG64",
@@ -104,28 +117,27 @@ def main(argv: list[str] | None = None):
         M.fill(n, staged["fill_value"], out=staged["fill"])
         return WorkUnits(1, n)
 
-    for scope in ctx.scopes:
-        ctx.run(f"memset/swtorch::fill{scope.name}", "bytes", lambda: fill_call, device=scope.device)
+    ctx.run(f"memset/swtorch::fill{scope.name}", "bytes", lambda: fill_call, scope=scope)
 
     ctx.group("memcpy")
-    staged["copy"] = torch.empty_like(data)
     for scope in ctx.scopes:
-        ctx.run(
-            f"memcpy/swtorch::copy{scope.name}",
-            "bytes",
-            lambda: lambda: (M.copy(data, out=staged["copy"]), WorkUnits(1, n))[1],
-            device=scope.device,
-        )
+
+        def copy_routine(scope=scope):
+            part = share(scope)
+            out = staged["copy" if scope.group is None else "copy" + scope.name] = torch.empty_like(part)
+            return lambda: (M.copy(part, out=out), WorkUnits(1, n))[1]
+
+        ctx.run(f"memcpy/swtorch::copy{scope.name}", "bytes", copy_routine, scope=scope)
 
     ctx.group("memmove")
     staged["move"] = torch.empty_like(data)
-    for scope in ctx.scopes:
-        ctx.run(
-            f"memmove/swtorch::move{scope.name}",
-            "bytes",
-            lambda: lambda: (M.move(data, SHIFT, out=staged["move"]), WorkUnits(1, max(n - SHIFT, 0)))[1],
-            device=scope.device,
-        )
+    scope = ctx.scopes[0]
+    ctx.run(
+        f"memmove/swtorch::move{scope.name}",
+        "bytes",
+        lambda: lambda: (M.move(data, SHIFT, out=staged["move"]), WorkUnits(1, max(n - SHIFT, 0)))[1],
+        scope=scope,
+    )
     return ctx
 
 

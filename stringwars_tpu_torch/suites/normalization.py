@@ -242,14 +242,13 @@ def main(argv: list[str] | None = None) -> SuiteContext:
 
     ctx.group("case-fold")
     is_ascii = n == 0 or int(data_np.max(initial=0)) < 0x80
-    scope_names = [scope.name for scope in ctx.scopes]
+    scope = ctx.scopes[0]
 
     def fold_call() -> WorkUnits:
         staged["fold"] = EX.fold_tokens_fused(fold_rows, max_cp)
         return WorkUnits(1, n)
 
-    for name in scope_names:
-        ctx.run(f"case-fold/swtorch::utf8_fold{name}", "bytes", lambda: fold_call, device=dev)
+    ctx.run(f"case-fold/swtorch::utf8_fold{scope.name}", "bytes", lambda: fold_call, scope=scope)
     if is_ascii:  # the reference's kernels specialize ASCII runs the same way
         ascii_rows = stream_rows(data_np, device=dev)
 
@@ -257,8 +256,7 @@ def main(argv: list[str] | None = None) -> SuiteContext:
             staged["ascii_fold"] = CF.fold_tokens_ascii(ascii_rows)
             return WorkUnits(1, n)
 
-        for name in scope_names:
-            ctx.run(f"case-fold/swtorch::ascii_fold{name}", "bytes", lambda: ascii_call, device=dev)
+        ctx.run(f"case-fold/swtorch::ascii_fold{scope.name}", "bytes", lambda: ascii_call, scope=scope)
     ctx.run("case-fold/str.casefold", "bytes", lambda: lambda: (host_text.casefold(), WorkUnits(1, n))[1])
 
     lead, cps = corpus_codepoints(data)
@@ -285,8 +283,7 @@ def main(argv: list[str] | None = None) -> SuiteContext:
             entry["out"] = normalize_call(entry["stage"])
             return WorkUnits(1, n)
 
-        for name in scope_names:
-            ctx.run(f"{group}/swtorch::utf8_norm{name}", "bytes", lambda call=norm_call: call, device=dev)
+        ctx.run(f"{group}/swtorch::utf8_norm{scope.name}", "bytes", lambda call=norm_call: call, scope=scope)
         ctx.run(f"{group}/unicodedata.normalize", "bytes",
                 lambda f=form: lambda: (unicodedata.normalize(f, host_text), WorkUnits(1, n))[1])
 
@@ -303,8 +300,7 @@ def main(argv: list[str] | None = None) -> SuiteContext:
         staged["equal"] = CF.uncased_equal_batch(a_rows, b_rows)
         return WorkUnits(len(pairs), pair_bytes)
 
-    for name in scope_names:
-        ctx.run(f"case-insensitive-compare/swtorch::uncased_eq{name}", "comparisons", lambda: compare_call, device=dev)
+    ctx.run(f"case-insensitive-compare/swtorch::uncased_eq{scope.name}", "comparisons", lambda: compare_call, scope=scope)
 
     def host_compare() -> WorkUnits:
         for a, b in pairs:
@@ -346,8 +342,7 @@ def main(argv: list[str] | None = None) -> SuiteContext:
         next(cycle)()
         return WorkUnits(1, n)
 
-    for name in scope_names:
-        ctx.run(f"case-insensitive-find/swtorch::uncased_find{name}", "bytes", lambda: find_call, device=dev)
+    ctx.run(f"case-insensitive-find/swtorch::uncased_find{scope.name}", "bytes", lambda: find_call, scope=scope)
 
     lower_text = host_text.casefold()
     host_cycle = itertools.cycle([nd.decode("utf-8", "ignore").casefold() for nd in (needles or [b"xyz"])])

@@ -18,10 +18,13 @@ time what the JAX rows time:
   (the JAX row packs three whatever the corpus, which orders codepoints
   above 509 wrongly).
 
-With ``--device cpu`` the rows (``<1cpu>``) run the plain versions. The
-host rows sort the tokens with ``sorted``, ``numpy.argsort`` (stable) and
-``sorted(key=str.casefold)``. The sample sort over several devices comes
-with the parallel layer.
+Under a world of N ranks (torchrun) the byte-order row also runs sharded
+(``argsort/swtorch::argsort<Ngpu>``): the whole ``ops/sort.argsort_sharded``
+with a 96-byte prefix, the sample sort over the ranks (the radix kernel
+sorting what each rank receives) and the host tie refinement, as the JAX
+row times it. With ``--device cpu`` the rows (``<1cpu>``) run the plain
+versions. The host rows sort the tokens with ``sorted``, ``numpy.argsort``
+(stable) and ``sorted(key=str.casefold)``.
 """
 
 from __future__ import annotations
@@ -61,12 +64,12 @@ def main(argv: list[str] | None = None):
     columns = S.byte_columns(tokens.data, tokens.lengths)
     ctx.staged = {"order": out_buf, "columns": columns}
     for scope in ctx.scopes:
-        ctx.run(
-            f"argsort/swtorch::argsort{scope.name}",
-            "comparisons",
-            lambda: lambda: (S.lsd_argsort(columns), units)[1],
-            device=scope.device,
-        )
+        if scope.group is None:
+            call = lambda: S.lsd_argsort(columns)  # noqa: E731
+        else:
+            call = lambda scope=scope: S.argsort_sharded(tape, scope, prefix_width=S.PREFIX_WIDTH, out=out_buf)  # noqa: E731
+        ctx.run(f"argsort/swtorch::argsort{scope.name}", "comparisons", lambda call=call: lambda: (call(), units)[1],
+                scope=scope)
 
     def host_sorted():
         token_list = tape.to_list()
@@ -89,9 +92,9 @@ def main(argv: list[str] | None = None):
         ctx.staged["uncased_order"] = S.uncased_order(rows.data, key_lengths, n_cols, pack3)
         return units
 
-    for scope in ctx.scopes:
-        ctx.run(f"argsort-uncased/swtorch::argsort_uncased{scope.name}", "comparisons", lambda: uncased_call,
-                device=scope.device)
+    scope = ctx.scopes[0]
+    ctx.run(f"argsort-uncased/swtorch::argsort_uncased{scope.name}", "comparisons", lambda: uncased_call,
+            scope=scope)
 
     def host_uncased():
         token_list = tape.to_list()

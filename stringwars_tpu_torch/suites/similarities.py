@@ -23,7 +23,10 @@ CUPS = sum(|q|) * sum(|c|) cells per pass (``similarities/bench.rs:113-118,
 
 Each device row stages its pairs once per run and calls its kernel per
 measured call; with ``--device cpu`` the rows (``<1cpu>``) run the plain
-versions. Not ported yet: the sharded ``<Ngpu>`` rows.
+versions. Under a world of N ranks (torchrun) each device row also runs
+sharded (``<Ngpu>``, ``make_sharded_scorer``): the pair batch padded with
+empty pairs to a multiple of the ranks, each rank scoring its share by the
+same kernel, the scores all-gathered; the work units are the whole batch's.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import sys
 from stringwars_tpu_torch.ops import affine as A
 from stringwars_tpu_torch.ops import myers as M
 from stringwars_tpu_torch.ops import similarity as S
+from stringwars_tpu_torch.parallel.mesh import DeviceScope
+from stringwars_tpu_torch.parallel.sharding import all_gather_tokens
 from stringwars_tpu_torch.suites._common import SuiteContext, setup_suite
 from stringwars_tpu_torch.utils.config import get_env_parsed
 from stringwars_tpu_torch.utils.harness import WorkUnits
@@ -71,18 +76,53 @@ def build_crossproduct(ctx, max_side: int = 64, max_len: int = 256):
     return batch, cells, total_bytes, queries, candidates, pairs_a, pairs_b
 
 
-def device_row(ctx: SuiteContext, name: str, key: str, stage, call) -> None:
-    """One device row per scope: ``stage()`` returns (staged inputs, work
-    units) once per run; each measured call is ``call(staged)``. The scores
-    of one call go to ``ctx.staged["scores"][key]`` on the host."""
+def shard_pairs(scope: DeviceScope, pairs_a: list[bytes], pairs_b: list[bytes]) -> tuple[list[bytes], list[bytes]]:
+    """This rank's share of the pairs, the batch padded with empty pairs
+    (which score 0 in every row) to a multiple of the scope's ranks."""
+    per = -(-len(pairs_a) // scope.gpus)
+    lo = scope.rank * per
+    a, b = pairs_a[lo : lo + per], pairs_b[lo : lo + per]
+    pad = [b""] * (per - len(a))
+    return a + pad, b + pad
+
+
+def make_sharded_scorer(scope: DeviceScope, pairs_a: list[bytes], pairs_b: list[bytes], stage, call):
+    """``scorer()``: every pair's score on every rank of ``scope``, each rank
+    scoring its share (``stage(a, b)``, then ``call(staged)`` per call) and
+    the shares all-gathered in rank order."""
+    staged = stage(*shard_pairs(scope, pairs_a, pairs_b))
+    n = len(pairs_a)
+    return lambda: all_gather_tokens(call(staged), scope)[:n]
+
+
+def device_row(ctx: SuiteContext, name: str, key: str, stage, call, units: WorkUnits) -> None:
+    """One device row per scope: ``stage(pairs_a, pairs_b)`` returns the
+    staged inputs once per run; each measured call is ``call(staged)``, or
+    on a sharded scope the scores of every rank's share. The scores of the
+    first call (a warm-up call) go to ``ctx.staged["scores"][key]`` on the
+    host (the sharded scope's to ``key + scope.name``). The factory stages
+    but scores nothing: a sharded score is an all-gather, which must not
+    run before the ranks have agreed that every one staged its share."""
+    pairs_a, pairs_b = ctx.staged["pairs_a"], ctx.staged["pairs_b"]
+    scores = ctx.staged["scores"]
     for scope in ctx.scopes:
 
-        def factory():
-            staged, units = stage()
-            ctx.staged["scores"][key] = call(staged).cpu().numpy()
-            return lambda: (call(staged), units)[1]
+        def factory(scope=scope):
+            if scope.group is None:
+                staged = stage(pairs_a, pairs_b)
+                score, slot = (lambda: call(staged)), key
+            else:
+                score, slot = make_sharded_scorer(scope, pairs_a, pairs_b, stage, call), key + scope.name
 
-        ctx.run(f"{name}{scope.name}", "cups", factory, device=scope.device)
+            def routine() -> WorkUnits:
+                got = score()
+                if slot not in scores:
+                    scores[slot] = got.cpu().numpy()
+                return units
+
+            return routine
+
+        ctx.run(f"{name}{scope.name}", "cups", factory, scope=scope)
 
 
 def main(argv: list[str] | None = None) -> SuiteContext:
@@ -113,24 +153,23 @@ def main(argv: list[str] | None = None) -> SuiteContext:
     ctx.group("uniform")
     device_row(
         ctx, "uniform/swtorch::levenshtein", "levenshtein",
-        lambda: (M.myers_from_tokens(pairs_a, pairs_b, device=ctx.device), units),
-        M.myers_distances,
+        lambda a, b: M.myers_from_tokens(a, b, device=ctx.device), M.myers_distances, units,
     )
 
-    def stage_utf8():
-        a_cps = [S.decode_codepoints(t) for t in pairs_a]
-        b_cps = [S.decode_codepoints(t) for t in pairs_b]
-        staged = M.myers_from_codepoints(a_cps, b_cps, device=ctx.device)
-        return staged, WorkUnits(staged.cells(), total_bytes)
+    def stage_utf8(a, b):
+        return M.myers_from_codepoints([S.decode_codepoints(t) for t in a], [S.decode_codepoints(t) for t in b],
+                                       device=ctx.device)
 
-    device_row(ctx, "uniform-utf8/swtorch::levenshtein", "levenshtein_utf8", stage_utf8, M.myers_distances)
+    cp_cells = sum(len(S.decode_codepoints(a)) * len(S.decode_codepoints(b)) for a, b in zip(pairs_a, pairs_b))
+    device_row(ctx, "uniform-utf8/swtorch::levenshtein", "levenshtein_utf8", stage_utf8, M.myers_distances,
+               WorkUnits(cp_cells, total_bytes))
 
     band = int(get_env_parsed("ERROR_BOUND", 0))
     if band > 0:
         device_row(
             ctx, f"uniform-banded{band}/swtorch::levenshtein", "levenshtein_banded",
-            lambda: (batch, units),
-            lambda staged: S.levenshtein_banded(staged, band),
+            lambda a, b: S.pack_pairs(a, b, device=ctx.device),
+            lambda staged: S.levenshtein_banded(staged, band), units,
         )
 
     # Host baseline: the DP on the diagonal pairs only (reference baselines
@@ -145,16 +184,20 @@ def main(argv: list[str] | None = None) -> SuiteContext:
 
     ctx.run("uniform/python-dp-diagonal", "cups", lambda: host_routine)
 
-    aligned = A.AffineBatch.from_pairs(batch)  # staged once for the four alignment rows
+    aligned = A.AffineBatch.from_pairs(batch)  # the whole batch, staged once for the four alignment rows
+
+    def stage_aligned(a, b):
+        return aligned if a is pairs_a else A.AffineBatch.from_pairs(S.pack_pairs(a, b, device=ctx.device))
+
     current = None
     for group, function, go, ge, local in ALIGNMENTS:
         if group != current:
             ctx.group(group)
             current = group
         device_row(
-            ctx, f"{group}/swtorch::{function}", f"{'sw' if local else 'nw'}_{group}",
-            lambda: (aligned, units),
+            ctx, f"{group}/swtorch::{function}", f"{'sw' if local else 'nw'}_{group}", stage_aligned,
             lambda staged, go=go, ge=ge, local=local: A.affine_scores(staged, MATCH, MISMATCH, go, ge, local=local),
+            units,
         )
     return ctx
 

@@ -140,15 +140,14 @@ def main(argv: list[str] | None = None) -> SuiteContext:
         return host["text"]
 
     def device_row(name: str) -> None:
-        call = rows[name]
-        for scope in ctx.scopes:
-            full = f"{name}{scope.name}"
+        call, scope = rows[name], ctx.scopes[0]
+        full = f"{name}{scope.name}"
 
-            def routine(full=full) -> WorkUnits:
-                counts[full] = int(call().item())
-                return WorkUnits(1, n)
+        def routine() -> WorkUnits:
+            counts[full] = int(call().item())
+            return WorkUnits(1, n)
 
-            ctx.run(full, "bytes", lambda routine=routine: routine, device=scope.device)
+        ctx.run(full, "bytes", lambda: routine, scope=scope)
 
     def host_row(name: str, make) -> None:
         def factory():
@@ -214,23 +213,23 @@ def main(argv: list[str] | None = None) -> SuiteContext:
                   f"{trained - split:.3f} s", file=sys.stderr, flush=True)
         return bpe
 
-    for scope in ctx.scopes:
-        def bpe_device(device=scope.device):
-            staged = bpe_staged()
-            table = staged["table"]
-            rows, lengths = staged["data"].to(device), staged["lengths"].to(device)
-            staged.update(data=rows, lengths=lengths)
-            units = WorkUnits(rows.shape[0], int(lengths.sum()))
+    scope = ctx.scopes[0]
+    def bpe_device(device=scope.device):
+        staged = bpe_staged()
+        table = staged["table"]
+        rows, lengths = staged["data"].to(device), staged["lengths"].to(device)
+        staged.update(data=rows, lengths=lengths)
+        units = WorkUnits(rows.shape[0], int(lengths.sum()))
 
-            def routine() -> WorkUnits:
-                ids, out_counts = BPE.bpe_encode_fused(rows, lengths, table)
-                int(out_counts.sum().item())
-                staged.update(ids=ids, counts=out_counts)
-                return units
+        def routine() -> WorkUnits:
+            ids, out_counts = BPE.bpe_encode_fused(rows, lengths, table)
+            int(out_counts.sum().item())
+            staged.update(ids=ids, counts=out_counts)
+            return units
 
-            return routine
+        return routine
 
-        ctx.run(f"tokenize-bpe/swtorch::bpe_encode{scope.name}", "bytes", bpe_device, device=scope.device)
+    ctx.run(f"tokenize-bpe/swtorch::bpe_encode{scope.name}", "bytes", bpe_device, scope=scope)
 
     def bpe_host():
         staged = bpe_staged()

@@ -132,7 +132,8 @@ def add_common_args(parser) -> None:
         "--chips",
         type=int,
         default=None,
-        help="Device-scope chip count (overrides SWTPU_CHIPS; default = all local chips)",
+        help="Ranks of the sharded scope: 1 keeps this process's device alone, more must be the world's "
+        "size (start N ranks with torchrun --nproc-per-node N); overrides SWTPU_CHIPS; default: the world",
     )
     parser.add_argument(
         "--device",

@@ -24,6 +24,7 @@ import time
 from typing import Callable, Iterable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from stringwars_tpu_torch.utils.config import get_env_parsed
 from stringwars_tpu_torch.utils.report import BenchStats
@@ -65,15 +66,29 @@ class BenchBudget:
         )
 
 
+def _past(deadline_ns: int, group, device) -> bool:
+    """Whether the deadline has passed; under a process ``group``, whether
+    it has on any of its ranks, so that all stop after the same call."""
+    late = now_ns() >= deadline_ns
+    if group is None:
+        return late
+    flag = torch.tensor([int(late)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
 def measure_throughput(
-    routine: Callable[[], WorkUnits], budget: BenchBudget, *, device: torch.device | None = None
+    routine: Callable[[], WorkUnits], budget: BenchBudget, *, device: torch.device | None = None, group=None
 ) -> BenchStats:
     """Run ``routine`` under ``budget`` and collect throughput statistics.
 
     ``routine`` performs one batch of work and returns the ``WorkUnits``
     accomplished. With a CUDA ``device`` every call is timed by CUDA events
     and synchronized; otherwise by the host clock. Warm-up calls are
-    uncounted. Both phases always execute at least one call.
+    uncounted. Both phases always execute at least one call. Under a
+    process ``group`` (``routine`` runs collectives on every rank) the ranks
+    agree after each call whether to go on, outside the timed span, and the
+    elapsed time is the sum of the calls' spans.
     """
     on_card = device is not None and torch.device(device).type == "cuda"
     warmup_deadline = now_ns() + int(budget.warmup_seconds * 1e9)
@@ -81,7 +96,7 @@ def measure_throughput(
         routine()
         if on_card:
             torch.cuda.synchronize(device)
-        if now_ns() >= warmup_deadline:
+        if _past(warmup_deadline, group, device):
             break
 
     if on_card:
@@ -105,9 +120,9 @@ def measure_throughput(
             latencies.append((now_ns() - call_start) * 1e-9)
         elements += units.elements
         total_bytes += units.bytes
-        if now_ns() >= deadline:
+        if _past(deadline, group, device):
             break
-    elapsed = sum(latencies) if on_card else (now_ns() - started) * 1e-9
+    elapsed = sum(latencies) if on_card or group is not None else (now_ns() - started) * 1e-9
     return BenchStats(
         elapsed_seconds=elapsed,
         elements=elements,

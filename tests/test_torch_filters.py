@@ -83,9 +83,30 @@ def test_fuse_equals_jax():
     sh, sfp = F.fuse_stage(got, out_keys)
     np.testing.assert_array_equal(sh.numpy(), h)
     np.testing.assert_array_equal(sfp.numpy(), fp)
-    # The plain query clamps a position past the table, as the kernel does.
+    # The plain query reads a position as jnp.take does, as the kernel does:
+    # -5 wraps to len - 5, and a position past the end reads 255.
     table = got.fingerprints
     wild = torch.tensor([[-5, 0], [1 << 30, 1], [2, 2]], dtype=torch.int32)
     np.testing.assert_array_equal(
         F.fuse_query_plain(table, wild, torch.tensor([0, 0], dtype=torch.uint8)).numpy(),
-        (table[[0, 0]] ^ table[[table.numel() - 1, 1]] ^ table[[2, 2]]).numpy() == 0)
+        (table[[table.numel() - 5, 0]] ^ torch.tensor([255, int(table[1])], dtype=torch.uint8) ^ table[[2, 2]]).numpy()
+        == 0)
+
+
+@pytest.mark.parametrize("size", [1, 10, 4099])
+def test_fuse_query_positions_out_of_range_equal_jax(size):
+    """Positions in and past both ends of the table (wrapped from -len to -1,
+    255 below -len and from len up, the int32 extremes among them): the plain
+    query equals the JAX ``_fuse_query_dev`` (``jnp.take``'s fill mode)."""
+    rng = np.random.default_rng(size)
+    table = rng.integers(0, 256, size, dtype=np.uint8)
+    edges = np.array([-(1 << 31), -size - 7, -size - 1, -size, -size + 1, -1, 0, 1, size - 1, size, size + 1,
+                      size + 12, (1 << 31) - 1], np.int64)
+    h = np.concatenate([np.stack(np.meshgrid(edges, edges, edges)).reshape(3, -1),
+                        rng.integers(-2 * size - 3, 2 * size + 3, (3, 500))], axis=1).astype(np.int32)
+    fp = rng.integers(0, 256, h.shape[1], dtype=np.uint8)
+    fp[::3] = table[0] ^ table[-1] ^ 255  # answers that hold somewhere among the edges
+    want = np.asarray(JF._fuse_query_dev(table, h[0], h[1], h[2], fp))
+    got = F.fuse_query_plain(torch.from_numpy(table), torch.from_numpy(h), torch.from_numpy(fp)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()

@@ -148,7 +148,11 @@ subcommand measures:
   kernel at 1, 2 and all 7 seeds a test and the cluster build (one cluster
   of 4, 8 and 16 blocks; 2, 4 and as many clusters of 16 as the card holds,
   written out by atomics and by copies; its global regime), each held to
-  its plain version; the query over the inserted tokens (all positive);
+  its plain version; the BinaryFuse8 query (``fuse_query``) over the
+  inserted tokens' XXH64 digests, queried with the held-out ones, beside an
+  empty kernel with its arguments on its grid and stream
+  (``fuse_floor_kernel``), each by profiler device time a launch and CUDA
+  events a call; the query over the inserted tokens (all positive);
   each with its kernel's and its whole call's device time
   (``torch.profiler``, the memset and zeros included), CUDA events and host
   µs a call (the median of 5 runs of 100 calls enqueued back to back).
@@ -200,6 +204,7 @@ import chip_smoke as CS  # noqa: E402
 from stringwars_tpu_torch import build, datasets  # noqa: E402
 from stringwars_tpu_torch import tape as T  # noqa: E402
 from stringwars_tpu_torch.ops import ahocorasick as AC  # noqa: E402
+from stringwars_tpu_torch.ops import hash as H  # noqa: E402
 from stringwars_tpu_torch.ops import hash_cuda as HC  # noqa: E402
 from stringwars_tpu_torch.ops import ahocorasick_cuda as ACC  # noqa: E402
 from stringwars_tpu_torch.ops import bpe as BPE  # noqa: E402
@@ -1485,7 +1490,8 @@ EARLIER_BLOOM = {"sw_bloom_build": (_P, _N, _P, _P, _N, _N, _P, _N, _N, _P, _P),
 FILTER_VARIANTS = {"filter_variant_run": (_N, _P, _N, _P, _N, _P, _N, _N, _P, _P, _P, _P, _P),
                    "query_variant_run": (_N, _P, _N, _P, _N, _P, _N, _N, _P, _P, _P),
                    "cluster_build_run": (_P, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _N, _P),
-                   "cluster_capacity": (_N, _N, _P)}
+                   "cluster_capacity": (_N, _N, _P),
+                   "fuse_floor_run": (_P, _N, _P, _P, _N, _P, _P)}
 CLUSTER_REGIMES = ("global", "store", "atomic", "copies")  # cluster_build_run's regime codes
 
 
@@ -1597,6 +1603,35 @@ def filters(args) -> None:
               + f", CUDA events {events_ms(fn):.4f} ms a call, host {host_us(fn):.1f} µs a call", flush=True)
 
     for shape, ins, held, seeds, m_bits in filter_shapes(dev):
+        # fuse_query's floor: the BinaryFuse8 table over the inserted
+        # tokens' XXH64 digests, queried with the held-out ones (the
+        # containers suite's probes), beside an empty kernel with its
+        # arguments on its grid and stream.
+        ins_keys = H.xxh64_spans(ins.data, ins.offsets).cpu().numpy()
+        out_keys = np.setdiff1d(H.xxh64_spans(held.data, held.offsets).cpu().numpy(), ins_keys)
+        fuse = FLT.fuse_build(ins_keys, device=dev)
+        h, fp = FLT.fuse_stage(fuse, out_keys)
+        table, n = fuse.fingerprints, fp.numel()
+        answers = torch.empty(n, dtype=torch.bool, device=dev)
+        if not torch.equal(FLT.fuse_query_cuda(table, h, fp), FLT.fuse_query_plain(table, h, fp)):
+            raise AssertionError(f"filters {shape}: fuse_query_kernel answers otherwise than fuse_query_plain")
+        floor = {
+            "fuse_query_kernel (the package's call)": (lambda: FLT.fuse_query_cuda(table, h, fp), "fuse_query_kernel"),
+            "fuse_floor_kernel (empty, the same arguments)": (lambda: checked(lib.fuse_floor_run(
+                table.data_ptr(), table.numel(), h.data_ptr(), fp.data_ptr(), n, answers.data_ptr(), stream),
+                "fuse_floor_run"), "fuse_floor_kernel"),
+        }
+        times = {label: (CS.device_ms(fn, kernel, calls=30, per_call=True), events_ms(fn)) for label, (fn, kernel) in
+                 floor.items()}
+        grid = min(-(-n // 256), sms * 8)
+        print(f"fuse floor {shape}: {n:,} probes, a {table.numel():,}-byte table, {grid} blocks of 256 threads on the "
+              "current stream: " + "; ".join(
+                  f"{label} {'not measured' if dev_ms is None else f'{dev_ms:.5f}'} ms device a launch, "
+                  f"CUDA events {ev_ms:.5f} ms a call" for label, (dev_ms, ev_ms) in times.items()), flush=True)
+        (query_ms, _), (empty_ms, _) = times.values()
+        if query_ms is not None and empty_ms is not None:
+            print(f"fuse floor {shape}: fuse_query_kernel / empty kernel = {query_ms / empty_ms:.3f}", flush=True)
+        del fuse, h, fp, answers
         k = len(seeds)
         n_words = m_bits // 32
         words = FLT.bloom_build_plain(ins, seeds, m_bits)

@@ -12,6 +12,9 @@
 //   byte stored a token.
 // - the package's query kernel (csrc/filters.cu) at seed groups of 1, 2
 //   and all 7.
+// - fuse_floor_kernel: an empty kernel with fuse_query_kernel's arguments,
+//   launched on its grid (stream_blocks(n) blocks of kThreads): the launch
+//   and drain that fuse_query_kernel cannot go below.
 // - cluster_build_kernel: the build with one copy of the filter in the
 //   distributed shared memory of a cluster of up to 16 blocks (768 threads,
 //   one an SM): block r of a cluster holds words [r * slice, (r + 1) *
@@ -270,6 +273,18 @@ extern "C" int cluster_build_run(const void* data, int64_t end, const void* offs
   if (regime == kCopies) {
     merge_kernel<<<stream_blocks(n_words), kThreads, 0, s>>>(c, static_cast<int>(clusters), n_words, w);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void __launch_bounds__(kThreads)
+fuse_floor_kernel(const uint8_t* __restrict__, int64_t, const int32_t* __restrict__, const uint8_t* __restrict__, int64_t,
+                  uint8_t* __restrict__) {}
+
+extern "C" int fuse_floor_run(const void* table, int64_t table_len, const void* h, const void* fp, int64_t n, void* out,
+                              void* stream) {
+  fuse_floor_kernel<<<stream_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(table), table_len, static_cast<const int32_t*>(h), static_cast<const uint8_t*>(fp), n,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
