@@ -79,10 +79,13 @@ prints no result:
    ten-valued and random, of 9, 22, 27 and 32 bits (``check_radix``); the
    uncased keys kernel and its plan mode against ``uncased_keys_plain`` and
    the plain fold's largest count and codepoint, exactly, on rows of 4, 6,
-   20, 96 and 300 B of ASCII, multilingual, expanding (ß, U+0390, U+1E9E) and
+   20, 96, 300, 400 and 904 B of ASCII, multilingual, expanding (ß, U+0390, U+1E9E) and
    astral (Deseret) text and of random bytes (invalid and truncated UTF-8,
    bytes from 0xF8 up), with empty rows, key lengths cut inside characters,
-   and the plan's column count, one fewer and one more (``check_uncased_keys``);
+   and the plan's column count, one fewer and one more, and on warps that mix
+   its two paths (``mixed_uncased_batches``: a non-ASCII row at lanes 0 and
+   31, high bytes only past the key length, a lead byte at the key length's
+   last position) (``check_uncased_keys``);
    the
    Bloom build and query at k = 1, 7, 8, 9 and 16, m_bits 2^20 and 32 x
    100,003, over a tape's spans of 0..1,024 B (empty and 1 KB tokens among
@@ -232,7 +235,9 @@ prints no result:
    (the uncased keys kernel over the same tape's prefix rows, held beside
    it to the plain version on 8 MB of the multilingual corpus too) and
    ``argsort-uncased-words-128MB`` (the keys and the sort, split by launch
-   by profiler device time), the filter rows at the containers suite's key
+   by profiler device time), ``uncased-keys-seq-words-16MB`` and
+   ``uncased-keys-seq-multilingual-8MB`` (the sequence path's own rows, each
+   with its uncased order split by launch), the filter rows at the containers suite's key
    counts and the Bloom rows at 800,000 random keys (``bloom-build-<n>k``,
    ``bloom-query-<n>k``, ``fuse8-query-<n>k``, profiler device time; the
    Bloom rows also the call's whole device time, its other ops included), and
@@ -1447,8 +1452,10 @@ UNCASED_ALPHABETS = (
     "aAßẞΐΰﬃﬆİǰᾀᾈxX",  # expansions: ß, U+0390, U+1E9E, ligatures, iota subscripts
     "\U00010400\U00010428\U0001E900a\U00010C80",  # Deseret and other astral letters
 )
-UNCASED_WIDTHS = (4, 6, 20, 96, 300)  # 6: rows that are no whole words (byte staging); 300: over 48 KB staged
-UNCASED_ROWS = 3_003  # 11 blocks of 256 rows and a part
+# 6: rows that are no whole words (byte staging); 400 and 904 (the widest the
+# kernel takes): over 48 KB of dynamic shared memory, in both modes
+UNCASED_WIDTHS = (4, 6, 20, 96, 300, 400, 904)
+UNCASED_ROWS = 3_003  # 23 blocks of 128 rows and a part
 
 
 def uncased_edge_batches(rng) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -1463,12 +1470,12 @@ def uncased_edge_batches(rng) -> list[tuple[np.ndarray, np.ndarray]]:
             data = np.zeros((UNCASED_ROWS, width), np.uint8)
             lengths = np.zeros(UNCASED_ROWS, np.int32)
             chars = [c.encode() for c in alphabet]
+            char_bytes = np.array([len(c) for c in chars])
             for i in range(UNCASED_ROWS):
-                raw = b""
-                for c in rng.choice(len(chars), int(rng.integers(0, width + 1))):
-                    if len(raw) + len(chars[c]) > width:
-                        break
-                    raw += chars[c]
+                picks = rng.choice(len(chars), int(rng.integers(0, width + 1)))
+                # the characters up to the first that would pass the width
+                fit = int(np.searchsorted(np.cumsum(char_bytes[picks]), width, side="right"))
+                raw = b"".join([chars[c] for c in picks[:fit]])
                 data[i, : len(raw)] = np.frombuffer(raw, np.uint8)
                 lengths[i] = len(raw)
             lengths[::17] = 0
@@ -1476,6 +1483,56 @@ def uncased_edge_batches(rng) -> list[tuple[np.ndarray, np.ndarray]]:
             batches.append((data, lengths))
         batches.append((rng.integers(0, 256, (UNCASED_ROWS, width), dtype=np.uint8),
                         rng.integers(-1, width + 2, UNCASED_ROWS).astype(np.int32)))
+    return batches + mixed_uncased_batches(rng)
+
+
+UNCASED_MIXED_WIDTHS = (20, 96, 300)
+
+
+def mixed_uncased_batches(rng) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Batches whose warps mix the uncased keys kernel's two paths (ASCII
+    rows by word arithmetic, the others walked by length class), at each of
+    ``UNCASED_MIXED_WIDTHS``: ASCII rows with a non-ASCII row at lane 0 and
+    at lane 31 of every warp (Latin-1 text, three codepoints a column, at 20
+    and 300 B; multilingual text, a codepoint a column, at 96 B); ASCII rows
+    whose only bytes from 0x80 up lie past their key lengths (every fifth
+    row); and rows whose key length ends on a lead byte (0xC3, 0xE2, 0xF0,
+    0xF8, 0xFF), its continuation bytes past it (every fifth row), the rest
+    ASCII."""
+    ascii_chars = [c.encode() for c in UNCASED_ALPHABETS[0]]
+    latin1_chars = [c.encode() for c in "éÉàÀßäÖñÑ"]  # folded within 509, ß to two
+    wide_chars = [c.encode() for c in UNCASED_ALPHABETS[1] + UNCASED_ALPHABETS[2]]
+    lane = np.arange(UNCASED_ROWS) % 32
+    batches = []
+    for width in UNCASED_MIXED_WIDTHS:
+        def texts(chars, longest):
+            data = np.zeros((UNCASED_ROWS, width), np.uint8)
+            lengths = np.zeros(UNCASED_ROWS, np.int32)
+            for i in range(UNCASED_ROWS):
+                raw = b"".join(chars[c] for c in rng.choice(len(chars), int(rng.integers(1, longest + 1))))
+                raw = raw[:longest].decode("utf-8", "ignore").encode()
+                data[i, : len(raw)] = np.frombuffer(raw, np.uint8)
+                lengths[i] = len(raw)
+            return data, lengths
+
+        data, lengths = texts(ascii_chars, width)
+        other, other_lengths = texts(wide_chars if width == 96 else latin1_chars, width)
+        edge = (lane == 0) | (lane == 31)
+        data[edge], lengths[edge] = other[edge], other_lengths[edge]
+        batches.append((data, lengths))
+        fifth = np.arange(UNCASED_ROWS)[np.arange(UNCASED_ROWS) % 5 == 2]
+        data, lengths = texts(ascii_chars, width - 3)
+        high = data.copy()
+        high[fifth, lengths[fifth]] = 0xC3
+        high[fifth, lengths[fifth] + 1] = 0x89
+        batches.append((high, lengths))
+        cut = lengths.copy()
+        cut[fifth] = np.maximum(lengths[fifth], 1)
+        leads = np.array([0xC3, 0xE2, 0xF0, 0xF8, 0xFF], np.uint8)[np.arange(fifth.size) % 5]
+        data[fifth, cut[fifth] - 1] = leads
+        for k, byte in enumerate((0x89, 0x9F, 0x80)):
+            data[fifth, cut[fifth] + k] = byte
+        batches.append((data, cut))
     return batches
 
 
@@ -1852,7 +1909,7 @@ def normalization_rows(row, keep: dict, launches, dev) -> None:
                     launches, {k: names[k] for k in ran})
 
 
-def sort_rows(row, timings: dict, errors: dict, tape, ml_tape, dev) -> None:
+def sort_rows(row, timings: dict, errors: dict, tape, seq_tape, ml_tape, dev) -> None:
     """The sort rows over the hash suite's tape, staged as the sequence
     suite stages it: ``argsort-words-128MB`` (the packed 96-byte prefix
     columns to the permutation; bound: the columns read once, the int32
@@ -1863,6 +1920,9 @@ def sort_rows(row, timings: dict, errors: dict, tape, ml_tape, dev) -> None:
     written once), held also on ``ml_tape``'s rows, and
     ``argsort-uncased-words-128MB`` (the keys and the sort; bound: the rows
     and their key lengths read once, the permutation written once), split
+    by launch. Then the uncased keys at the sequence path's shapes (its
+    16 MB of words, ``seq_tape``, and its 8 MB of multilingual words,
+    ``ml_tape``: ``uncased-keys-seq-*``) and the uncased order of each split
     by launch."""
     from stringwars_tpu_torch import tape as T
     from stringwars_tpu_torch.ops import casefold as CF
@@ -1928,6 +1988,27 @@ def sort_rows(row, timings: dict, errors: dict, tape, ml_tape, dev) -> None:
         ", ".join(f"{k} {split[k]:.4f}" for k in uncased_launches) + f", other device work (memsets and copies) "
         f"{split['torch']:.4f}, total {split['total']:.4f}"))
     del rows, key_lengths, padded
+    for name, seq in (("uncased-keys-seq-words-16MB", seq_tape), ("uncased-keys-seq-multilingual-8MB", ml_tape)):
+        rows, key_lengths, _ = SORT.stage_uncased(seq)
+        folded, counts = CF.fold_tokens(T.PaddedTokens(data=rows.data, lengths=key_lengths, width=rows.width))
+        want_extent = (int(counts.max()), int(folded.max()))
+        del folded, counts
+        if SC.uncased_extent(rows.data, key_lengths) != want_extent:
+            raise AssertionError(f"{name}: uncased_extent differs from the plain fold's {want_extent}")
+        n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
+        m = seq.count
+        row(f"{name} (the sequence path's {m:,} prefix rows of {rows.width} B to {n_cols} columns "
+            f"{'of three codepoints' if pack3 else 'of a codepoint'}; the plan mode equal to the plain fold's extent)",
+            lambda: SC.uncased_keys(rows.data, key_lengths, n_cols, pack3),
+            lambda: SORT.uncased_keys_plain(rows.data, key_lengths, n_cols, pack3), rows.data.numel(),
+            bound_ms(rows.data.numel() + 4 * m + 4 * n_cols * m), plain_samples=1)
+        split = device_breakdown(lambda: SORT.uncased_order(rows.data, key_lengths, n_cols, pack3), uncased_launches,
+                                 calls=5)
+        phase("row", f"{name}: the uncased order by launch (profiler device ms a call): " + (
+            "not measured" if split is None else
+            ", ".join(f"{k} {split[k]:.4f}" for k in uncased_launches) + f", other device work (memsets and copies) "
+            f"{split['torch']:.4f}, total {split['total']:.4f}"))
+        del rows, key_lengths
     torch.cuda.empty_cache()
 
 
@@ -2337,13 +2418,14 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
 
     # Edit distances and alignment scores: pattern lengths across the word
     # edges against texts of 0..1100 B (empty sides included) in three
-    # alphabets, each batch more pairs than one block holds, and a uniform
-    # batch large enough for 128-thread blocks.
+    # alphabets, and 40 random interior pairs, each batch more pairs than one
+    # block holds; and a uniform batch of 40,000 pairs, large enough for
+    # 128-thread blocks, of which the plain versions recompute every 16th.
     acgt = np.frombuffer(b"ACGT", np.uint8)
     lengths = [0, 1, 31, 32, 33, 63, 64, 65, 100, 128, 129, 256, 300, 1023]
     texts = [0, 1, 7, 64, 300, 1100]
     pair_lens = [(m, n) for m in lengths for n in texts]
-    pair_lens += [(int(m), int(n)) for m, n in zip(rng.integers(0, 400, 300), rng.integers(0, 1100, 300))]
+    pair_lens += [(int(m), int(n)) for m, n in zip(rng.integers(0, 400, 40), rng.integers(0, 1100, 40))]
     byte_a = [bytes(rng.integers(0, 256, m, dtype=np.uint8)) for m, _ in pair_lens]
     byte_b = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for _, n in pair_lens]
     dna_a = [acgt[rng.integers(0, 4, m)].tobytes() for m, _ in pair_lens]
@@ -2357,6 +2439,8 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         cp_b.append(y)
     uniform = [row.tobytes() for row in acgt[rng.integers(0, 4, (2 * 40000, 64))]]
     dp_outs: dict[tuple[str, str], np.ndarray] = {}
+    # name -> the kernels' Myers and alignment batches; plain_sets: name ->
+    # the plain versions' batches (every `step`th pair of the kernels'), step
     dp_sets = {
         "bytes": (MY.myers_from_tokens(byte_a, byte_b, device=dev), AF.affine_from_tokens(byte_a, byte_b, device=dev)),
         "dna": (MY.myers_from_tokens(dna_a, dna_b, device=dev), AF.affine_from_tokens(dna_a, dna_b, device=dev)),
@@ -2366,18 +2450,23 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             AF.affine_from_tokens(uniform[:40000], uniform[40000:], device=dev),
         ),
     }
+    plain_sets = {"uniform": (MY.myers_from_tokens(uniform[:40000:16], uniform[40000::16], device=dev),
+                              AF.affine_from_tokens(uniform[:40000:16], uniform[40000::16], device=dev), 16)}
     for set_name, (mb, ab) in dp_sets.items():
+        plain_mb, plain_ab, step = plain_sets.get(set_name, (mb, ab, 1))
         got = MYC.myers(mb)
-        errors["myers"] = max(errors["myers"], max_err(got, MY.myers_plain(mb)))
+        errors["myers"] = max(errors["myers"], max_err(got[::step], MY.myers_plain(plain_mb)))
         dp_outs[(set_name, "levenshtein")] = got.cpu().numpy()
         if ab is None:
             continue
         for fn, go, ge, local in (("nw_affine", -5, -1, False), ("sw_affine", -5, -1, True), ("nw_linear", -2, -2, False), ("sw_linear", -2, -2, True)):
             got = AFC.align(ab, 2, -1, go, ge, local=local)
             key = "linear" if go == ge else "affine"
-            errors[key] = max(errors[key], max_err(got, S._score_scan(ab.pairs, 2, -1, go, ge, local=local)))
+            want = S._score_scan(plain_ab.pairs, 2, -1, go, ge, local=local)
+            errors[key] = max(errors[key], max_err(got[::step], want))
             dp_outs[(set_name, fn)] = got.cpu().numpy()
     dp_nbits = {name: mb.nbits for name, (mb, _) in dp_sets.items()}
+    del plain_sets
     lap("edit distance, alignment")
     myers_edge_checks = check_myers_edges(dev, errors)
     lap("Myers edges")
@@ -2773,7 +2862,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"held to its closed form), 3 sets, 4 bytesums, {len(layouts) + 1} hash layouts (rows of 130 B among them) x "
         f"{len(seed_sets)} seed sets, {tree_levels} tree levels (base offsets 0..15), {fp_checked} fingerprint batches (ndim {FP_NDIMS}, counts and "
         f"none), 4 LUT views, 4 DP batches of "
-        f"{len(pair_lens)} to 40,000 pairs at nbits {dp_nbits}, {myers_edge_checks} Myers batches at the edges of its "
+        f"{len(pair_lens)} to 40,000 pairs (the plain versions over every 16th of the 40,000) at nbits {dp_nbits}, {myers_edge_checks} Myers batches at the edges of its "
         f"lane groups and bands (|a|, |b| in {MYERS_EDGES}, groups of 1 to 32 lanes, three bands), {mp_checked} multi-pattern counts in the DFA regimes "
         f"{sorted(regimes_seen)} and Shift-And over 6 MB); XXH64('') and XXH32('') match the published digests; "
         f"{oracle_checked} DP pairs equal levenshtein_ref, nw_ref and sw_ref; alignment batches at the edges of "
@@ -2803,7 +2892,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         f"bucket, a run of 300 marks among them, runs out of order across positions 31|32 and 63|64 and one of 70 "
         f"marks, compose_texts' chains and blocked marks), each form's output equal to unicodedata; {radix_checks} radix "
         f"argsorts ({RADIX_COLS} columns, {RADIX_NS} and 5,000,017 keys, equal, ten-valued and random keys of "
-        f"{RADIX_BITS} bits; {RADIX_MISALIGNED_NS} keys varying only in the last column's last keys); {uncased_checks} uncased key batches (rows of {UNCASED_WIDTHS} B: ASCII, multilingual, expanding and astral text, random bytes; empty rows, cut key lengths; the plan's columns, one fewer and one more) and their plans; {filter_checks} filter batches (Bloom build and query at k = 1, 7, 8, 9, 16 and m_bits 2^20 "
+        f"{RADIX_BITS} bits; {RADIX_MISALIGNED_NS} keys varying only in the last column's last keys); {uncased_checks} uncased key batches (rows of {UNCASED_WIDTHS} B: ASCII, multilingual, expanding and astral text, random bytes; empty rows, cut key lengths; the plan's columns, one fewer and one more; warps mixing the two paths at {UNCASED_MIXED_WIDTHS} B) and their plans; {filter_checks} filter batches (Bloom build and query at k = 1, 7, 8, 9, 16 and m_bits 2^20 "
         f"and 32 x 100,003 over spans, spans 3 bytes in, padded rows and an empty batch, the query on all-positive and "
         f"held-out probes and an all-zero filter; 200,003 tokens at k = 7 and 9 into 2^20 and 2^25 bits; BinaryFuse8 "
         f"queries of a 20,000-key table, and positions past its ends); launches {advanced}; "
@@ -3409,6 +3498,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
         ml = T.Tape.from_buffer(wait_corpus()[: 8 << 20], "words", device=dev)
         seq_keep["ml"] = ml
         seq_keep["words"] = (tape, staged["order"])
+        seq_keep["seq_words"] = tape
         rows, key_lengths, _ = SORT.stage_uncased(ml)
         n_cols, pack3 = SORT.uncased_plan(rows.data, key_lengths)
         if pack3:
@@ -3509,7 +3599,9 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
                + ", ".join(f"{key[:40]} {ms:.4f}" for ms, key in by_kernel[:10]) if by_kernel else "not measured")
             + f"; BPE route: {route} (rows of {inputs.bpe_rows.shape[1]} B); dryrun_multichip(1): "
             f"{sorted((k, int(v)) for k, v in dry.items() if v.dim() == 0)}; the sample sort's body over {words.count:,} "
-            f"words equals the sequence suite's order, call ms (CUDA events, host work in it) {sort_ms}; the sharded "
+            f"words equals the sequence suite's order, call ms (CUDA events, host work in it) {sort_ms}, bound "
+            f"{bound_ms(words.total_bytes + 8 * (words.count + 1) + 4 * words.count)[0]:.4f} ms (bytes: the tape's bytes "
+            f"and offsets read once, an int32 permutation written once); the sharded "
             f"forward and backward counts of {len(needles)} needles, the byteset and aho_corasick counts equal the "
             f"one-device calls; a forward count over the tape's {tape.total_bytes:,} B, call ms with its read-back {find_ms}; "
             f"launches {launches()}",
@@ -4167,7 +4259,7 @@ def smoke(corpus: Path, child: subprocess.Popen) -> int:
             lambda padded_plain=padded_plain: tuple(padded_plain(p) for p in buckets.buckets),
             buckets.token_bytes, h_bound, plain_samples=1)
     del buckets
-    sort_rows(row, timings, errors, tape, seq_keep.pop("ml"), dev)
+    sort_rows(row, timings, errors, tape, seq_keep.pop("seq_words"), seq_keep.pop("ml"), dev)
     del tape
     filter_rows(row, cont_keep, dev)
     memory_rows(row, mem_keep.pop("data"), dev)

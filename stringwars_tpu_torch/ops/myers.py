@@ -161,15 +161,16 @@ def myers_plain(batch: MyersBatch) -> torch.Tensor:
     for j in range(columns):
         c = text[j].to(torch.int64)
         in_text = j < b_len
-        # -1 (all ones) where the char lacks bit k, so plane ^ mask = ~plane;
-        # the sentinel plane always inverts: padding never matches.
-        masks = [((c >> k) & 1) - 1 for k in range(nbits - 1)] + [torch.full_like(c, -1)]
+        # Eq of every word at once: plane ^ mask, with the mask -1 (all ones)
+        # where the char lacks bit k, so that plane ^ mask = ~plane; the
+        # sentinel plane always inverts: padding never matches.
+        eq_words = ~planes[:, nbits - 1]
+        for k in range(nbits - 1):
+            eq_words = eq_words & (planes[:, k] ^ (((c >> k) & 1) - 1))
         hp = torch.ones_like(c)
         hn = torch.zeros_like(c)
         for w in range(W):
-            eq = planes[w, 0] ^ masks[0]
-            for k in range(1, nbits):
-                eq = eq & (planes[w, k] ^ masks[k])
+            eq = eq_words[w]
             p, n = vp[w], vn[w]
             xv = eq | n
             eq2 = eq | hn

@@ -16,10 +16,11 @@ wrote it back.
 ``uncased_keys`` is the counterpart of the fold and packing of
 ``stringwars_tpu.ops.sort._uncased_order``: the int32 ``[n_cols, B]`` key
 columns of the full case fold of padded rows, in one launch over the rows
-where they lie, through the dense fold table of ``uncased_table`` (staged
-once a device). ``uncased_extent`` runs the same kernel in its plan mode: the
-batch's largest folded count and codepoint, one 8-byte readback. Each adds
-one to ``LAUNCHES["uncased_keys"]``.
+where they lie: ASCII rows by word arithmetic, the others a thread a row,
+listed by length class, through the dense fold table of ``uncased_table``
+(staged once a device). ``uncased_extent`` runs the same kernel in its plan mode: the batch's
+largest folded count and codepoint, one 8-byte readback. Each adds one to
+``LAUNCHES["uncased_keys"]``.
 
 A CPU tensor raises: the plain versions live in ``ops/sort.py``.
 """
@@ -40,7 +41,7 @@ LAUNCHES = {"radix_argsort": 0, "uncased_keys": 0}
 DIGIT_BITS = 9  # csrc/radixsort.cu kRadixBits
 TILE = 4096  # csrc/radixsort.cu kTile: positions a pass's block takes
 SHIFTS = tuple(range(0, 32, DIGIT_BITS))  # 0, 9, 18, 27
-MAX_UNCASED_WIDTH = 904  # csrc/uncased_keys.cu: 256 staged rows of at most 227 KB
+MAX_UNCASED_WIDTH = 904  # csrc/uncased_keys.cu kUncasedMaxWidth: 128 staged rows and the column tile in 227 KB
 
 
 def radix_argsort(columns: torch.Tensor) -> torch.Tensor:
@@ -98,7 +99,9 @@ def uncased_table() -> np.ndarray:
     entry 0 is the first output codepoint ``| outputs << 24`` (one output
     where the codepoint does not expand), entry 1 the second ``| third <<
     16``. ``size`` is past every rule, so that a codepoint at or above it
-    folds to itself, as the range maps give."""
+    folds to itself, as the range maps give. Below 0x80 the fold must be the
+    ASCII lowercase, one output a codepoint: the kernel computes those
+    without the table."""
     from stringwars_tpu_torch.ops import casefold as CF
     from stringwars_tpu_torch.ops import rulemap as R
 
@@ -114,6 +117,10 @@ def uncased_table() -> np.ndarray:
             and ((0 <= third) & (third <= 0xFFFF)).all() and ((1 <= outputs) & (outputs <= 3)).all()):
         raise ValueError("the fold's tables do not fit the kernel's packed entries")
     table = np.stack([first | (outputs << 24), second | (third << 16)], axis=1)
+    ascii_cps = np.arange(0x80)
+    if not np.array_equal(table[:0x80, 0], np.where((ascii_cps >= 0x41) & (ascii_cps <= 0x5A), ascii_cps + 0x20,
+                                                    ascii_cps) | (1 << 24)):
+        raise ValueError("the fold is not the ASCII lowercase below 0x80, which the kernel computes without the table")
     return np.ascontiguousarray(table, dtype=np.int32)
 
 

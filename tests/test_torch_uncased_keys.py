@@ -4,9 +4,12 @@
   (``stringwars_tpu.ops.casefold.fold_tokens``) and packing
   (``stringwars_tpu/ops/sort.py:166-174``) on numpy-seeded batches, exactly,
   and the order against ``_uncased_order``;
-- the uncased keys kernel's walk (``csrc/uncased_keys.cu``: the decode, the
-  dense fold table of ``sort_cuda.uncased_table`` and the packing) replayed
-  in Python on the same batches, and the table against the fold's range maps;
+- the uncased keys kernel (``csrc/uncased_keys.cu``: the staging, each
+  row's path, ASCII rows by word arithmetic, the other rows listed by
+  length class and walked four bytes a step through the dense fold table of
+  ``sort_cuda.uncased_table``, a tile of columns at a time) replayed in
+  Python on the same batches, among them warps that mix the two paths, and
+  the table against the fold's range maps;
 - ``argsort_uncased``'s tie check on the packed columns, on tokens that reach
   the prefix width;
 - the radix kernel's one-sweep passes (``csrc/radixsort.cu``: the digit
@@ -36,6 +39,8 @@ from _radix_plan import digit_plan
 from _torch_threads import one_thread  # noqa: F401
 
 ROWS = 192  # one row count for every batch: the JAX fold compiles once a width
+KERNEL_ROWS = 128  # csrc/uncased_keys.cu kUncasedRows: rows a block stages
+KERNEL_TILE = 16  # csrc/uncased_keys.cu kUncasedTile: columns a block makes at a time in shared memory
 
 ALPHABETS = {
     "ascii": "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789-'",
@@ -85,11 +90,38 @@ def _batch(name: str):
     if name == "few-columns-w20":  # fewer columns than the plan's: the first n_cols kept
         data, lengths = _text_rows(rng, ALPHABETS["expansions"] + "abc", 20)
         return data, lengths, 2
+    if name.startswith("mixed-"):  # warps of ASCII rows with the other path's rows in them
+        data, lengths = _text_rows(rng, ALPHABETS["ascii"], 20)
+        other, other_lengths = _text_rows(rng, "éÉàÀßäÖñÑ", 20)  # folded within 509: three codepoints a column
+        at = _mixed_rows(name)
+        if name == "mixed-lanes-0-31-w20":  # a non-ASCII row at lane 0 and at lane 31 of each warp
+            data[at], lengths[at] = other[at], other_lengths[at]
+            data[at, 0], lengths[at] = 0xC3, np.maximum(lengths[at], 2)  # a two-byte lead first, whatever the row
+            data[at, 1] = 0x89
+        elif name == "mixed-high-past-key-w20":  # the row's only bytes from 0x80 up lie past its key length
+            lengths[at] = np.minimum(lengths[at], 17)
+            data[at, lengths[at]] = 0xC3
+            data[at, np.minimum(lengths[at] + 1, 19)] = 0x89
+        else:  # "mixed-lead-at-key-end-w20": a lead byte at the key length's last position, its tail past it
+            lengths[at] = np.clip(lengths[at], 1, 16)
+            leads = np.array([0xC3, 0xE2, 0xF0, 0xF8, 0xFF], np.uint8)[np.arange(at.size) % 5]
+            data[at, lengths[at] - 1] = leads
+            data[at, lengths[at]] = 0x89
+            data[at, lengths[at] + 1] = 0x9F
+            data[at, lengths[at] + 2] = 0x80
+        return data, lengths, None
     raise KeyError(name)
 
 
+def _mixed_rows(name: str) -> np.ndarray:
+    """The rows of a mixed batch that hold bytes from 0x80 up: lanes 0 and
+    31 of each warp, or every fifth row for the cut keys."""
+    rows = np.arange(ROWS)
+    return rows[(rows % 32 == 0) | (rows % 32 == 31)] if name == "mixed-lanes-0-31-w20" else rows[rows % 5 == 2]
+
+
 BATCHES = ["ascii-w20", "multilingual-w96", "expansions-w20", "deseret-w20", "invalid-w20", "cut-keys-w4",
-           "few-columns-w20"]
+           "few-columns-w20", "mixed-lanes-0-31-w20", "mixed-high-past-key-w20", "mixed-lead-at-key-end-w20"]
 
 
 def _jax_fold(data: np.ndarray, lengths: np.ndarray):
@@ -121,46 +153,164 @@ def _jax_columns(folded: np.ndarray, counts: np.ndarray, n_cols: int, pack3: boo
     return np.asarray(cols.T).astype(np.uint32)
 
 
-def _kernel_walk(data: np.ndarray, lengths: np.ndarray, n_cols: int, pack3: bool, table: np.ndarray):
-    """``csrc/uncased_keys.cu`` replayed a row at a time: (uint32 [n_cols, B]
-    columns, largest folded count, largest folded codepoint)."""
+def _row_of(i: np.ndarray, unit: int) -> np.ndarray:
+    """The kernel's ``row_of``: i // unit by a multiply-high with
+    ceil(2^32 / unit)."""
+    magic = ((1 << 32) + unit - 1) // unit
+    return ((i.astype(np.uint64) * np.uint64(magic)) >> np.uint64(32)).astype(np.int64)
+
+
+def _staged(data: np.ndarray, rows_a_block: int) -> np.ndarray:
+    """The rows as the kernel stages them, block by block: as 4-byte words
+    when the width is a multiple of 4, else byte by byte, each unit's row
+    found by ``_row_of``."""
     B, W = data.shape
-    size = table.shape[0]
-    entries = table.view(np.uint32)
+    words = W % 4 == 0
+    flat = data.reshape(-1).view(np.uint32) if words else data.reshape(-1)
+    unit = W // 4 if words else W
+    staged = np.zeros((B, unit), flat.dtype)
+    for row0 in range(0, B, rows_a_block):
+        here = min(rows_a_block, B - row0)
+        i = np.arange(here * unit)
+        r = _row_of(i, unit)
+        staged[row0 + r, i - r * unit] = flat[row0 * unit : (row0 + here) * unit]
+    return staged.view(np.uint8).reshape(B, W)
+
+
+def _bytes_below(k: int) -> int:
+    return 0 if k <= 0 else 0xFFFFFFFF if k >= 4 else (1 << (8 * k)) - 1
+
+
+def _lower4(x: int) -> int:
+    x &= 0x7F7F7F7F
+    upper = (x + 0x3F3F3F3F) & ~(x + 0x25252525) & 0x80808080
+    return x | (upper >> 2)
+
+
+def _byte_perm(x: int, y: int, selector: int) -> int:
+    src = [(x >> (8 * k)) & 0xFF for k in range(4)] + [(y >> (8 * k)) & 0xFF for k in range(4)]
+    return sum(src[(selector >> (4 * k)) & 7] << (8 * k) for k in range(4))
+
+
+def _spread3(z: int) -> int:
+    return (z & 0xFF) | ((z << 1) & 0x1FE00) | ((z << 2) & 0x3FC0000)
+
+
+def _ascii_columns(words: list[int], limit: int, n_cols: int, pack3: bool) -> tuple[list[int], int]:
+    """An ASCII row's columns by the kernel's word arithmetic, and its
+    largest lowercased byte (the plan's)."""
+    keys = [(_lower4(w) + 0x01010101) & _bytes_below(limit - 4 * k) if 4 * k < limit else 0 for k, w in enumerate(words)]
+    keys += [0] * (3 * n_cols)
+    cols = []
+    for c in range(0, n_cols, 4):
+        if pack3:
+            y0, y1, y2 = keys[3 * (c >> 2) : 3 * (c >> 2) + 3]
+            four = [_spread3(_byte_perm(y0, 0, 0x0012)), _spread3(_byte_perm(y0, y1, 0x0345)),
+                    _spread3(_byte_perm(y1, y2, 0x0234)), _spread3(_byte_perm(y2, 0, 0x0123))]
+        else:
+            four = [(keys[c >> 2] >> (8 * e)) & 0xFF for e in range(4)]
+        cols += four
+    top = max([(_lower4(w) & _bytes_below(limit - 4 * k)) >> (8 * e) & 0xFF for k, w in enumerate(words) if 4 * k < limit
+               for e in range(4)], default=0)
+    return cols[:n_cols], top
+
+
+def _byte_fold(row: np.ndarray, p: int, table: np.ndarray) -> list[int]:
+    """The outputs + 1 of byte ``p`` below the key length (none for a
+    continuation byte): the JAX decode, then the fold (ASCII by arithmetic,
+    the rest by the table, past it the codepoint itself)."""
+    W = row.shape[0]
+    b = int(row[p])
+    if b & 0xC0 == 0x80:
+        return []
+    b1, b2, b3 = (int(row[p + k]) & 0x3F if p + k < W else 0 for k in (1, 2, 3))
+    if b < 0x80:
+        cp = b
+    elif b < 0xE0:
+        cp = ((b & 0x1F) << 6) | b1
+    elif b < 0xF0:
+        cp = ((b & 0x0F) << 12) | (b1 << 6) | b2
+    else:
+        cp = ((b & 0x07) << 18) | (b1 << 12) | (b2 << 6) | b3
+    if cp < 0x80:
+        return [(cp + 0x20 if 0x41 <= cp <= 0x5A else cp) + 1]
+    if cp >= table.shape[0]:
+        return [cp + 1]
+    x, y = int(table[cp, 0]), int(table[cp, 1])
+    return [(x & 0xFFFFFF) + 1, (y & 0xFFFF) + 1, (y >> 16) + 1][: x >> 24]
+
+
+def _length_class(limit: int, walked: bool) -> int:
+    """The kernel's class of a listed row: 0 for an ASCII row, else by key
+    length (1-48 by 4 bytes, then by 32, the last from 145 up)."""
+    return 0 if not walked else 1 + ((limit - 1) >> 2 if limit <= 48 else min(15, 12 + ((limit - 49) >> 5)))
+
+
+def _row_walk(row: np.ndarray, limit: int, lo: int, hi: int, pack3: bool, table: np.ndarray):
+    """A listed row walked as its thread walks it: four bytes a step, each
+    byte's outputs (``_byte_fold``: its next three bytes read from the row,
+    0 past W) at the row's count so far, those whose index lies in [lo, hi)
+    placed, the walk stopped once the count reaches hi. ({column: value}
+    relative to lo // per, the count reached, the largest folded codepoint)."""
+    per = 3 if pack3 else 1
+    placed: dict[int, int] = {}
+    q = p = top = 0
+    while p < limit and q < hi:
+        for e in range(4):
+            for v in (_byte_fold(row, p + e, table) if p + e < limit else []):
+                top = max(top, v - 1)
+                if lo <= q < hi:
+                    at = q - lo
+                    placed[at // per] = placed.get(at // per, 0) | ((v << (9 * (2 - at % 3))) & 0xFFFFFFFF if pack3 else v)
+                q += 1
+        p += 4
+    return placed, q, top
+
+
+def _kernel_walk(data: np.ndarray, lengths: np.ndarray, n_cols: int, pack3: bool, table: np.ndarray,
+                 tile: int = KERNEL_TILE, rows_a_block: int = KERNEL_ROWS):
+    """``csrc/uncased_keys.cu`` replayed: the rows staged as the kernel
+    stages them, each row's path (a byte from 0x80 up below its key length,
+    tested on its words), ASCII rows by word arithmetic, the rest listed a
+    block at a time by length class (after the block's ASCII rows, which
+    its first threads take) and each walked by one thread, once for each
+    tile of ``tile`` columns. (uint32 [n_cols, B] columns, largest folded
+    count, largest folded codepoint, bool [B]: the rows that took the
+    walk)."""
+    B, W = data.shape
+    staged = _staged(data, rows_a_block)
+    np.testing.assert_array_equal(staged, data)
+    padded = np.zeros((B, -(-W // 4) * 4), np.uint8)
+    padded[:, :W] = staged
+    words = padded.view("<u4")
+    per = 3 if pack3 else 1
     cols = np.zeros((n_cols, B), np.uint32)
+    walked = np.zeros(B, bool)
+    limits = np.minimum(np.maximum(lengths.astype(np.int64), 0), W)
     top_count = top_cp = 0
     for t in range(B):
-        row = data[t].astype(np.uint32)
-        limit = min(max(int(lengths[t]), 0), W)
-        vals, pos = [], 0
-        while pos < limit:
-            b = int(row[pos])
-            pos += 1
-            if b & 0xC0 == 0x80:
-                continue
-            b1, b2, b3 = (int(row[pos + k]) & 0x3F if pos + k < W else 0 for k in range(3))
-            if b < 0x80:
-                cp = b
-            elif b < 0xE0:
-                cp = ((b & 0x1F) << 6) | b1
-            elif b < 0xF0:
-                cp = ((b & 0x0F) << 12) | (b1 << 6) | b2
-            else:
-                cp = ((b & 0x07) << 18) | (b1 << 12) | (b2 << 6) | b3
-            if cp < size:
-                x, y = int(entries[cp, 0]), int(entries[cp, 1])
-                vals += [x & 0xFFFFFF, y & 0xFFFF, y >> 16][: x >> 24]
-            else:
-                vals.append(cp)
-        top_count = max(top_count, len(vals))
-        top_cp = max([top_cp, *vals])
-        taken = [v + 1 for v in vals] + [0] * (3 * n_cols)
-        for c in range(n_cols):
-            if pack3:
-                cols[c, t] = ((taken[3 * c] << 18) | (taken[3 * c + 1] << 9) | taken[3 * c + 2]) & 0xFFFFFFFF
-            else:
-                cols[c, t] = taken[c]
-    return cols, top_count, top_cp
+        limit = int(limits[t])
+        row_words = [int(w) for w in words[t]]
+        high = 0
+        for k in range(-(-limit // 4)):
+            high |= row_words[k] & _bytes_below(limit - 4 * k)
+        walked[t] = high & 0x80808080 != 0
+        if not walked[t]:
+            cols[:, t], top = _ascii_columns(row_words, limit, n_cols, pack3)
+            top_count, top_cp = max(top_count, limit), max(top_cp, top)
+    for row0 in range(0, B, rows_a_block):
+        block = range(row0, min(row0 + rows_a_block, B))
+        if not walked[block].any():
+            continue  # every row ASCII: each thread stores its own row's columns
+        listed = sorted(block, key=lambda t: _length_class(int(limits[t]), walked[t]))
+        for t in listed[len(block) - int(walked[block].sum()) :]:  # after the ASCII rows: the others, by class
+            for c0 in range(0, n_cols, tile):
+                placed, _, _ = _row_walk(staged[t], int(limits[t]), c0 * per, min(c0 + tile, n_cols) * per, pack3, table)
+                for c, v in placed.items():
+                    cols[c0 + c, t] = v
+            _, count, top = _row_walk(staged[t], int(limits[t]), 0, 1 << 62, pack3, table)  # the plan: the whole row
+            top_count, top_cp = max(top_count, count), max(top_cp, top)
+    return cols, top_count, top_cp, walked
 
 
 @pytest.mark.parametrize("name", BATCHES)
@@ -177,9 +327,12 @@ def test_uncased_keys_equal_jax_and_the_kernel_walk(name):
     assert got.dtype == torch.int32 and tuple(got.shape) == (n_cols, ROWS)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     np.testing.assert_array_equal(S.uncased_keys(data_t, lengths_t, n_cols, pack3).numpy().view(np.uint32), want)
-    walked, top_count, top_cp = _kernel_walk(data, lengths, n_cols, pack3, SC.uncased_table())
-    np.testing.assert_array_equal(walked, want)
-    assert (top_count, top_cp) == (int(counts.max()), int(folded.max()))
+    table = SC.uncased_table()
+    # The kernel's tile, then tiles of 4 columns: a row walked once a tile.
+    for tile in (KERNEL_TILE, 4):
+        replayed, top_count, top_cp, _ = _kernel_walk(data, lengths, n_cols, pack3, table, tile)
+        np.testing.assert_array_equal(replayed, want)
+        assert (top_count, top_cp) == (int(counts.max()), int(folded.max()))
     jorder, _ = JS._uncased_order(jnp.asarray(data), jnp.asarray(lengths), n_cols, pack3)
     np.testing.assert_array_equal(S.uncased_order(data_t, lengths_t, n_cols, pack3).numpy(), np.asarray(jorder))
 
@@ -192,6 +345,31 @@ def test_batches_cover_both_packings_and_the_cut():
     assert _batch("few-columns-w20")[2] < plans["few-columns-w20"][0]
     assert S.uncased_plan(torch.zeros((0, 8), dtype=torch.uint8), torch.zeros(0, dtype=torch.int32)) == (1, True)
     assert S.uncased_plan(torch.zeros((3, 8), dtype=torch.uint8), torch.zeros(3, dtype=torch.int32)) == (1, True)
+
+
+def test_mixed_batches_mix_the_paths_in_a_warp():
+    """The mixed batches put rows of both paths into warps: the walk takes
+    exactly lanes 0 and 31 of each warp, no row whose only high bytes
+    lie past its key length, and every row whose key ends on a lead byte."""
+    table = SC.uncased_table()
+    for name in ("mixed-lanes-0-31-w20", "mixed-high-past-key-w20", "mixed-lead-at-key-end-w20"):
+        data, lengths, _ = _batch(name)
+        walked = _kernel_walk(data, lengths, 1, True, table)[3]
+        want = np.zeros(ROWS, bool)
+        if name != "mixed-high-past-key-w20":
+            want[_mixed_rows(name)] = True
+        np.testing.assert_array_equal(walked, want, err_msg=name)
+        if name == "mixed-high-past-key-w20":
+            assert (data >= 0x80).any(1).sum() >= ROWS // 5
+
+
+def test_staging_rows_by_multiply_high():
+    """The kernel finds a staged unit's row by a multiply-high with
+    ceil(2^32 / unit): exact wherever a block stages (its rows of every
+    unit up to the widest rows' bytes)."""
+    for unit in range(1, SC.MAX_UNCASED_WIDTH + 1):
+        i = np.arange(KERNEL_ROWS * unit)
+        np.testing.assert_array_equal(_row_of(i, unit), i // unit)
 
 
 def test_fold_table_equals_the_range_maps():

@@ -12,6 +12,7 @@
     python3 tools/hopper_probes.py spans [--other-tree DIR]
     python3 tools/hopper_probes.py compose [--other-tree DIR]
     python3 tools/hopper_probes.py sort [--other-tree DIR]
+    python3 tools/hopper_probes.py uncased [--other-tree DIR]
     python3 tools/hopper_probes.py filters [--other-tree DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
@@ -178,6 +179,17 @@ subcommand measures:
   column's first) marked. Then the uncased keys kernel and its plan mode
   beside the earlier torch route (``uncased_keys_plain``), and the uncased
   order split by launch.
+- ``uncased``: the uncased keys at the rows that run them (the hash suite's
+  128 MB of words, the sequence path's 16 MB of words and 8 MB of
+  ``synthetic:multilingual`` words, and those multilingual rows with every
+  byte from 0x80 up made ``x``): the earlier kernel, a thread a row
+  (``tools/hopper_probes/uncased_variants.cu``), whole and with its parts
+  switched off (staging alone, the walk without stores, the stores alone,
+  staging and stores without the walk), the package's kernel and its plan
+  mode, a copy of it at other settings (``UNCASED_VARIANTS``,
+  ``tools/hopper_probes/uncased_settings.cu``) and ``--other-tree``'s kernel, each that computes the keys held to
+  ``uncased_keys_plain``, timed by CUDA events in both orders; then the
+  uncased order of the 16 MB words split by launch.
 
 Builds go to ``stringwars_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
@@ -1482,6 +1494,139 @@ def sort(args) -> None:
         + f", other device work {split['torch']:.4f}, total {split['total']:.4f}"), flush=True)
 
 
+# tools/hopper_probes/uncased_variants.cu's entry point and its modes (the
+# earlier kernel, a thread a row, with its parts switched off; only mode 0
+# computes the function).
+PARENT_UNCASED = {"uncased_parent_run": (_N, _P, _P, _N, _N, _P, _N, _N, _N, _P, _P)}
+PARENT_MODES = {0: "the earlier kernel (a thread a row)", 1: "the earlier kernel, staging alone (timing only)",
+                2: "the earlier kernel, the walk without stores (timing only)",
+                3: "the earlier kernel, the stores alone, columns made in registers (timing only)",
+                4: "the earlier kernel, staging and the stores, no walk (timing only)"}
+# tools/hopper_probes/uncased_settings.cu (csrc/uncased_keys.cu with its
+# settings as SW_UNCASED_* switches) built at other settings, each exporting
+# uncased_setting_run with sw_uncased_keys' arguments; "timing only" builds
+# give wrong columns and are not held to the plain version.
+UNCASED_VARIANTS = {
+    "tiles of 8 columns": {"SW_UNCASED_TILE": 8},
+    "every row through the walk (no ASCII path)": {"SW_UNCASED_ASCII": 0},
+    "256 rows a block": {"SW_UNCASED_ROWS": 256},
+    "registers for 6 blocks of 256 rows an SM": {"SW_UNCASED_MIN_BLOCKS": 6},
+    "no walk of the listed rows (timing only)": {"SW_UNCASED_WALK": 0},
+    "the walk with no table load (timing only)": {"SW_UNCASED_FOLD": 0},
+}
+
+
+def uncased_shapes(dev):
+    """(name, rows, key lengths) of the uncased keys at the rows the probe
+    times: the hash suite's 128 MB of words (``uncased-keys-words-128MB``),
+    the sequence path's 16 MB of words and 8 MB of ``synthetic:multilingual``
+    words (``chip_smoke.py``'s sequence path: the corpus' first 8 MiB), and
+    those multilingual rows with each byte from 0x80 up made ``x`` (ASCII
+    rows of the same lengths)."""
+    from stringwars_tpu_torch.ops import sort as SORT
+
+    shapes = []
+    for name, limit in (("words-128MB", "128mb"), ("seq-words-16MB", "16mb")):
+        tape = datasets.load_tape(None, tokens_mode="words", size_limit=limit, device=dev)
+        rows, key_lengths, _ = SORT.stage_uncased(tape)
+        shapes.append((name, rows.data, key_lengths))
+        del tape
+    corpus = datasets.synthesize("multilingual", (8 << 20) + 4096)[: 8 << 20]
+    rows, key_lengths, _ = SORT.stage_uncased(T.Tape.from_buffer(corpus, "words", device=dev))
+    shapes.append(("seq-multilingual-8MB", rows.data, key_lengths))
+    shapes.append(("seq-multilingual-8MB, bytes from 0x80 made 'x'",
+                   torch.where(rows.data >= 0x80, torch.full_like(rows.data, ord("x")), rows.data), key_lengths))
+    return shapes
+
+
+def uncased(args) -> None:
+    """The uncased keys kernel taken apart and timed at the rows that run it:
+    the earlier kernel's parts, the package's kernel and its settings, and
+    ``--other-tree``'s kernel, in one process."""
+    from stringwars_tpu_torch.ops import sort as SORT
+    from stringwars_tpu_torch.ops import sort_cuda as SC
+
+    dev = torch.device("cuda", 0)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    parent_so = build.BUILD_DIR / "probe_uncased_parent.so"
+    variant_so = {name: build.BUILD_DIR / f"probe_uncased_{i}.so" for i, name in enumerate(UNCASED_VARIANTS)}
+    procs = {"the earlier kernel": nvcc_shared(PROBES / "uncased_variants.cu", parent_so)}
+    procs.update({name: nvcc_shared(PROBES / "uncased_settings.cu", variant_so[name], defines)
+                  for name, defines in UNCASED_VARIANTS.items()})
+    other = ctypes.CDLL(other_library(Path(args.other_tree))) if args.other_tree else None
+    build.library()
+    shapes = uncased_shapes(dev)
+    for name, proc in procs.items():
+        print(f"ptxas, {name}: {finish(proc, name)}", flush=True)
+    parent = ctypes.CDLL(str(parent_so))
+    parent.uncased_parent_run.argtypes = PARENT_UNCASED["uncased_parent_run"]
+    parent.uncased_parent_run.restype = ctypes.c_int
+    entries = {name: ctypes.CDLL(str(so)).uncased_setting_run for name, so in variant_so.items()}
+    if other is not None:
+        entries[f"{args.other_tree}'s kernel"] = other.sw_uncased_keys
+    for entry in entries.values():
+        entry.argtypes = build.SIGNATURES["sw_uncased_keys"]
+        entry.restype = ctypes.c_int
+    table = SC._staged_table(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def parent_call(mode: int, rows, lengths, out, n_cols: int, pack3: bool):
+        code = parent.uncased_parent_run(mode, rows.data_ptr(), lengths.data_ptr(), rows.shape[0], rows.shape[1],
+                                         table.data_ptr(), table.shape[0], n_cols, int(pack3), out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"uncased_parent_run mode {mode}: CUDA error {code}")
+        return out
+
+    def entry_call(entry, rows, lengths, out, n_cols: int, pack3: bool):
+        code = entry(rows.data_ptr(), lengths.data_ptr(), rows.shape[0], rows.shape[1], table.data_ptr(),
+                     table.shape[0], n_cols, int(pack3), 0, out.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"{entry.__name__} of another build: CUDA error {code}")
+        return out
+
+    plan_of = {}
+    for shape, rows, lengths in shapes:
+        n = rows.shape[0]
+        if shape not in plan_of:  # the ASCII twin takes the multilingual rows' plan: the same columns to make
+            plan_of[shape] = plan_of.get(shape.split(",")[0]) or SORT.uncased_plan(rows, lengths)
+        n_cols, pack3 = plan_of[shape]
+        ascii_rows = int(((rows >= 0x80) & (torch.arange(rows.shape[1], device=dev)[None, :]
+                                            < lengths.clamp(0, rows.shape[1])[:, None])).any(1).logical_not().sum())
+        bound = (rows.numel() + 4 * n + 4 * n_cols * n) / 3.35e9
+        print(f"{shape}: {n:,} rows of {rows.shape[1]} B ({ascii_rows:,} ASCII below their key lengths, "
+              f"{int(lengths.sum()):,} key bytes) to {n_cols} columns {'of three codepoints' if pack3 else 'of a codepoint'}; "
+              f"bound {bound:.4f} ms (the rows and key lengths read once, the columns written once, at 3.35 TB/s)",
+              flush=True)
+        want = SORT.uncased_keys_plain(rows, lengths, n_cols, pack3)
+        outs = {}
+        calls = {"the package's kernel": lambda: SC.uncased_keys(rows, lengths, n_cols, pack3),
+                 "the package's plan mode": lambda: SC.uncased_extent(rows, lengths)}
+        for mode, label in PARENT_MODES.items():
+            outs[label] = torch.empty((n_cols, n), dtype=torch.int32, device=dev)
+            calls[label] = lambda mode=mode, out=outs[label]: parent_call(mode, rows, lengths, out, n_cols, pack3)
+        for label, entry in entries.items():
+            outs[label] = torch.empty((n_cols, n), dtype=torch.int32, device=dev)
+            calls[label] = lambda entry=entry, out=outs[label]: entry_call(entry, rows, lengths, out, n_cols, pack3)
+        for label, fn in calls.items():
+            if "timing only" in label or "plan" in label:
+                continue
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"uncased {shape}: {label} differs from uncased_keys_plain")
+        del want
+        times = both_orders(calls)
+        for label in calls:
+            print(f"  {label}: CUDA events {_fmt(times[label])} ms a call", flush=True)
+        del outs, calls
+        torch.cuda.empty_cache()
+    _, rows, lengths = shapes[1]
+    n_cols, pack3 = plan_of[shapes[1][0]]
+    launches = {"uncased keys": "uncased_keys_kernel", **SWEEP_LAUNCHES}
+    split = CS.device_breakdown(lambda: SORT.uncased_order(rows, lengths, n_cols, pack3), launches, calls=5)
+    print(f"the uncased order of {shapes[1][0]} by launch (profiler device ms a call): " + (
+        "not measured" if split is None else ", ".join(f"{k} {split[k]:.4f}" for k in launches)
+        + f", other device work {split['torch']:.4f}, total {split['total']:.4f}"), flush=True)
+
+
 # The earlier Bloom entry points (a checkout of the parent, ``--other-tree``):
 # the build ORs into words the caller zeroed, the query sets its answers to
 # 1 first and clears them.
@@ -1701,7 +1846,7 @@ def filters(args) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("probe", choices=("chacha", "bpe", "seal", "myers", "poly", "ac", "shiftand", "xxh3", "reorder", "spans",
-                                            "compose", "sort", "filters"))
+                                            "compose", "sort", "uncased", "filters"))
     parser.add_argument("--other-tree", help="a checkout of another commit, its library built in place")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1709,7 +1854,8 @@ def main() -> int:
         return 2
     print(card_line(), flush=True)
     {"chacha": chacha, "bpe": bpe, "seal": seal, "myers": myers, "poly": poly, "ac": ac, "shiftand": shiftand, "xxh3": xxh3,
-     "reorder": reorder, "spans": spans, "compose": compose, "sort": sort, "filters": filters}[args.probe](args)
+     "reorder": reorder, "spans": spans, "compose": compose, "sort": sort, "uncased": uncased,
+     "filters": filters}[args.probe](args)
     return 0
 
 
